@@ -1,0 +1,115 @@
+"""Architecture configs (the port's own copy of ``repro.configs.base``).
+
+Every architecture gets a ``configs/<id>.py`` exporting CONFIG with the
+published numbers.  ``reduced()`` derives the CPU-test variant (same
+family, tiny sizes).  The port serves the dense family only; the other
+families' fields stay so that a config reads the same in both packages."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMCfg:
+    state_dim: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    conv_dim: int = 4
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMCfg:
+    proj_factor_slstm: float = 4.0 / 3.0
+    proj_factor_mlstm: float = 2.0
+    conv_dim: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str               # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0         # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    swa_window: Optional[int] = None
+    rope_theta: float = 1e4
+    moe: Optional[MoECfg] = None
+    ssm: Optional[SSMCfg] = None
+    xlstm: Optional[XLSTMCfg] = None
+    attn_every: int = 0
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    embed_stub: bool = False
+    remat: bool = True
+    dtype: str = "bfloat16"
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU tests (same rule as repro)."""
+        def shrink_moe(m: Optional[MoECfg]) -> Optional[MoECfg]:
+            if m is None:
+                return None
+            return MoECfg(n_experts=min(4, m.n_experts),
+                          top_k=min(2, m.top_k), d_ff_expert=64,
+                          capacity_factor=8.0)
+
+        return dataclasses.replace(
+            self,
+            n_layers=max(2, min(4, self.n_layers)),
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=min(4, max(1, self.n_kv_heads * 4 // self.n_heads)),
+            head_dim=16,
+            d_ff=128 if self.d_ff else 0,
+            vocab=256,
+            swa_window=16 if self.swa_window else None,
+            moe=shrink_moe(self.moe),
+            ssm=SSMCfg(state_dim=8, head_dim=8, expand=2, conv_dim=4,
+                       chunk=8) if self.ssm else None,
+            attn_every=2 if self.attn_every else 0,
+        )
+
+
+_REGISTRY: Dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_arch(name: str) -> ArchConfig:
+    if not _REGISTRY:
+        load_all()
+    return _REGISTRY[name]
+
+
+def all_archs() -> List[str]:
+    if not _REGISTRY:
+        load_all()
+    return sorted(_REGISTRY)
+
+
+def load_all() -> None:
+    import importlib
+    for mod in ("qwen2_1p5b", "llama3p2_3b"):
+        importlib.import_module(f"repro_torch.configs.{mod}")

@@ -1,0 +1,10 @@
+"""llama3.2-3b — small llama3 [hf:meta-llama/Llama-3.2-3B; unverified]."""
+from .base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="llama3.2-3b", family="dense",
+    n_layers=28, d_model=3072, n_heads=24, n_kv_heads=8,
+    head_dim=128, d_ff=8192, vocab=128256,
+    rope_theta=5e5, tie_embeddings=True,
+    source="hf:meta-llama/Llama-3.2-3B",
+))
