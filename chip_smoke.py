@@ -11,21 +11,34 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, at the serving path's shapes (12 q heads over 2 KV heads,
      hd 128) and at the reduced configs' hd 16;
+     The backward kernels (dq, dk/dv) are held the same way, causal and
+     not, with a window, GQA groups 1 and 6, hd 16 / 64 / 128, a ragged
+     S = 1000 and the training shape;
   4. serve: qwen2-1.5b at full width (28 layers, d 1536, vocab 151936,
      bf16, random weights from torch.Generator(0)), 16 slots x 2048,
      prefill chunk 256, 32 requests of 256-1536 prompt tokens, 32 greedy
      tokens each, through launch.serve.run_workload; every launch counter
      must match the dispatch counts and the plain versions must not run;
      then the reduced model on the card against the same model on the CPU;
+  4b. train: qwen2-1.5b at full width, f32 master weights, global batch
+     4 x 1024 in 2 microbatches, AdamW lr 3e-4 with 2 warmup steps, 12
+     steps through launch.train's runner; every loss finite, the last
+     below the first, launches per step exactly flash_fwd 112 (forward and
+     remat recompute) and flash_bwd_dq / flash_bwd_dkv 56 each, no plain
+     call; then the reduced model's loss and grads on the card against the
+     CPU, and 3 compressed-sync engine steps on both;
   5. times: each kernel's time (CUDA events, L2 flushed before every
-     launch), its bound, the plain version's time and SDPA's as the
-     library yardstick;
+     launch), its bound, the plain version's time and SDPA's (forward or
+     backward) as the library yardstick;
   6. the kernels line and the contract's last line.
+With --profile, also torch.profiler over one admission, 8 decode steps
+and 2 full-width training steps.
 Imports nothing of JAX and nothing of the repro (JAX) package.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -54,6 +67,21 @@ LSE_TOL = 1e-3
 # Reduced model on the card vs on the CPU, bf16 weights: the repro band
 # for bf16 logits (verify/numerics.py LOGITS_ATOL).
 LOGITS_ATOL = 0.25
+# The backward's dq, dk and dv are bf16: the same f32 sums (dk/dv also
+# over the g query heads and the q tiles) in another order, rounded to
+# bf16, so the same one-ulp band as O_TOL: |err| <= 1e-2 * max(1, |ref|).
+GRAD_TOL = 1e-2
+# Reduced model's loss on the card vs the CPU, bf16: repro's LOSS_ATOL
+# (verify/numerics.py).  Its param grads: each bf16 computation lies
+# within 2.5% of max|g| of the f32 grads (reduced qwen2-1.5b on the CPU),
+# so two of them within 5%; the band is 0.1 x max|g| per param.
+LOSS_ATOL = 0.05
+PARAM_GRAD_REL = 0.1
+# Compressed-sync engine, 3 steps, card vs CPU: repro's TRAIN_LOSS_ATOL
+# (verify/train_cell.py), drift compounding over optimizer steps.
+TRAIN_LOSS_ATOL = 0.08
+# the full-width training run: 12 steps, 2 of them warmup
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 12, 4, 1024, 2
 
 
 def fail(msg: str) -> None:
@@ -186,7 +214,8 @@ def check_kernels(dev, tag):
         return torch.randn(shape, generator=g, device=dev,
                            dtype=torch.float32).to(torch.bfloat16)
 
-    rows = {"flash_fwd": [], "flash_decode": []}
+    rows = {"flash_fwd": [], "flash_decode": [], "flash_bwd_dq": [],
+            "flash_bwd_dkv": []}
     # (b, sq, sk, h, kv, hd, q_off, causal, window)
     fwd_cases = [
         (1, 256, 2048, 12, 2, 128, 0, True, None),
@@ -245,14 +274,51 @@ def check_kernels(dev, tag):
             fail(f"flash_decode disagrees with its plain version (case {i})")
         rows["flash_decode"].append(dict(case=i, max_abs_err=e_o,
                                          rel_err=r_o))
+
+    # (b, s, h, kv, hd, causal, window)
+    bwd_cases = [
+        (TRAIN_BATCH, TRAIN_SEQ, 12, 2, 128, True, None),  # training shape
+        (2, 1000, 12, 2, 128, True, None),                # ragged S
+        (1, 512, 12, 12, 128, False, None),               # g = 1
+        (1, 512, 12, 2, 128, True, 128),                  # window
+        (2, 100, 8, 2, 64, False, 50),
+        (2, 33, 4, 1, 16, True, 9),
+        (1, 40, 4, 4, 16, False, None),
+    ]
+    for i, (b, s, h, kv, hd, causal, window) in enumerate(bwd_cases):
+        q, do = rnd((b, s, h, hd), 200 + 4 * i), rnd((b, s, h, hd), 201 + 4 * i)
+        k, v = rnd((b, s, kv, hd), 202 + 4 * i), rnd((b, s, kv, hd), 203 + 4 * i)
+        kw = dict(causal=causal, window=window)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        errs = {n: rel_err(a, w) for n, a, w in zip(("dq", "dk", "dv"), got,
+                                                     want)}
+        ok = (all(r <= GRAD_TOL for _, r in errs.values())
+              and all(bool(torch.isfinite(a).all()) for a in got))
+        print(f"check flash_bwd b={b} s={s} h={h} kv={kv} hd={hd} "
+              f"causal={causal} window={window}: "
+              + " ".join(f"max|d{n}|={e:.3g} rel={r:.3g}"
+                         for n, (e, r) in errs.items())
+              + f" {'ok' if ok else 'MISS'} {tag}")
+        if not ok:
+            fail(f"flash_bwd disagrees with its plain version (case {i})")
+        rows["flash_bwd_dq"].append(dict(case=i, max_abs_err=errs["dq"][0],
+                                         rel_err=errs["dq"][1]))
+        rows["flash_bwd_dkv"].append(dict(
+            case=i, max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+            rel_err=max(errs["dk"][1], errs["dv"][1])))
+        del q, k, v, do, o, lse, got, want
     return rows
 
 
 def time_kernels(dev, tag, timer):
-    """Times at the serving path's shapes: a 256-row prefill chunk at
-    offset 768 against a 2048-slot cache (row 2) and a 16-slot decode step
-    (row 3); plus the same forward kernel without an offset on a
-    2048-token causal self-attention (row 1, the training shape)."""
+    """Times at the main paths' shapes: a 256-row prefill chunk at offset
+    768 against a 2048-slot cache (row 2) and a 16-slot decode step (row
+    3) of serving; the forward without an offset (row 1) and the two
+    backward kernels (rows 5, 6) at the training shape, q [4,1024,12,128]
+    against kv [4,1024,2,128], causal."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -287,7 +353,8 @@ def time_kernels(dev, tag, timer):
         return rec
 
     out = {"flash_fwd": fwd_record(1, 256, 2048, 768),
-           "flash_fwd (row 1, no offset)": fwd_record(1, 2048, 2048, None)}
+           "flash_fwd (row 1, training shape)": fwd_record(
+               TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, None)}
 
     b, s = 16, 2048
     q, kc, vc = rnd((b, h, hd)), rnd((b, s, kv, hd)), rnd((b, s, kv, hd))
@@ -310,6 +377,7 @@ def time_kernels(dev, tag, timer):
         print(f"SDPA yardstick unavailable: {e}")
         rec["library_ms"] = None
     out["flash_decode"] = rec
+    out.update(time_bwd(dev, timer, rnd, h, kv, hd))
     for name, r in out.items():
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -317,6 +385,61 @@ def time_kernels(dev, tag, timer):
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, SDPA {lib} {tag}")
     return out
+
+
+def bwd_work(b, s, h, kv, hd, causal, window, which):
+    """Bytes (each input read once, each output written once) and FLOPs
+    of the dq kernel (3 products over the visible keys: S, dP, dQ) or the
+    dk/dv kernel (4: S, dP, dK, dV)."""
+    n, _, _ = fwd_visible(s, s, 0, causal, window)
+    vis = float(n.sum())
+    qsz, kvsz, rows = b * s * h * hd * 2, b * s * kv * hd * 2, b * h * s * 4
+    if which == "dq":   # q, o, do, k, v, lse in; dq, delta out
+        return 4 * qsz + 2 * kvsz + 2 * rows, 3 * 2.0 * hd * h * b * vis
+    # q, do, k, v, lse, delta in; dk, dv out
+    return 2 * qsz + 4 * kvsz + 2 * rows, 4 * 2.0 * hd * h * b * vis
+
+
+def time_bwd(dev, timer, rnd, h, kv, hd):
+    """The two backward kernels timed apart at the training shape; the
+    plain version and SDPA's backward compute dq, dk and dv together, so
+    both rows carry the same plain and library time."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    q, k, v, do = (rnd((b, s, h, hd)), rnd((b, s, kv, hd)),
+                   rnd((b, s, kv, hd)), rnd((b, s, h, hd)))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+    plain_ms = timer(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
+                     n=5)
+    try:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = timer(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                   retain_graph=True))
+    except (TypeError, RuntimeError) as e:   # no enable_gqa in this torch
+        print(f"SDPA backward yardstick unavailable: {e}")
+        lib_ms = None
+    shape = (f"q/do [{b},{s},{h},{hd}] kv [{b},{s},{kv},{hd}] causal; plain "
+             f"and SDPA times are the whole backward")
+    fns = {"flash_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+               q, k, v, o, lse, do),
+           "flash_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+               q, k, v, lse, delta, do)}
+    out_rec = {}
+    for name, fn in fns.items():
+        by, fl = bwd_work(b, s, h, kv, hd, True, None, name[len("flash_bwd_"):])
+        bms, bby = bound(by, fl)
+        out_rec[name] = dict(shape=shape, ms=timer(fn), plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=bby, bytes=by, flops=fl,
+                             library_ms=lib_ms)
+    return out_rec
 
 
 def serve_full_width(dev, tag, profile=False):
@@ -421,7 +544,6 @@ def profile_serve(model, params, scfg, prompts, tag):
     decode steps of a full 16-slot pool at up to ~1000 cached tokens per
     slot.  Prints the kernels with
     the most device time and the device's busy share of the wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime.serve import Server
@@ -442,22 +564,52 @@ def profile_serve(model, params, scfg, prompts, tag):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side kernel events only: the aten ops that launched them
-        # carry the same device time again
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        print(f"profile {phase}: wall {wall_ms:.2f} ms, device busy "
-              f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%) {tag}")
-        for key, ms, n in rows[:12]:
-            print(f"  {ms:9.3f} ms {n:6d}x  {key[:90]}")
-        out[phase] = dict(wall_ms=wall_ms, busy_ms=busy,
-                          top=[dict(kernel=k, ms=m, count=n)
-                               for k, m, n in rows[:20]])
+        out[phase] = report_profile(prof, phase, wall_ms, tag)
     return out
+
+
+# host calls that make the host wait for the device (or copy synchronously)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def report_profile(prof, phase, wall_ms, tag):
+    """Print and return the device's busy share of the wall time, the
+    kernels with the most device time, and the host's sync calls."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    # device-side kernel events only: the aten ops that launched them
+    # carry the same device time again
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in events
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    syncs = {e.key: e.count for e in events if e.key in SYNC_CALLS}
+    copies = sum(e.count for e in events if e.key == "cudaMemcpyAsync")
+    groups = {}
+    for key, ms, n in rows:
+        low = key.lower()
+        g = ("repro kernels" if "repro::" in key else
+             "matmul" if any(w in low for w in ("nvjet", "gemm", "cutlass"))
+             else "other")
+        g_ms, g_n = groups.get(g, (0.0, 0))
+        groups[g] = (g_ms + ms, g_n + n)
+    print(f"profile {phase}: wall {wall_ms:.2f} ms, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
+          f"{sum(r[2] for r in rows)} kernels, host sync calls {syncs}, "
+          f"cudaMemcpyAsync {copies} {tag}")
+    print("  by group: " + ", ".join(
+        f"{g} {ms:.3f} ms / {n} kernels" for g, (ms, n) in groups.items()))
+    for key, ms, n in rows[:12]:
+        print(f"  {ms:9.3f} ms {n:6d}x  {key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, sync_calls=syncs,
+                memcpy_async=copies, kernels=sum(r[2] for r in rows),
+                groups={g: dict(ms=ms, count=n)
+                        for g, (ms, n) in groups.items()},
+                top=[dict(kernel=k, ms=m, count=n) for k, m, n in rows[:20]])
 
 
 def _leaves(tree):
@@ -510,6 +662,169 @@ def reduced_card_vs_cpu(dev, tag):
     return worst
 
 
+def train_flops(cfg, b, s):
+    """Model FLOPs of one training step (forward + backward = 3 x the
+    forward's matmul and attention FLOPs; the remat recompute is not
+    counted): every weight matmul, the tied head, and causal attention."""
+    d, hd, h, kv, f = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    per_layer = d * (h + 2 * kv) * hd + h * hd * d + 3 * d * f
+    mm = 2.0 * b * s * (cfg.n_layers * per_layer + d * cfg.vocab)
+    attn = cfg.n_layers * 4.0 * hd * h * b * s * (s + 1) / 2
+    return 3 * (mm + attn)
+
+
+def train_argv():
+    return ["--arch", "qwen2-1.5b", "--steps", str(TRAIN_STEPS),
+            "--warmup", "2", "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--buckets",
+            "4", "--lr", "3e-4", "--log-every", "5", "--seed", "0"]
+
+
+def train_full_width(dev, tag):
+    """The training main path: launch.train's runner at full width."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_arch("qwen2-1.5b")
+    args = launch_train.build_argparser().parse_args(train_argv())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    rec = launch_train.run(args)
+    launches = dict(fa.launches)
+    plain = dict(ops.plain_calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    L, n = cfg.n_layers, TRAIN_STEPS
+    want = {"flash_fwd": 2 * L * TRAIN_MICRO * n, "flash_decode": 0,
+            "flash_bwd_dq": L * TRAIN_MICRO * n,
+            "flash_bwd_dkv": L * TRAIN_MICRO * n}
+    losses = rec["losses"]
+    print(f"train: {cfg.name} full width, {n} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches, losses "
+          f"{[round(x, 4) for x in losses]}")
+    print(f"train: launches {launches} (want {want}), plain calls {plain}")
+    if len(losses) != n or not np.isfinite(losses).all():
+        fail(f"training losses not all finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"last loss {losses[-1]} is not below the first {losses[0]}")
+    if launches != want:
+        fail(f"training launches {launches}, expected {want}")
+    if any(plain.values()):
+        fail(f"a plain version ran on the training path: {plain}")
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    mfu = flops / rec["mean_step_s"] / BF16_FLOPS_PER_S
+    print(f"train metrics: {rec['tokens_per_s']:.1f} tok/s, mean step "
+          f"{rec['mean_step_s'] * 1e3:.2f} ms over "
+          f"{rec['meta']['measured_steps']} steps, model FLOPs "
+          f"{flops / 1e12:.3f} TFLOP/step = {100 * mfu:.2f}% of 989 TFLOP/s, "
+          f"peak memory {peak / 2**30:.2f} GiB, breakdown "
+          f"{rec['breakdown_s']} {tag}")
+    rec.update(launches=launches, peak_memory_bytes=peak,
+               model_flops_per_step=flops, mfu=mfu)
+    return rec, launches
+
+
+def profile_train(dev, tag):
+    """torch.profiler over 2 full-width training steps (after one warm
+    step), fed by BatchFeed as the training loop feeds them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import BatchFeed, DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainConfig, make_engine
+
+    args = launch_train.build_argparser().parse_args(train_argv())
+    cfg = get_arch(args.arch)
+    tcfg = TrainConfig(microbatches=args.microbatches, buckets=args.buckets,
+                       optim=AdamWConfig(lr=args.lr, warmup_steps=2,
+                                         total_steps=args.steps))
+    engine = make_engine(LM(cfg), tcfg, device=dev)
+    state = engine.init_state(0)
+    dcfg = DataConfig(seed=0, vocab=cfg.vocab, seq_len=args.seq,
+                      global_batch=args.batch)
+    with BatchFeed(dcfg, device=dev) as feed:
+        state, _ = engine.step(state, feed.get())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                state, _ = engine.step(state, feed.get())
+            torch.cuda.synchronize()      # the window's own end: 1 call
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    del state, engine
+    return report_profile(prof, "train (2 steps)", wall_ms, tag)
+
+
+def reduced_train_card_vs_cpu(dev, tag):
+    """The reduced qwen2-1.5b on the card against the same weights on the
+    CPU: the loss and every param's grad; then 3 steps of the engine with
+    the int8 compressed sync on both."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.engine import EngineConfig, TrainEngine
+
+    cfg = get_arch("qwen2-1.5b").reduced()
+    model = LM(cfg)
+    p_cpu = model.init(0, device="cpu")
+    dcfg = DataConfig(seed=0, vocab=cfg.vocab, seq_len=64, global_batch=4)
+    batch = host_batch(dcfg, 0)
+    out = {}
+    for d in ("cpu", dev):
+        p = tree.tree_map(lambda t: t.detach().clone().to(d), p_cpu)
+        leaves = [t.requires_grad_(True) for t in tree.leaves(p)]
+        loss = model.loss(p, {k: torch.as_tensor(v, device=d)
+                              for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, leaves)
+        out[d] = (float(loss.detach()), [g.float().cpu() for g in grads])
+    dloss = abs(out["cpu"][0] - out[dev][0])
+    worst, worst_key = 0.0, ""
+    for (path, _), gc, gg in zip(tree.flatten(p_cpu), out["cpu"][1],
+                                 out[dev][1]):
+        ratio = float((gc - gg).abs().max()) / max(float(gc.abs().max()),
+                                                   1e-12)
+        if ratio > worst:
+            worst, worst_key = ratio, tree.key(path)
+    print(f"reduced qwen2-1.5b train, card vs CPU: |dloss|={dloss:.4g} (band "
+          f"{LOSS_ATOL}), worst max|dgrad|/max|grad| {worst:.4g} at "
+          f"{worst_key} (band {PARAM_GRAD_REL}) {tag}")
+    if not dloss <= LOSS_ATOL or not worst <= PARAM_GRAD_REL:
+        fail("reduced model's loss or grads on the card disagree with the "
+             "CPU")
+
+    losses = {}
+    for d in ("cpu", dev):
+        eng = TrainEngine(model, EngineConfig(
+            grad_compression=True, buckets=4,
+            optim=AdamWConfig(lr=2e-3, warmup_steps=2, total_steps=1000)),
+            device=d)
+        state = eng.init_state(params=tree.tree_map(
+            lambda t: t.detach().clone().to(d), p_cpu))
+        losses[d] = []
+        for step in range(3):
+            state, m = eng.step(state, host_batch(dcfg, step))
+            losses[d].append(float(m["loss"]))
+    gap = float(np.abs(np.subtract(losses["cpu"], losses[dev])).max())
+    print(f"reduced compressed-sync engine, 3 steps: CPU {losses['cpu']}, "
+          f"card {losses[dev]}, max |dloss| {gap:.4g} (band "
+          f"{TRAIN_LOSS_ATOL}) {tag}")
+    if not gap <= TRAIN_LOSS_ATOL:
+        fail("compressed-sync engine on the card disagrees with the CPU")
+    return dict(dloss=dloss, grad_rel=worst, grad_rel_at=worst_key,
+                compressed_losses={str(k): v for k, v in losses.items()},
+                compressed_gap=gap)
+
+
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
@@ -520,8 +835,8 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write the full record as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one admission and 8 decode steps "
-                         "at full width (torch.profiler)")
+                    help="also profile one admission, 8 decode steps and 2 "
+                         "full-width training steps (torch.profiler)")
     args = ap.parse_args()
 
     # 1. device
@@ -553,23 +868,40 @@ def main() -> int:
     checks = check_kernels(dev, tag)
 
     # 4. serve at full width, then the reduced model against the CPU
-    serve_rec, launches = serve_full_width(dev, tag, args.profile)
+    serve_rec, serve_launches = serve_full_width(dev, tag, args.profile)
     reduced_err = reduced_card_vs_cpu(dev, tag)
+
+    # 4b. train at full width, then the reduced model against the CPU
+    train_rec, train_launches = train_full_width(dev, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if args.profile:
+        train_rec["profile"] = profile_train(dev, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+    reduced_train = reduced_train_card_vs_cpu(dev, tag)
 
     # 5. times
     times = time_kernels(dev, tag, timer)
 
-    # 6. the kernels line
-    replaces = {"flash_fwd": "src/repro/kernels/flash_attention.py:191",
-                "flash_decode": "src/repro/kernels/flash_attention.py:280"}
-    sources = {"flash_fwd": "src/repro_torch/kernels/csrc/flash_fwd.cu",
-               "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu"}
+    # 6. the kernels line: launches are those of the two main paths
+    fa_py = "src/repro/kernels/flash_attention.py"
+    replaces = {"flash_fwd": f"{fa_py}:146 and {fa_py}:191",
+                "flash_decode": f"{fa_py}:280",
+                "flash_bwd_dq": f"{fa_py}:491",
+                "flash_bwd_dkv": f"{fa_py}:519"}
+    csrc = "src/repro_torch/kernels/csrc"
+    sources = {"flash_fwd": f"{csrc}/flash_fwd.cu",
+               "flash_decode": f"{csrc}/flash_decode.cu",
+               "flash_bwd_dq": f"{csrc}/flash_bwd.cu",
+               "flash_bwd_dkv": f"{csrc}/flash_bwd.cu"}
     kernels = []
-    for k in ("flash_fwd", "flash_decode"):
+    for k in ("flash_fwd", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv"):
         t = times[k]
         kernels.append({
             "name": k, "route": "cuda", "source": sources[k],
-            "replaces": replaces[k], "launches": launches[k],
+            "replaces": replaces[k],
+            "launches": serve_launches[k] + train_launches[k],
             "max_abs_err": max(r["max_abs_err"] for r in checks[k]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -580,6 +912,7 @@ def main() -> int:
             device=name, nvidia_smi=smi, torch=torch.__version__,
             build=build.build_info, checks=checks, times=times,
             serve=serve_rec, reduced_card_vs_cpu=reduced_err,
+            train=train_rec, reduced_train_card_vs_cpu=reduced_train,
             kernels=kernels), indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))

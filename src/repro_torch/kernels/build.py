@@ -114,10 +114,17 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp,
+    lib.repro_flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp, i32,
                                     i32, i32, i32, i32, i32, i32,
                                     i32, i32, f32, i32, vp]
     lib.repro_flash_fwd.restype = i32
+    # pointers (q k v o dO lse delta dq), then B Sq Sk H KV hd causal
+    # window, scale, q_is_f32, stream
+    lib.repro_flash_bwd_dq.argtypes = [vp] * 8 + [i32] * 8 + [f32, i32, vp]
+    lib.repro_flash_bwd_dq.restype = i32
+    # pointers (q k v dO lse delta dk dv), then as repro_flash_bwd_dq
+    lib.repro_flash_bwd_dkv.argtypes = [vp] * 8 + [i32] * 8 + [f32, i32, vp]
+    lib.repro_flash_bwd_dkv.restype = i32
     lib.repro_flash_decode.argtypes = [vp, vp, vp, vp, vp,
                                        i32, i32, i32, i32, i32,
                                        i32, f32, i32, vp]

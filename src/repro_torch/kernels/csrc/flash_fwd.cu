@@ -24,7 +24,8 @@
 // stops at the causal bound of the tile's last valid row: the tiles it
 // skips are fully masked, and they contribute exactly 0 in the TPU kernel
 // too.  q_offset is read on the device from an int32 tensor (the
-// counterpart of scalar prefetch), so the caller never syncs on it.
+// counterpart of scalar prefetch), so the caller never syncs on it; a
+// static offset (0 in training) is passed by value, with no tensor.
 #include "flash_common.cuh"
 
 namespace repro {
@@ -45,8 +46,9 @@ __global__ void __launch_bounds__(FWD_WARPS * 32)
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      TQ* __restrict__ o, float* __restrict__ lse,
-                     const int* __restrict__ q_off_ptr, int Sq, int Sk,
-                     int H, int KV, int causal, int window, float scale) {
+                     const int* __restrict__ q_off_ptr, int q_off_value,
+                     int Sq, int Sk, int H, int KV, int causal, int window,
+                     float scale) {
   constexpr int PPL = Tile<HD>::PPL;
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);
@@ -57,7 +59,7 @@ __global__ void __launch_bounds__(FWD_WARPS * 32)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * FWD_BQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int q_off = *q_off_ptr;
+  const int q_off = q_off_ptr != nullptr ? *q_off_ptr : q_off_value;
 
   for (int idx = threadIdx.x; idx < FWD_BQ * HD; idx += blockDim.x) {
     const int r = idx / HD, d = idx % HD, row = q0 + r;
@@ -116,9 +118,9 @@ __global__ void __launch_bounds__(FWD_WARPS * 32)
 
 template <int HD, typename TQ>
 static int launch_fwd(const void* q, const void* k, const void* v, void* o,
-                      float* lse, const int* q_off, int B, int Sq, int Sk,
-                      int H, int KV, int causal, int window, float scale,
-                      cudaStream_t stream) {
+                      float* lse, const int* q_off, int q_off_value, int B,
+                      int Sq, int Sk, int H, int KV, int causal, int window,
+                      float scale, cudaStream_t stream) {
   constexpr int smem = fwd_smem_bytes<HD>();
   auto kern = flash_fwd_kernel<HD, TQ>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -128,20 +130,22 @@ static int launch_fwd(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, FWD_WARPS * 32, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<TQ*>(o), lse, q_off,
-      Sq, Sk, H, KV, causal, window, scale);
+      q_off_value, Sq, Sk, H, KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 static int dispatch_fwd(int q_is_f32, const void* q, const void* k,
                         const void* v, void* o, float* lse, const int* q_off,
-                        int B, int Sq, int Sk, int H, int KV, int causal,
-                        int window, float scale, cudaStream_t stream) {
+                        int q_off_value, int B, int Sq, int Sk, int H, int KV,
+                        int causal, int window, float scale,
+                        cudaStream_t stream) {
   if (q_is_f32)
-    return launch_fwd<HD, float>(q, k, v, o, lse, q_off, B, Sq, Sk, H, KV,
-                                 causal, window, scale, stream);
-  return launch_fwd<HD, __nv_bfloat16>(q, k, v, o, lse, q_off, B, Sq, Sk, H,
-                                       KV, causal, window, scale, stream);
+    return launch_fwd<HD, float>(q, k, v, o, lse, q_off, q_off_value, B, Sq,
+                                 Sk, H, KV, causal, window, scale, stream);
+  return launch_fwd<HD, __nv_bfloat16>(q, k, v, o, lse, q_off, q_off_value, B,
+                                       Sq, Sk, H, KV, causal, window, scale,
+                                       stream);
 }
 
 }  // namespace repro
@@ -149,23 +153,27 @@ static int dispatch_fwd(int q_is_f32, const void* q, const void* k,
 // Plain C interface, loaded with ctypes.  Returns a cudaError_t code, or
 // -1 for a head dimension without a template instance.  The launch is
 // asynchronous on ``stream``; nothing here synchronises or allocates.
+// ``q_off`` is a device int32 read by the kernel, or null: then the offset
+// is ``q_off_value``, passed by value (no host-to-device copy).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
-                               void* o, float* lse, const int* q_off, int B,
-                               int Sq, int Sk, int H, int KV, int hd,
-                               int causal, int window, float scale,
-                               int q_is_f32, void* stream) {
+                               void* o, float* lse, const int* q_off,
+                               int q_off_value, int B, int Sq, int Sk, int H,
+                               int KV, int hd, int causal, int window,
+                               float scale, int q_is_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
-      return repro::dispatch_fwd<16>(q_is_f32, q, k, v, o, lse, q_off, B, Sq,
-                                     Sk, H, KV, causal, window, scale, st);
+      return repro::dispatch_fwd<16>(q_is_f32, q, k, v, o, lse, q_off,
+                                     q_off_value, B, Sq, Sk, H, KV, causal,
+                                     window, scale, st);
     case 64:
-      return repro::dispatch_fwd<64>(q_is_f32, q, k, v, o, lse, q_off, B, Sq,
-                                     Sk, H, KV, causal, window, scale, st);
+      return repro::dispatch_fwd<64>(q_is_f32, q, k, v, o, lse, q_off,
+                                     q_off_value, B, Sq, Sk, H, KV, causal,
+                                     window, scale, st);
     case 128:
-      return repro::dispatch_fwd<128>(q_is_f32, q, k, v, o, lse, q_off, B,
-                                      Sq, Sk, H, KV, causal, window, scale,
-                                      st);
+      return repro::dispatch_fwd<128>(q_is_f32, q, k, v, o, lse, q_off,
+                                      q_off_value, B, Sq, Sk, H, KV, causal,
+                                      window, scale, st);
     default:
       return -1;
   }

@@ -1,5 +1,5 @@
 """ctypes wrappers of the CUDA attention kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_decode.cu``).
+``csrc/flash_bwd.cu``, ``csrc/flash_decode.cu``).
 
 Each wrapper checks what the kernel takes (device, dtype, shape,
 contiguity, alignment, head dim) and raises on anything else, allocates
@@ -10,7 +10,7 @@ sends CPU tensors to the plain versions in ``kernels/ref.py``."""
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,7 +21,8 @@ MAX_GROUP = 16            # decode: query heads per KV head (8 warps x 2)
 
 # launches per kernel since the last reset_launches(); a plain integer
 # each, read by chip_smoke.py to show the main path ran the kernels
-launches: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0}
+launches: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0,
+                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def reset_launches() -> None:
@@ -67,15 +68,25 @@ def _window_arg(window: Optional[int]) -> int:
     return int(window)
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None,
-                        scale: Optional[float] = None, q_offset=None):
-    """q [B,Sq,H,hd] bf16|f32; k/v [B,Sk,KV,hd] bf16 -> (o like q,
-    lse [B,H,Sq] f32).  ``q_offset``: None, an int, or a 1-element int32
-    tensor on q's device (read by the kernel, so the caller never syncs)."""
-    from .build import load_library
+def offset_arg(q_offset, device: torch.device
+               ) -> Tuple[Optional[torch.Tensor], int]:
+    """(device tensor or None, value) for the forward kernel's offset.  An
+    int or None is passed by value and builds no tensor: a host-to-device
+    copy of a pageable tensor would make the host wait for the stream on
+    every launch.  A tensor must be one int32 element on ``device``."""
+    if q_offset is None or isinstance(q_offset, int):
+        return None, int(q_offset or 0)
+    off = q_offset.reshape(-1)
+    if off.numel() != 1 or off.dtype != torch.int32 or off.device != device:
+        raise ValueError("q_offset tensor must be one int32 element on "
+                         f"{device}, got {off.dtype} {tuple(off.shape)} on "
+                         f"{off.device}")
+    return off, 0
 
-    _check_cuda(q)
+
+def _check_qkv(q, k, v) -> Tuple[int, int, int, int, int, int]:
+    """Device, dtype, shape and head-dim checks shared by the forward and
+    the backward; -> (b, sq, sk, h, kv, hd)."""
     dev = q.device
     _check("q", q, 4, (torch.bfloat16, torch.float32), dev)
     _check("k", k, 4, (torch.bfloat16,), dev)
@@ -88,14 +99,22 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                          f"match q {tuple(q.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} has no kernel instance {HEAD_DIMS}")
-    if q_offset is None or isinstance(q_offset, int):
-        off = torch.tensor([q_offset or 0], dtype=torch.int32, device=dev)
-    else:
-        off = q_offset.reshape(-1)
-        if off.numel() != 1 or off.dtype != torch.int32 or off.device != dev:
-            raise ValueError("q_offset tensor must be one int32 element on "
-                             f"{dev}, got {off.dtype} {tuple(off.shape)} on "
-                             f"{off.device}")
+    return b, sq, sk, h, kv, hd
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None, q_offset=None):
+    """q [B,Sq,H,hd] bf16|f32; k/v [B,Sk,KV,hd] bf16 -> (o like q,
+    lse [B,H,Sq] f32).  ``q_offset``: None, an int (passed by value), or
+    a 1-element int32 tensor on q's device (read by the kernel, so the
+    caller never syncs)."""
+    from .build import load_library
+
+    _check_cuda(q)
+    dev = q.device
+    b, sq, sk, h, kv, hd = _check_qkv(q, k, v)
+    off, off_value = offset_arg(q_offset, dev)
     scale = scale if scale is not None else hd ** -0.5
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
@@ -104,13 +123,101 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.repro_flash_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), _ptr(off),
-        b, sq, sk, h, kv, hd, int(causal), _window_arg(window),
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse),
+        None if off is None else _ptr(off), off_value, b, sq, sk, h, kv, hd, int(causal), _window_arg(window),
         float(scale), int(q.dtype == torch.float32),
         ctypes.c_void_p(stream))
     _raise_on(code, lib, "flash_fwd")
     launches["flash_fwd"] += 1
     return o, lse
+
+
+def _check_bwd(q, k, v, lse, do, o=None):
+    _check_cuda(q)
+    dev = q.device
+    b, sq, sk, h, kv, hd = _check_qkv(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t is None:
+            continue
+        _check(name, t, 4, (q.dtype,), dev)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match q "
+                             f"{tuple(q.shape)}")
+    _check("lse", lse, 3, (torch.float32,), dev)
+    if tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"lse {tuple(lse.shape)}, expected {(b, h, sq)}")
+    return b, sq, sk, h, kv, hd
+
+
+def _bwd_args(q, b, sq, sk, h, kv, hd, causal, window, scale):
+    scale = scale if scale is not None else hd ** -0.5
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return (b, sq, sk, h, kv, hd, int(causal), _window_arg(window),
+            float(scale), int(q.dtype == torch.float32),
+            ctypes.c_void_p(stream))
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None):
+    """The dq kernel: -> (dq like q, delta [B,H,S] f32 = rowsum(o * do)).
+    Shapes and dtypes as flash_attention_bwd."""
+    from .build import load_library
+
+    b, sq, sk, h, kv, hd = _check_bwd(q, k, v, lse, do, o)
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), delta.zero_()
+    lib = load_library()
+    code = lib.repro_flash_bwd_dq(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
+        _ptr(delta), _ptr(dq),
+        *_bwd_args(q, b, sq, sk, h, kv, hd, causal, window, scale))
+    _raise_on(code, lib, "flash_bwd_dq")
+    launches["flash_bwd_dq"] += 1
+    return dq, delta
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None):
+    """The dk/dv kernel, summing over each KV head's g query heads inside
+    the kernel: -> (dk, dv like k).  ``delta`` as flash_attention_bwd_dq
+    returns it."""
+    from .build import load_library
+
+    b, sq, sk, h, kv, hd = _check_bwd(q, k, v, lse, do)
+    _check("delta", delta, 3, (torch.float32,), q.device)
+    if delta.shape != lse.shape:
+        raise ValueError(f"delta {tuple(delta.shape)} does not match lse "
+                         f"{tuple(lse.shape)}")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dk.zero_(), dv.zero_()
+    lib = load_library()
+    code = lib.repro_flash_bwd_dkv(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+        _ptr(dk), _ptr(dv),
+        *_bwd_args(q, b, sq, sk, h, kv, hd, causal, window, scale))
+    _raise_on(code, lib, "flash_bwd_dkv")
+    launches["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """Gradients of ``flash_attention_fwd`` at no offset: q/o/do
+    [B,S,H,hd] of one dtype (bf16|f32), k/v [B,Sk,KV,hd] bf16, lse
+    [B,H,S] f32 from the forward -> (dq like q, dk, dv like k).  Two
+    launches on the current stream: dq, which also writes delta =
+    rowsum(o * do), then dk/dv, which reads it."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, **kw)
+    return dq, dk, dv
 
 
 def flash_attention_decode(q, k_cache, v_cache, lengths, *,

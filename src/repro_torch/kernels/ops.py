@@ -5,7 +5,11 @@ or raises; a CPU tensor runs the plain version (``ref.py``).  There is no
 environment switch and no fallback from one to the other: this is the
 counterpart of repro's ``kernels/ops.py``, which chose the Pallas
 interpret mode by backend.  ``plain_calls`` counts the plain versions'
-calls made through here, so a run on the card can show it made none."""
+calls made through here, so a run on the card can show it made none.
+
+``flash_attention`` is the differentiable op (the counterpart of repro's
+``jax.custom_vjp``): its forward and backward each go through the same
+device dispatch."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -16,6 +20,7 @@ from . import flash_attention as fa
 from . import ref
 
 plain_calls: Dict[str, int] = {"flash_attention_fwd_ref": 0,
+                               "flash_attention_bwd_ref": 0,
                                "flash_attention_decode_ref": 0}
 
 
@@ -45,6 +50,48 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     plain_calls["flash_attention_fwd_ref"] += 1
     return ref.flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
                                        scale=scale, q_offset=q_offset)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """-> (dq, dk, dv); see ref.flash_attention_bwd_ref for the
+    semantics."""
+    if _route(q, k, v, o, lse, do) == "cuda":
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                      window=window, scale=scale)
+    plain_calls["flash_attention_bwd_ref"] += 1
+    return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window, scale=scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Saves (q, k, v, o, lse) in the forward; the backward recomputes P
+    from lse in flash_attention_bwd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable attention without offset: q [B,S,H,hd]; k/v
+    [B,S,KV,hd] -> o [B,S,H,hd] (counterpart of repro's
+    ``ops.flash_attention``)."""
+    return _FlashAttention.apply(q, k, v, causal, window, scale)
 
 
 def flash_attention_decode(q, k_cache, v_cache, lengths, *,

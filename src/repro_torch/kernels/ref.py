@@ -1,14 +1,15 @@
-"""Plain PyTorch versions of the two attention kernels.
+"""Plain PyTorch versions of the attention kernels.
 
 They are what a CPU tensor runs (``kernels/ops.py`` dispatches by device)
-and what ``chip_smoke.py`` and the tests hold the CUDA kernels to.  Both
+and what ``chip_smoke.py`` and the tests hold the CUDA kernels to.  All
 materialise the full score matrix in f32 and mask with the kernels'
 finite sentinel ``NEG_INF``.
 
 ``flash_attention_fwd_ref`` is the counterpart of repro's
 ``kernels/ref.py::attention_ref`` extended with ``q_offset`` and the
-logsumexp; ``flash_attention_decode_ref`` of ``models/attention.py::
-attend_cache``.  A query row that sees no key at all (only possible with
+logsumexp; ``flash_attention_bwd_ref`` of repro's Pallas backward (its
+formulas, not autograd); ``flash_attention_decode_ref`` of
+``models/attention.py::attend_cache``.  A query row that sees no key at all (only possible with
 a window and an offset past the cache end) has no defined output: the
 TPU kernel returns an average that depends on its tile padding.  No
 caller produces such rows."""
@@ -59,6 +60,46 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
     o = torch.einsum("bKgqk,bkKd->bqKgd", p, v.float())
     return (o.reshape(b, sq, h, hd).to(q.dtype),
             lse.reshape(b, h, sq))
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None):
+    """Gradients of flash attention (no offset) in the formulas of repro's
+    ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``, not autograd: P is recomputed
+    from the forward's ``lse`` under the causal/window mask, ``delta =
+    rowsum(o * do)`` in f32, ``ds = p * (dp - delta)``; ``dq = ds k scale``
+    in q.dtype, and ``dk = ds^T q scale``, ``dv = p^T do`` summed over the
+    g query heads of each KV head in f32, then cast to k.dtype.
+
+    q/o/do [B,S,H,hd]; k/v [B,Sk,KV,hd]; lse [B,H,S] f32."""
+    b, sq, h, hd = q.shape
+    _, sk, kv, _ = k.shape
+    check_gqa(h, kv)
+    g = h // kv
+    scale = scale if scale is not None else hd ** -0.5
+    qraw = q.reshape(b, sq, kv, g, hd).float()
+    dof = do.reshape(b, sq, kv, g, hd).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqKgd,bkKd->bKgqk", qraw * scale, kf)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    lse5 = lse.reshape(b, kv, g, sq)[..., None].float()
+    p = torch.where(mask, torch.exp(s - lse5), torch.zeros((), device=q.device))
+    delta = (o.float() * do.float()).sum(-1)               # [b, sq, h]
+    delta = delta.reshape(b, sq, kv, g).permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("bqKgd,bkKd->bKgqk", dof, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bKgqk,bkKd->bqKgd", ds, kf) * scale
+    dk = torch.einsum("bKgqk,bqKgd->bkKd", ds, qraw) * scale
+    dv = torch.einsum("bKgqk,bqKgd->bkKd", p, dof)
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention_decode_ref(q, k_cache, v_cache, lengths, *,

@@ -18,13 +18,13 @@ import argparse
 import json
 import sys
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..configs.base import get_arch
-from ..models.common import resolve_device
+from ..models.common import device_sync, resolve_device
 from ..models.model import LM
 from ..obs.stats import percentile
 from ..runtime.serve import ServeConfig, Server
@@ -50,14 +50,6 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card raises")
     return ap
-
-
-def device_sync(device: torch.device) -> Callable[[], None]:
-    """What ends a timed section: a device synchronise on the card,
-    nothing on the CPU."""
-    if device.type == "cuda":
-        return lambda: torch.cuda.synchronize(device)
-    return lambda: None
 
 
 def run_workload(srv: Server, arrivals: Sequence[Tuple[float, List[int]]],

@@ -1,7 +1,10 @@
 """GQA attention entry points (counterpart of ``repro.models.attention``).
 
 Both go through ``kernels/ops.py``, which picks the CUDA kernel for CUDA
-tensors and the plain version for CPU tensors.  ``impl`` exists for
+tensors and the plain version for CPU tensors.  ``attention`` routes as
+repro's kernel route: a static ``q_offset`` of 0 goes through the
+differentiable ``ops.flash_attention`` (training), anything else through
+the forward-only offset kernel (chunked prefill).  ``impl`` exists for
 signature parity with repro, where it chose between XLA and Pallas; the
 port has one route, so it accepts only ``"auto"``."""
 from __future__ import annotations
@@ -33,9 +36,12 @@ def attention(q, k, v, *, impl: str = "auto", **kw):
         raise TypeError(
             f"attention(impl={impl!r}) got unsupported kwargs "
             f"{sorted(unknown)}")
-    o, _ = kops.flash_attention_fwd(q, k, v, causal=kw.get("causal", True),
-                                    window=kw.get("window"),
-                                    scale=kw.get("scale"), q_offset=q_offset)
+    causal, window, scale = (kw.get("causal", True), kw.get("window"),
+                             kw.get("scale"))
+    if isinstance(q_offset, int) and q_offset == 0:
+        return kops.flash_attention(q, k, v, causal, window, scale)
+    o, _ = kops.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                    scale=scale, q_offset=q_offset)
     return o
 
 

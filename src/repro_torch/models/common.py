@@ -5,7 +5,7 @@ Params are plain dicts of tensors in JAX's ``[in, out]`` layout, used as
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -19,6 +19,14 @@ def resolve_device(device) -> torch.device:
             "device='cuda' was requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain versions on the CPU")
     return dev
+
+
+def device_sync(device: torch.device) -> Callable[[], None]:
+    """What ends a timed section: a device synchronise on the card,
+    nothing on the CPU."""
+    if device.type == "cuda":
+        return lambda: torch.cuda.synchronize(device)
+    return lambda: None
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -65,6 +73,16 @@ def embed_init(shape: Sequence[int], generator: torch.Generator, *,
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=device)
     return (w * 0.02).to(dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab: int) -> torch.Tensor:
+    """Token-mean cross entropy in f32 (repro's ``softmax_cross_entropy``;
+    ``vocab`` is kept for its signature)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
 
 
 def causal_mask(sq: int, sk: int, q_off, k_off,

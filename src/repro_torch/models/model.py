@@ -1,11 +1,17 @@
 """The dense decoder LM (counterpart of ``repro.models.model.LM``, dense
-branch): init, forward, the linear slot cache, decode and chunked prefill.
+branch): init, forward, loss, the linear slot cache, decode and chunked
+prefill.
 
 Params are plain dicts of tensors with the same keys and shapes as repro's
 param tree: per-layer weights stacked on a leading ``[L]`` axis, ``ln*``
 in f32, the rest in ``cfg.dtype``, weights ``[in, out]`` used as
-``x @ w``.  Layers run as a Python loop over per-layer views; serving
-never differentiates, so there is no remat.
+``x @ w``.  Layers run as a Python loop over per-layer views.  ``forward``
+(training) takes the views with ``torch.unbind`` on every call, so the
+backward stacks each weight's L gradients in one node, and under autograd
+it runs each layer under ``torch.utils.checkpoint`` (repro's per-layer
+``jax.checkpoint``): only the layer inputs are kept, and the layer is
+recomputed in the backward.  Decode and prefill never differentiate and
+reuse views cached across steps.
 
 Unlike repro's pure functions, the cache is updated in place: the decode
 and prefill steps write K/V and advance ``pos`` inside the tensors they
@@ -20,10 +26,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from .attention import attend_cache, attention
-from .common import dense_init, embed_init, resolve_device, rms_norm, rope
+from .common import (dense_init, embed_init, resolve_device, rms_norm, rope,
+                     softmax_cross_entropy)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -67,6 +75,16 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 def _index(tree: Params, i: int) -> Params:
     return {k: _index(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unbind(tree: Params) -> List[Params]:
+    """Per-layer views of stacked ``[L, ...]`` leaves, one unbind per leaf
+    (its backward is one stack of the L gradients, not L scatters into
+    full-size zeros)."""
+    flat = {k: _unbind(v) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in tree.items()}
+    n = len(next(iter(flat.values())))
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
 
 
 def _mlp_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -156,27 +174,46 @@ class LM:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
         return q, k, v
 
-    # -- forward -------------------------------------------------------------
-    def forward(self, params: Params,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B, S] -> (logits [B, S, V], aux_loss 0)."""
+    # -- forward (train) -----------------------------------------------------
+    def _layer(self, p: Params, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        b, s, _ = x.shape
+        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = self._qkv(p["attn"], xn)
+        q = rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
+        k = rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
+        v = v.reshape(b, s, kvh, hd)
+        o = attention(q, k, v, causal=True, window=cfg.swa_window)
+        x = x + o.reshape(b, s, h * hd) @ p["attn"]["wo"]
+        return x + _mlp_forward(p["mlp"], rms_norm(x, p["ln2"],
+                                                   cfg.norm_eps))
+
+    def forward(self, params: Params,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens [B, S] -> (logits [B, S, V], aux_loss 0).  Under autograd
+        each layer is rematerialised in the backward."""
         x = params["embed"][tokens]
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-        for p in self._layers(params):
-            xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = self._qkv(p["attn"], xn)
-            q = rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-            k = rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
-            v = v.reshape(b, s, kvh, hd)
-            o = attention(q, k, v, causal=True, window=cfg.swa_window)
-            x = x + o.reshape(b, s, h * hd) @ p["attn"]["wo"]
-            x = x + _mlp_forward(p["mlp"], rms_norm(x, p["ln2"],
-                                                    cfg.norm_eps))
-        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        remat = torch.is_grad_enabled()
+        for p in _unbind(params["layers"]):
+            if remat:
+                x = checkpoint(self._layer, p, x, positions,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = self._layer(p, x, positions)
+        x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         return self._head(params, x), torch.zeros((), device=x.device)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        """Token-mean CE (f32) of ``batch["tokens"]`` against
+        ``batch["labels"]``, plus 0.01 x the aux loss, as repro."""
+        logits, aux = self.forward(params, batch["tokens"])
+        ce = softmax_cross_entropy(logits, batch["labels"], self.cfg.vocab)
+        return ce + 0.01 * aux
 
     # -- the linear slot cache --------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda") -> Cache:

@@ -84,6 +84,58 @@ def test_decode_kernel_matches_plain(cuda, window, hd):
     assert _rel_err(o, o_r) <= 1e-2
 
 
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window", [
+    (2, 1000, 12, 2, 128, True, None), (1, 256, 12, 12, 128, False, None),
+    (1, 512, 12, 2, 128, True, 128), (2, 100, 8, 2, 64, False, 50),
+    (2, 33, 4, 1, 16, True, 9)])
+def test_bwd_kernels_match_plain(cuda, b, s, h, kv, hd, causal, window):
+    """dq, dk, dv of the CUDA backward against flash_attention_bwd_ref, at
+    1e-2 x max(1, |ref|): the same f32 sums in another order, rounded to
+    bf16."""
+    g = torch.Generator(device=cuda).manual_seed(s + hd)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).bfloat16()
+
+    q, k, v = rnd(b, s, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd)
+    do = rnd(b, s, h, hd)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    before = dict(fa.launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fa.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert fa.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert _rel_err(a, w) <= 1e-2
+
+
+def test_train_steps_on_card_use_only_the_kernels(cuda):
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.engine import EngineConfig, TrainEngine
+
+    cfg = get_arch("qwen2-1.5b").reduced()
+    eng = TrainEngine(LM(cfg), EngineConfig(
+        microbatches=2, optim=AdamWConfig(lr=2e-3, warmup_steps=2)),
+        device=cuda)
+    state = eng.init_state(0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    losses = []
+    for step in range(4):
+        state, m = eng.step(state, host_batch(dcfg, step))
+        losses.append(float(m["loss"]))
+    L = cfg.n_layers
+    assert fa.launches["flash_fwd"] == 4 * 2 * 2 * L
+    assert fa.launches["flash_bwd_dq"] == fa.launches["flash_bwd_dkv"] \
+        == 4 * 2 * L
+    assert not any(ops.plain_calls.values())
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 4, 4, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):

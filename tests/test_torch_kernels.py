@@ -175,8 +175,10 @@ def test_cpu_tensors_take_the_plain_path():
     q, k, v = (torch.from_numpy(a) for a in _inputs(2, 2, 5, 8, 4, 2, 16))
     ops.flash_attention_fwd(q, k, v, q_offset=3)
     attend_cache(q[:, 0], k, v, torch.tensor([3, 8], dtype=torch.int32))
-    assert fa.launches == {"flash_fwd": 0, "flash_decode": 0}
+    assert fa.launches == {"flash_fwd": 0, "flash_decode": 0,
+                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     assert ops.plain_calls == {"flash_attention_fwd_ref": 1,
+                               "flash_attention_bwd_ref": 0,
                                "flash_attention_decode_ref": 1}
 
 
