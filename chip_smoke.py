@@ -14,12 +14,26 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      The backward kernels (dq, dk/dv) are held the same way, causal and
      not, with a window, GQA groups 1 and 6, hd 16 / 64 / 128, a ragged
      S = 1000 and the training shape;
+     The paged decode kernel at the serving shape (16 slots, ~1000 tokens
+     each, shuffled blocks, one block shared by two rows), the re-score's
+     64-row grid, hd 16, a 48-token block, ragged and empty rows: within
+     O_TOL of its plain version, bit-equal to flash_decode on the view the
+     table spells, and unmoved by 1e9 / NaN poison in unowned blocks;
   4. serve: qwen2-1.5b at full width (28 layers, d 1536, vocab 151936,
      bf16, random weights from torch.Generator(0)), 16 slots x 2048,
      prefill chunk 256, 32 requests of 256-1536 prompt tokens, 32 greedy
      tokens each, through launch.serve.run_workload; every launch counter
      must match the dispatch counts and the plain versions must not run;
-     then the reduced model on the card against the same model on the CPU;
+  4c. paged serve on the same weights, 16-token blocks: P1, 16 slots on a
+     740-block pool with the prefix cache, phase 4's prompts, must preempt;
+     P2, 16 slots with spec_k 4; both must give phase 4's streams token
+     for token.  P3, 32 slots on 2049 blocks (phase 4's cache bytes), 64
+     requests sharing a 512-token prefix: at least 63 x 512 prompt tokens
+     re-linked, and the streams of a run without the prefix cache.  Exact
+     launch identities (paged decode = 28 x (decode steps + re-scores),
+     flash_fwd = 28 x parallel prefill chunks, flash_decode = 0), no plain
+     call, no non-finite logit; then the reduced model on the card against
+     the same model on the CPU;
   4b. train: qwen2-1.5b at full width, f32 master weights, global batch
      4 x 1024 in 2 microbatches, AdamW lr 3e-4 with 2 warmup steps, 12
      steps through launch.train's runner; every loss finite, the last
@@ -29,15 +43,17 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      CPU, and 3 compressed-sync engine steps on both;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch), its bound, the plain version's time and SDPA's (forward or
-     backward) as the library yardstick;
+     backward; for the paged kernel an index_select gather, then SDPA) as
+     the library yardstick;
   6. the kernels line and the contract's last line.
-With --profile, also torch.profiler over one admission, 8 decode steps
-and 2 full-width training steps.
+With --profile, also torch.profiler over one admission and 8 decode
+steps on each tier, and 2 full-width training steps.
 Imports nothing of JAX and nothing of the repro (JAX) package.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import subprocess
@@ -275,6 +291,8 @@ def check_kernels(dev, tag):
         rows["flash_decode"].append(dict(case=i, max_abs_err=e_o,
                                          rel_err=r_o))
 
+    rows["flash_paged_decode"] = check_paged(dev, tag)
+
     # (b, s, h, kv, hd, causal, window)
     bwd_cases = [
         (TRAIN_BATCH, TRAIN_SEQ, 12, 2, 128, True, None),  # training shape
@@ -311,6 +329,100 @@ def check_kernels(dev, tag):
             rel_err=max(errs["dk"][1], errs["dv"][1])))
         del q, k, v, do, o, lse, got, want
     return rows
+
+
+def paged_case(dev, b, h, kv, hd, bl, mb, lengths, seed):
+    """q, pools, table and lengths for the paged decode kernel: each row's
+    blocks scattered over a shuffled pool, rows 0 and 1 sharing their
+    first block, table entries past a row's blocks on the null block 0.
+    Returns also the set of blocks some row reads."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    nb = b * mb + 1
+    q, kp, vp = rnd(b, h, hd), rnd(nb, bl, kv, hd), rnd(nb, bl, kv, hd)
+    perm = np.random.default_rng(seed).permutation(nb - 1) + 1
+    table = np.zeros((b, mb), np.int32)
+    for r, n in enumerate(lengths):
+        owned = -(-int(n) // bl)
+        table[r, :owned] = perm[r * mb:r * mb + owned]
+    if lengths[0] >= bl and lengths[1] >= bl:
+        table[1, 0] = table[0, 0]
+    live = {int(table[r, i]) for r, n in enumerate(lengths)
+            for i in range(-(-int(n) // bl))}
+    return (q, kp, vp, torch.tensor(table, device=dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev), live)
+
+
+def check_paged(dev, tag):
+    """flash_paged_decode against its plain version (O_TOL), bit-equal to
+    flash_decode on the view the table spells, and blind to poison (1e9,
+    then NaN) in every block no row reads (block 0 included) and in the
+    dead rows of each row's last block."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(5)
+    serving = rng.integers(900, 1101, size=16)
+    serving[3], serving[5] = 1001, 0          # ragged, empty
+    # (b, h, kv, hd, bl, mb, lengths): the serving decode step (16 slots,
+    # ~1000 tokens each, max_len 2048 in 16-token blocks); the verify
+    # re-score's grid (16 x 4 rows); the reduced config (hd 16); a block
+    # length that is not a divisor of the 64-row tile
+    cases = [(16, 12, 2, 128, 16, 128, serving.tolist()),
+             (64, 12, 2, 128, 16, 128,
+              np.repeat(serving, 4).clip(1).tolist()),
+             (4, 4, 1, 16, 8, 8, [37, 16, 0, 64]),
+             (3, 12, 2, 128, 48, 6, [200, 97, 288])]
+    out = []
+    for i, (b, h, kv, hd, bl, mb, lengths) in enumerate(cases):
+        q, kp, vp, table, ln, live = paged_case(dev, b, h, kv, hd, bl, mb,
+                                                lengths, 300 + i)
+        o = fa.flash_attention_paged_decode(q, kp, vp, table, ln)
+        o_r = ref.flash_attention_paged_decode_ref(q, kp, vp, table, ln)
+        view = [p[table.long()].reshape(b, mb * bl, kv, hd)
+                for p in (kp, vp)]
+        o_d = fa.flash_attention_decode(q, *view, ln)
+        dk, dv = kp.clone(), vp.clone()
+        tbl = table.cpu().numpy()
+        uses = np.bincount(tbl.ravel(), minlength=kp.shape[0])
+        poisoned = []
+        for poison in (1e9, float("nan")):
+            for blk in range(kp.shape[0]):
+                if blk not in live:
+                    dk[blk] = poison
+                    dv[blk] = poison
+            # the dead rows of a row's last block, unless another row
+            # reads that block
+            for r, n in enumerate(lengths):
+                last = int(tbl[r, (n - 1) // bl]) if n else 0
+                if n % bl and uses[last] == 1:
+                    dk[last, n % bl:] = poison
+                    dv[last, n % bl:] = poison
+            poisoned.append(fa.flash_attention_paged_decode(q, dk, dv, table,
+                                                            ln))
+        torch.cuda.synchronize()
+        e_o, r_o = rel_err(o, o_r)
+        d_view = float((o.float() - o_d.float()).abs().max())
+        zero_rows = [r for r, n in enumerate(lengths) if n == 0]
+        ok = (r_o <= O_TOL and bool(torch.isfinite(o).all())
+              and torch.equal(o, o_d)
+              and all(torch.equal(o, x) for x in poisoned)
+              and all(float(o[r].float().abs().max()) == 0.0
+                      for r in zero_rows))
+        print(f"check flash_paged_decode b={b} h={h} kv={kv} hd={hd} bl={bl} "
+              f"mb={mb} lengths in [{min(lengths)},{max(lengths)}]: "
+              f"max|dO|={e_o:.3g} rel={r_o:.3g}, vs flash_decode on the "
+              f"gathered view max|d|={d_view:.3g}, poison 1e9/NaN "
+              f"{[torch.equal(o, x) for x in poisoned]} "
+              f"{'ok' if ok else 'MISS'} {tag}")
+        if not ok:
+            fail(f"flash_paged_decode check failed (case {i})")
+        out.append(dict(case=i, max_abs_err=e_o, rel_err=r_o,
+                        vs_flash_decode=d_view))
+    return out
 
 
 def time_kernels(dev, tag, timer):
@@ -377,6 +489,7 @@ def time_kernels(dev, tag, timer):
         print(f"SDPA yardstick unavailable: {e}")
         rec["library_ms"] = None
     out["flash_decode"] = rec
+    out["flash_paged_decode"] = time_paged(dev, timer, ln, h, kv, hd, scale)
     out.update(time_bwd(dev, timer, rnd, h, kv, hd))
     for name, r in out.items():
         lib = ("n/a" if r["library_ms"] is None
@@ -385,6 +498,49 @@ def time_kernels(dev, tag, timer):
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, SDPA {lib} {tag}")
     return out
+
+
+def time_paged(dev, timer, ln, h, kv, hd, scale):
+    """The paged decode kernel at the serving shape: 16 rows with row 3's
+    lengths (the same as the flash_decode timing), 16-token blocks
+    scattered over a pool of 16 x 128 + 1 blocks.  Library yardstick: two
+    calls, as no single PyTorch call reads through a table: index_select
+    gathers each row's view (K and V), then SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    b, bl, mb = len(ln), 16, 128
+    q, kp, vp, table, lengths, _ = paged_case(dev, b, h, kv, hd, bl, mb,
+                                              ln.tolist(), 400)
+    by, fl = decode_work(ln, h, kv, hd, None)
+    by += 4 * float(np.ceil(ln / bl).sum())          # live table entries
+    bms, bby = bound(by, fl)
+    rec = dict(
+        shape=f"q[{b},{h},{hd}] pools[{kp.shape[0]},{bl},{kv},{hd}] table "
+              f"[{b},{mb}] sum(lengths)={int(ln.sum())}; library = "
+              f"index_select gather + SDPA (two calls)",
+        ms=timer(lambda: fa.flash_attention_paged_decode(q, kp, vp, table,
+                                                         lengths)),
+        plain_ms=timer(lambda: ref.flash_attention_paged_decode_ref(
+            q, kp, vp, table, lengths)),
+        bound_ms=bms, bound_by=bby, bytes=by, flops=fl)
+    flat = table.reshape(-1)
+    mask = (torch.arange(mb * bl, device=dev)[None, :]
+            < lengths.long()[:, None])[:, None, None, :]
+    qt = q[:, :, None, :]
+
+    def gather_sdpa():
+        kc = kp.index_select(0, flat).view(b, mb * bl, kv, hd).transpose(1, 2)
+        vc = vp.index_select(0, flat).view(b, mb * bl, kv, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+    try:
+        rec["library_ms"] = timer(gather_sdpa)
+    except (TypeError, RuntimeError) as e:   # no enable_gqa in this torch
+        print(f"gather + SDPA yardstick unavailable: {e}")
+        rec["library_ms"] = None
+    return rec
 
 
 def bwd_work(b, s, h, kv, hd, causal, window, which):
@@ -515,6 +671,8 @@ def serve_full_width(dev, tag, profile=False):
     if launches["flash_decode"] != L * srv.decode_dispatches:
         fail(f"flash_decode launched {launches['flash_decode']} times, "
              f"expected {L} x {srv.decode_dispatches}")
+    if launches["flash_paged_decode"]:
+        fail("the linear tier launched the paged decode kernel")
     if any(plain.values()):
         fail(f"a plain version ran on the main path: {plain}")
     if srv.nonfinite:
@@ -530,41 +688,217 @@ def serve_full_width(dev, tag, profile=False):
     slim.update(prefill_dispatches=srv.prefill_dispatches,
                 decode_dispatches=srv.decode_dispatches,
                 peak_memory_bytes=peak)
+    streams = {r: list(t) for r, t in srv.outputs.items()}
     del srv
     if profile:
         slim["profile"] = profile_serve(model, params, scfg, prompts, tag)
-    del params
     torch.cuda.empty_cache()
-    return slim, launches
+    return slim, launches, (model, params, prompts, streams)
+
+
+# 4c: the paged tier.  P1's pool: 769 blocks (6 x 128 + 1) preempt no
+# request on phase 4's prompts, whose admissions wait for blocks instead;
+# the largest count below it that preempts, found by replaying the
+# scheduler on the CPU (its choices depend on the prompt and output
+# lengths only), is 760, and 740 preempts twice.
+P1_BLOCKS = 740
+P3_PREFIX, P3_REQUESTS = 512, 64
+
+
+def counting_lm(cfg, dev):
+    """An LM whose entry points count their calls and accumulate the
+    number of non-finite logits on the device (read once, at the end)."""
+    from repro_torch.models.model import LM
+
+    class CountingLM(LM):
+        def reset_counts(self):
+            self.calls = dict(decode_step=0, parallel_prefill=0,
+                              scan_prefill=0, rescore=0)
+            self.nonfinite = torch.zeros((), dtype=torch.long, device=dev)
+
+        def _seen(self, logits):
+            self.nonfinite += (~torch.isfinite(logits)).sum()
+            return logits
+
+        def decode_step(self, params, cache, tokens, active=None):
+            self.calls["decode_step"] += 1
+            lg, cache = super().decode_step(params, cache, tokens, active)
+            return self._seen(lg), cache
+
+        def prefill_chunk(self, params, cache, tokens, slot, n_valid,
+                          impl="auto"):
+            self.calls["scan_prefill" if impl == "scan"
+                       else "parallel_prefill"] += 1
+            lg, cache = super().prefill_chunk(params, cache, tokens, slot,
+                                              n_valid, impl)
+            return self._seen(lg), cache
+
+        def decode_rescore(self, params, cache, tokens, rows, positions):
+            self.calls["rescore"] += 1
+            return self._seen(super().decode_rescore(params, cache, tokens,
+                                                     rows, positions))
+
+    model = CountingLM(cfg)
+    model.reset_counts()
+    return model
+
+
+def serve_paged(base, lin_decode, dev, tag):
+    """Phase 4c: the paged tier at full width on phase 4's weights.
+    P1: 16 slots on a pool of P1_BLOCKS blocks with the prefix cache,
+    phase 4's 32 prompts; it must preempt.  P2: 16 slots on the default
+    pool (2049 blocks) with spec_k = 4.  Both must give phase 4's
+    streams.  P3: 32 slots on 2049 blocks (phase 4's cache bytes), 64
+    requests sharing a 512-token system prefix, once with the prefix
+    cache and once without; equal streams, and the 63 later requests
+    re-link the prefix."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    lin_model, params, prompts, lin_streams = base
+    cfg = lin_model.cfg
+    model = counting_lm(cfg, dev)
+    L, gen = cfg.n_layers, 32
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab, size=P3_PREFIX).tolist()
+    shared = [prefix + rng.integers(
+        0, cfg.vocab, size=int(rng.integers(128, 1025))).tolist()
+        for _ in range(P3_REQUESTS)]
+    base_kw = dict(max_len=2048, prefill_chunk=256, paged=True, block_len=16)
+    runs = [
+        ("P1", prompts, dict(slots=16, n_blocks=P1_BLOCKS)),
+        ("P2", prompts, dict(slots=16, spec_k=4)),
+        ("P3", shared, dict(slots=32, n_blocks=2049)),
+        ("P3 no prefix cache", shared, dict(slots=32, n_blocks=2049,
+                                            prefix_cache=False)),
+    ]
+    # first launches of the paged shapes (the rescore's GEMMs among them)
+    warm = Server(model, params, ServeConfig(slots=16, spec_k=4, **base_kw))
+    warm.admit(prompts[0][:300], 0, max_new_tokens=6)
+    warm.run()
+    del warm
+    out, total, streams = {}, {k: 0 for k in fa.launches}, {}
+    for name, reqs, kw in runs:
+        scfg = ServeConfig(**base_kw, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        srv = Server(model, params, scfg)
+        model.reset_counts()
+        fa.reset_launches()
+        ops.reset_plain_calls()
+        rec = run_workload(srv, [(0.0, p) for p in reqs], gen=gen)
+        launches, plain = dict(fa.launches), dict(ops.plain_calls)
+        calls, nonfinite = dict(model.calls), int(model.nonfinite)
+        peak = torch.cuda.max_memory_allocated(dev)
+        streams[name] = {r: list(t) for r, t in srv.outputs.items()}
+        counters = dict(prefill_dispatches=srv.prefill_dispatches,
+                        decode_dispatches=srv.decode_dispatches,
+                        verify_dispatches=srv.verify_dispatches,
+                        preemptions=srv.preemptions,
+                        prompt_cache_hits=srv.prompt_cache_hits)
+        want = {"flash_paged_decode": L * (calls["decode_step"]
+                                           + calls["rescore"]),
+                "flash_fwd": L * calls["parallel_prefill"],
+                "flash_decode": 0}
+        print(f"paged {name}: {scfg.slots} slots, {srv.n_blocks} blocks of "
+              f"{scfg.block_len}, spec_k {scfg.spec_k}, prefix cache "
+              f"{scfg.prefix_cache}: {rec['requests']} requests, "
+              f"{rec['prompt_tokens']} prompt tokens admitted; {counters}; "
+              f"calls {calls}")
+        print(f"paged {name}: launches {launches} (want {want}), plain "
+              f"calls {plain}, non-finite logits {nonfinite}")
+        reasons = set(srv.finished.values())
+        if (len(srv.finished) != len(reqs) or reasons != {"length"}
+                or srv.pending()):
+            fail(f"paged {name}: not every request retired by length: "
+                 f"{srv.finished}")
+        if any(len(t) != gen for t in streams[name].values()):
+            fail(f"paged {name}: a request did not produce {gen} tokens")
+        if any(launches[k] != v for k, v in want.items()):
+            fail(f"paged {name}: launches {launches}, expected {want}")
+        if (calls["rescore"] != srv.verify_dispatches
+                or calls["parallel_prefill"] + calls["scan_prefill"]
+                != srv.prefill_dispatches):
+            fail(f"paged {name}: calls {calls} do not match {counters}")
+        if any(plain.values()):
+            fail(f"paged {name}: a plain version ran: {plain}")
+        if nonfinite:
+            fail(f"paged {name}: {nonfinite} non-finite logits")
+        ms = 1e3
+        print(f"paged {name} metrics: prefill {rec['prefill_tok_per_s']:.1f} "
+              f"tok/s, decode {rec['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{rec['ttft_p50_s'] * ms:.1f} ms p95 "
+              f"{rec['ttft_p95_s'] * ms:.1f} ms, ITL p50 "
+              f"{rec['itl_p50_s'] * ms:.2f} ms p95 "
+              f"{rec['itl_p95_s'] * ms:.2f} ms, wall {rec['wall_s']:.2f} s, "
+              f"peak memory {peak / 2**30:.2f} GiB {tag}")
+        slim = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+        slim.update(counters, calls=calls, launches=launches,
+                    peak_memory_bytes=peak, n_blocks=srv.n_blocks)
+        out[name] = slim
+        for k in total:
+            total[k] += launches[k]
+        del srv
+        torch.cuda.empty_cache()
+
+    print(f"paged P2 vs phase 4: {out['P2']['decode_dispatches']} "
+          f"speculative rounds + {out['P2']['verify_dispatches']} verify "
+          f"dispatches against phase 4's {lin_decode} decode dispatches")
+    if out["P1"]["preemptions"] < 1:
+        fail(f"paged P1 did not preempt on {P1_BLOCKS} blocks")
+    for name in ("P1", "P2"):
+        if streams[name] != lin_streams:
+            bad = [r for r in lin_streams
+                   if streams[name].get(r) != lin_streams[r]]
+            fail(f"paged {name}: streams differ from phase 4's linear "
+                 f"streams for requests {bad}")
+    if out["P3"]["prompt_cache_hits"] < (P3_REQUESTS - 1) * P3_PREFIX:
+        fail(f"paged P3 re-linked {out['P3']['prompt_cache_hits']} prompt "
+             f"tokens, expected >= {(P3_REQUESTS - 1) * P3_PREFIX}")
+    if streams["P3"] != streams["P3 no prefix cache"]:
+        fail("paged P3: streams with and without the prefix cache differ")
+    print(f"paged: P1 and P2 streams equal phase 4's, P3's equal without "
+          f"the prefix cache; P1 preempted {out['P1']['preemptions']} "
+          f"times, P3 re-linked {out['P3']['prompt_cache_hits']} prompt "
+          f"tokens {tag}")
+    return out, total
 
 
 def profile_serve(model, params, scfg, prompts, tag):
     """Where the time goes: torch.profiler over one admission (the
     first 768 tokens of the last prompt, at most 3 prefill chunks) and 8
     decode steps of a full 16-slot pool at up to ~1000 cached tokens per
-    slot.  Prints the kernels with
-    the most device time and the device's busy share of the wall time."""
+    slot, on the linear tier and then on the paged tier (default pool, no
+    other request sharing a prefix).  Prints the kernels with the most
+    device time and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime.serve import Server
 
-    srv = Server(model, params, scfg)
-    for s in range(scfg.slots - 1):
-        srv.admit(prompts[s % len(prompts)][:1000], s, max_new_tokens=1000)
-    torch.cuda.synchronize()
-    phases = (("prefill", lambda: srv.admit(prompts[-1][:768],
-                                            scfg.slots - 1,
-                                            max_new_tokens=1000)),
-              ("decode", lambda: [srv.decode_once() for _ in range(8)]))
     out = {}
-    for phase, fn in phases:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        out[phase] = report_profile(prof, phase, wall_ms, tag)
+    for tier, tcfg in (("", scfg),
+                       ("paged ", dataclasses.replace(scfg, paged=True))):
+        srv = Server(model, params, tcfg)
+        for s in range(tcfg.slots - 1):
+            srv.admit(prompts[s % len(prompts)][:1000], s,
+                      max_new_tokens=1000)
+        torch.cuda.synchronize()
+        phases = (("prefill", lambda: srv.admit(prompts[-1][:768],
+                                                tcfg.slots - 1,
+                                                max_new_tokens=1000)),
+                  ("decode", lambda: [srv.decode_once() for _ in range(8)]))
+        for phase, fn in phases:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            out[tier + phase] = report_profile(prof, tier + phase, wall_ms,
+                                               tag)
+        del srv
     return out
 
 
@@ -700,7 +1034,7 @@ def train_full_width(dev, tag):
 
     L, n = cfg.n_layers, TRAIN_STEPS
     want = {"flash_fwd": 2 * L * TRAIN_MICRO * n, "flash_decode": 0,
-            "flash_bwd_dq": L * TRAIN_MICRO * n,
+            "flash_paged_decode": 0, "flash_bwd_dq": L * TRAIN_MICRO * n,
             "flash_bwd_dkv": L * TRAIN_MICRO * n}
     losses = rec["losses"]
     print(f"train: {cfg.name} full width, {n} steps of {TRAIN_BATCH} x "
@@ -835,8 +1169,9 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write the full record as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one admission, 8 decode steps and 2 "
-                         "full-width training steps (torch.profiler)")
+                    help="also profile one admission and 8 decode steps on "
+                         "each tier, and 2 full-width training steps "
+                         "(torch.profiler)")
     args = ap.parse_args()
 
     # 1. device
@@ -868,7 +1203,13 @@ def main() -> int:
     checks = check_kernels(dev, tag)
 
     # 4. serve at full width, then the reduced model against the CPU
-    serve_rec, serve_launches = serve_full_width(dev, tag, args.profile)
+    serve_rec, serve_launches, base = serve_full_width(dev, tag, args.profile)
+    # 4c. the paged tier on the same weights, held to phase 4's streams
+    paged_rec, paged_launches = serve_paged(
+        base, serve_rec["decode_dispatches"], dev, tag)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
     reduced_err = reduced_card_vs_cpu(dev, tag)
 
     # 4b. train at full width, then the reduced model against the CPU
@@ -884,24 +1225,28 @@ def main() -> int:
     # 5. times
     times = time_kernels(dev, tag, timer)
 
-    # 6. the kernels line: launches are those of the two main paths
+    # 6. the kernels line: launches are those of the main paths (linear
+    # serving, the four paged runs, training)
     fa_py = "src/repro/kernels/flash_attention.py"
     replaces = {"flash_fwd": f"{fa_py}:146 and {fa_py}:191",
                 "flash_decode": f"{fa_py}:280",
+                "flash_paged_decode": f"{fa_py}:378",
                 "flash_bwd_dq": f"{fa_py}:491",
                 "flash_bwd_dkv": f"{fa_py}:519"}
     csrc = "src/repro_torch/kernels/csrc"
     sources = {"flash_fwd": f"{csrc}/flash_fwd.cu",
                "flash_decode": f"{csrc}/flash_decode.cu",
+               "flash_paged_decode": f"{csrc}/flash_paged_decode.cu",
                "flash_bwd_dq": f"{csrc}/flash_bwd.cu",
                "flash_bwd_dkv": f"{csrc}/flash_bwd.cu"}
     kernels = []
-    for k in ("flash_fwd", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv"):
+    for k in replaces:
         t = times[k]
         kernels.append({
             "name": k, "route": "cuda", "source": sources[k],
             "replaces": replaces[k],
-            "launches": serve_launches[k] + train_launches[k],
+            "launches": (serve_launches[k] + paged_launches[k]
+                         + train_launches[k]),
             "max_abs_err": max(r["max_abs_err"] for r in checks[k]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -911,7 +1256,8 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(dict(
             device=name, nvidia_smi=smi, torch=torch.__version__,
             build=build.build_info, checks=checks, times=times,
-            serve=serve_rec, reduced_card_vs_cpu=reduced_err,
+            serve=serve_rec, paged=paged_rec,
+            reduced_card_vs_cpu=reduced_err,
             train=train_rec, reduced_train_card_vs_cpu=reduced_train,
             kernels=kernels), indent=1, default=str))
     print(smi)

@@ -129,6 +129,11 @@ def load_library() -> ctypes.CDLL:
                                        i32, i32, i32, i32, i32,
                                        i32, f32, i32, vp]
     lib.repro_flash_decode.restype = i32
+    # pointers (q k_pool v_pool o table lengths), then B MB BL H KV hd,
+    # scale, q_is_f32, stream
+    lib.repro_flash_paged_decode.argtypes = [vp] * 6 + [i32] * 6 + [f32, i32,
+                                                                     vp]
+    lib.repro_flash_paged_decode.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,4 +1,5 @@
-// Shared pieces of the two attention kernels (flash_fwd.cu, flash_decode.cu).
+// Shared pieces of the attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_decode.cu, flash_paged_decode.cu).
 //
 // Numerics follow src/repro/kernels/flash_attention.py: f32 arithmetic,
 // the finite sentinel NEG_INF = -1e30 for masked scores (a fully masked
@@ -60,27 +61,38 @@ struct Tile {
 };
 
 // Stage rows [k0, k0 + BK) of one KV head into shared memory with 16-byte
-// loads.  ``src`` points at row 0 of that head, rows ``row_stride``
-// elements apart.  Rows for which valid(pos) is false are zeroed and
-// never read from device memory.
-template <int HD, typename Valid>
-__device__ __forceinline__ void load_kv_tile(
-    uint32_t* __restrict__ dst, const __nv_bfloat16* __restrict__ src,
-    long row_stride, int k0, Valid valid) {
+// loads.  Key position pos lives at ``base + row_off(pos)`` (an element
+// offset, 64-bit), so one loader serves a linear cache and a block pool
+// read through a table.  Rows for which valid(pos) is false are zeroed
+// and never read from device memory.
+template <int HD, typename RowOff, typename Valid>
+__device__ __forceinline__ void load_kv_rows(
+    uint32_t* __restrict__ dst, const __nv_bfloat16* __restrict__ base,
+    RowOff row_off, int k0, Valid valid) {
   constexpr int KW = Tile<HD>::KW;
   constexpr int VPR = HD / 8;  // uint4 vectors per row
   for (int idx = threadIdx.x; idx < BK * VPR; idx += blockDim.x) {
     const int j = idx / VPR, c = idx % VPR;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (valid(k0 + j))
-      val = __ldg(reinterpret_cast<const uint4*>(
-          src + (long)(k0 + j) * row_stride + c * 8));
+      val = __ldg(reinterpret_cast<const uint4*>(base + row_off(k0 + j) +
+                                                 c * 8));
     uint32_t* d = dst + j * KW + c * 4;
     d[0] = val.x;
     d[1] = val.y;
     d[2] = val.z;
     d[3] = val.w;
   }
+}
+
+// load_kv_rows for rows ``row_stride`` elements apart from ``src``, the
+// address of row 0 of one head.
+template <int HD, typename Valid>
+__device__ __forceinline__ void load_kv_tile(
+    uint32_t* __restrict__ dst, const __nv_bfloat16* __restrict__ src,
+    long row_stride, int k0, Valid valid) {
+  load_kv_rows<HD>(
+      dst, src, [=](int pos) { return (long)pos * row_stride; }, k0, valid);
 }
 
 // One warp's online-softmax update over one staged tile of BK keys, for

@@ -19,19 +19,9 @@
 // loads, and each warp runs the f32 online softmax over every tile.  At
 // 16 slots x 2 KV heads that is 32 blocks on 132 SMs, so the card is far
 // from its memory rate; a split-KV second pass is later work (PERF.md).
-#include "flash_common.cuh"
+#include "flash_decode.cuh"
 
 namespace repro {
-
-constexpr int DEC_WARPS = 8;
-constexpr int DEC_ROWS = 2;  // query heads per warp: g <= 16
-constexpr int DEC_MAX_G = DEC_WARPS * DEC_ROWS;
-
-template <int HD>
-constexpr int decode_smem_bytes() {
-  return DEC_MAX_G * HD * 4 + 2 * Tile<HD>::WORDS * 4 +
-         DEC_WARPS * DEC_ROWS * BK * 4;
-}
 
 template <int HD, typename TQ>
 __global__ void __launch_bounds__(DEC_WARPS * 32)
@@ -40,58 +30,13 @@ __global__ void __launch_bounds__(DEC_WARPS * 32)
                         const __nv_bfloat16* __restrict__ vc,
                         TQ* __restrict__ o, const int* __restrict__ lengths,
                         int S, int H, int KV, int window, float scale) {
-  constexpr int PPL = Tile<HD>::PPL;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  uint32_t* k_s = reinterpret_cast<uint32_t*>(q_s + DEC_MAX_G * HD);
-  uint32_t* v_s = k_s + Tile<HD>::WORDS;
-  float* p_s = reinterpret_cast<float*>(v_s + Tile<HD>::WORDS);
-
-  const int warp = threadIdx.x >> 5;
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int g = H / KV;
-  const long q_base = ((long)b * H + (long)kvh * g) * HD;
-
-  for (int idx = threadIdx.x; idx < g * HD; idx += blockDim.x)
-    q_s[idx] = to_f(q[q_base + idx]) * scale;
-
-  const int len = min(lengths[b], S);
-  const int lo = window > 0 ? max(0, len - window) : 0;
-  const int nr = warp < g ? (g - warp + DEC_WARPS - 1) / DEC_WARPS : 0;
-
-  float m[DEC_ROWS], l[DEC_ROWS], acc[DEC_ROWS][2 * PPL];
-#pragma unroll
-  for (int i = 0; i < DEC_ROWS; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int t = 0; t < 2 * PPL; ++t) acc[i][t] = 0.f;
-  }
-
+  const long head0 = ((long)b * S * KV + kvh) * HD;
   const long row_stride = (long)KV * HD;
-  const __nv_bfloat16* kb = kc + ((long)b * S * KV + kvh) * HD;
-  const __nv_bfloat16* vb = vc + ((long)b * S * KV + kvh) * HD;
-  auto valid = [&](int pos) { return pos < len && pos >= lo; };
-  auto row_of = [&](int i) { return warp + DEC_WARPS * i; };
-  auto mask = [&](int, int pos) { return valid(pos); };
-
-  for (int kt = (lo / BK) * BK; kt < len; kt += BK) {
-    __syncthreads();
-    load_kv_tile<HD>(k_s, kb, row_stride, kt, valid);
-    load_kv_tile<HD>(v_s, vb, row_stride, kt, valid);
-    __syncthreads();
-    if (nr > 0)
-      tile_step<HD, DEC_ROWS>(q_s, k_s, v_s, p_s + warp * DEC_ROWS * BK, kt,
-                              nr, row_of, mask, m, l, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < DEC_ROWS; ++i) {
-    if (i < nr) {
-      const float lc = fmaxf(l[i], 1e-30f);
-      store_row<HD>(o + q_base + (long)row_of(i) * HD, acc[i], lc);
-    }
-  }
+  decode_block<HD>(q, kc, vc, o, b, kvh, H, KV, min(lengths[b], S), window,
+                   scale, smem,
+                   [=](int pos) { return head0 + (long)pos * row_stride; });
 }
 
 template <int HD, typename TQ>

@@ -1,5 +1,6 @@
 """ctypes wrappers of the CUDA attention kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, ``csrc/flash_decode.cu``).
+``csrc/flash_bwd.cu``, ``csrc/flash_decode.cu``,
+``csrc/flash_paged_decode.cu``).
 
 Each wrapper checks what the kernel takes (device, dtype, shape,
 contiguity, alignment, head dim) and raises on anything else, allocates
@@ -18,10 +19,12 @@ from .ref import check_gqa
 
 HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 16            # decode: query heads per KV head (8 warps x 2)
+MAX_TABLE = 32768         # paged decode: table entries per row (128 KB)
 
 # launches per kernel since the last reset_launches(); a plain integer
 # each, read by chip_smoke.py to show the main path ran the kernels
 launches: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0,
+                             "flash_paged_decode": 0,
                              "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
@@ -259,4 +262,57 @@ def flash_attention_decode(q, k_cache, v_cache, lengths, *,
         int(q.dtype == torch.float32), ctypes.c_void_p(stream))
     _raise_on(code, lib, "flash_decode")
     launches["flash_decode"] += 1
+    return o
+
+
+def flash_attention_paged_decode(q, k_pool, v_pool, table, lengths, *,
+                                 scale: Optional[float] = None):
+    """q [B,H,hd] bf16|f32 against block pools [NB,BL,KV,hd] bf16 through
+    the block ``table`` [B,MB] int32, with per-row ``lengths`` [B] int32
+    (valid positions) -> [B,H,hd] like q.  Any block length BL >= 1 is
+    taken.  The table's entries must lie in [0, NB) (the host allocator
+    hands out nothing else).  A length above MB*BL is clamped to MB*BL in
+    the kernel, as ``flash_attention_decode`` clamps to S: checking it
+    here would make the host wait for the stream on every launch."""
+    from .build import load_library
+
+    _check_cuda(q)
+    dev = q.device
+    _check("q", q, 3, (torch.bfloat16, torch.float32), dev)
+    _check("k_pool", k_pool, 4, (torch.bfloat16,), dev)
+    _check("v_pool", v_pool, 4, (torch.bfloat16,), dev)
+    _check("table", table, 2, (torch.int32,), dev)
+    _check("lengths", lengths, 1, (torch.int32,), dev)
+    b, h, hd = q.shape
+    _, bl, kv, _ = k_pool.shape
+    mb = table.shape[1]
+    check_gqa(h, kv)
+    if (k_pool.shape != v_pool.shape or k_pool.shape[3] != hd
+            or table.shape[0] != b or lengths.shape[0] != b):
+        raise ValueError(f"pools {tuple(k_pool.shape)} / table "
+                         f"{tuple(table.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} has no kernel instance {HEAD_DIMS}")
+    if h // kv > MAX_GROUP:
+        raise ValueError(f"GQA group {h // kv} exceeds the decode kernel's "
+                         f"{MAX_GROUP} heads per KV head")
+    if bl < 1:
+        raise ValueError(f"pool blocks of {bl} rows; the kernel takes >= 1")
+    if mb < 1 or mb > MAX_TABLE:
+        raise ValueError(f"table of {mb} blocks per row, the kernel takes "
+                         f"1 to {MAX_TABLE} (one row lives in shared memory)")
+    scale = scale if scale is not None else hd ** -0.5
+    o = torch.empty_like(q)
+    if q.numel() == 0:
+        return o
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.repro_flash_paged_decode(
+        _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(o), _ptr(table),
+        _ptr(lengths), b, mb, bl, h, kv, hd, float(scale),
+        int(q.dtype == torch.float32), ctypes.c_void_p(stream))
+    _raise_on(code, lib, "flash_paged_decode")
+    launches["flash_paged_decode"] += 1
     return o

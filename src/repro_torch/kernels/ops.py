@@ -21,7 +21,8 @@ from . import ref
 
 plain_calls: Dict[str, int] = {"flash_attention_fwd_ref": 0,
                                "flash_attention_bwd_ref": 0,
-                               "flash_attention_decode_ref": 0}
+                               "flash_attention_decode_ref": 0,
+                               "flash_attention_paged_decode_ref": 0}
 
 
 def reset_plain_calls() -> None:
@@ -105,3 +106,16 @@ def flash_attention_decode(q, k_cache, v_cache, lengths, *,
     plain_calls["flash_attention_decode_ref"] += 1
     return ref.flash_attention_decode_ref(q, k_cache, v_cache, lengths,
                                           window=window, scale=scale)
+
+
+def flash_attention_paged_decode(q, k_pool, v_pool, table, lengths, *,
+                                 scale: Optional[float] = None):
+    """One decode step against the paged tier's block pools, read through
+    the block table; see ref.flash_attention_paged_decode_ref for the
+    semantics."""
+    if _route(q, k_pool, v_pool, table, lengths) == "cuda":
+        return fa.flash_attention_paged_decode(q, k_pool, v_pool, table,
+                                               lengths, scale=scale)
+    plain_calls["flash_attention_paged_decode_ref"] += 1
+    return ref.flash_attention_paged_decode_ref(q, k_pool, v_pool, table,
+                                                lengths, scale=scale)

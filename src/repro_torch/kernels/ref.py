@@ -9,7 +9,9 @@ finite sentinel ``NEG_INF``.
 ``kernels/ref.py::attention_ref`` extended with ``q_offset`` and the
 logsumexp; ``flash_attention_bwd_ref`` of repro's Pallas backward (its
 formulas, not autograd); ``flash_attention_decode_ref`` of
-``models/attention.py::attend_cache``.  A query row that sees no key at all (only possible with
+``models/attention.py::attend_cache``; ``flash_attention_paged_decode_ref``
+of ``models/attention.py::attend_paged`` (the table gather, then the
+decode).  A query row that sees no key at all (only possible with
 a window and an offset past the cache end) has no defined output: the
 TPU kernel returns an average that depends on its tile padding.  No
 caller produces such rows."""
@@ -125,3 +127,26 @@ def flash_attention_decode_ref(q, k_cache, v_cache, lengths, *,
     p = torch.softmax(sc, -1)
     out = torch.einsum("bKgc,bcKd->bKgd", p, v_cache.float())
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def flash_attention_paged_decode_ref(q, k_pool, v_pool, table, lengths, *,
+                                     scale: Optional[float] = None):
+    """q [B,H,hd] against block pools [NB,BL,KV,hd] through the block
+    ``table`` [B,MB] with per-slot valid ``lengths`` [B] (at most MB*BL)
+    -> [B,H,hd] q.dtype.  Gathers each slot's view ``pool[table]`` into
+    [B, MB*BL, KV, hd] and attends it as ``flash_attention_decode_ref``
+    with no window, after zeroing the rows at or past the length (the
+    kernel's ``_clean``): a row there may lie in the null block 0 or in
+    another request's block, and no value of it, NaN included, may reach
+    the output."""
+    b, mb = table.shape
+    _, bl, kv, hd = k_pool.shape
+    idx = table.long()
+    kc = k_pool[idx].reshape(b, mb * bl, kv, hd)
+    vc = v_pool[idx].reshape(b, mb * bl, kv, hd)
+    live = (torch.arange(mb * bl, device=q.device)[None, :]
+            < lengths.to(q.device).long()[:, None])[:, :, None, None]
+    zero = torch.zeros((), dtype=kc.dtype, device=kc.device)
+    return flash_attention_decode_ref(q, torch.where(live, kc, zero),
+                                      torch.where(live, vc, zero), lengths,
+                                      scale=scale)

@@ -8,6 +8,9 @@ throughput and TTFT / inter-token latency percentiles (counterpart of
   # on the CPU, at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --reduced --device cpu
+  # the paged tier on a small pool, with speculative decoding:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+      --reduced --device cpu --paged --n-blocks 9 --spec-k 4
 
 Runs on the card unless ``--device cpu`` is given; without a card and
 without ``--device cpu`` it raises.  Weights are random, from
@@ -45,6 +48,20 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="prefill chunk size")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV block pool + block-table cache")
+    ap.add_argument("--block-len", type=int, default=16,
+                    help="tokens per KV block (must divide --max-len)")
+    ap.add_argument("--n-blocks", type=int, default=None,
+                    help="pool size in blocks (default: slots * "
+                         "max_len/block_len + 1, the linear cache's "
+                         "capacity); smaller values serve memory-bound "
+                         "through preemption")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable radix shared-prefix block reuse")
+    ap.add_argument("--spec-k", type=int, default=1,
+                    help="self-speculative draft length per round "
+                         "(1 = plain decode)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--device", default="cuda",
@@ -85,7 +102,10 @@ def run_workload(srv: Server, arrivals: Sequence[Tuple[float, List[int]]],
         admit_evs = srv.admit_waiting()
         sync()
         tb = time.monotonic()
-        dec_evs = srv.decode_once()
+        if srv.scfg.spec_k > 1:
+            dec_evs = srv.spec_once()
+        else:
+            dec_evs = srv.decode_once()
         sync()
         tc = time.monotonic()
         if admit_evs:
@@ -145,7 +165,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     scfg = ServeConfig(slots=args.slots, max_len=args.max_len,
                        prefill_chunk=args.chunk,
                        temperature=args.temperature, top_k=args.top_k,
-                       seed=args.seed)
+                       seed=args.seed, paged=args.paged,
+                       block_len=args.block_len, n_blocks=args.n_blocks,
+                       prefix_cache=not args.no_prefix_cache,
+                       spec_k=args.spec_k)
     rng = np.random.default_rng(args.seed)
     n_req = args.requests or args.slots
     prompts = [rng.integers(0, cfg.vocab, size=args.prompt_len).tolist()
@@ -166,7 +189,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "prompt_len": args.prompt_len, "chunk": args.chunk,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
+        "paged": args.paged, "spec_k": args.spec_k,
     }
+    if args.paged:
+        rec["meta"]["block_len"] = args.block_len
+        rec["meta"]["n_blocks"] = srv.n_blocks
+        rec["meta"]["prefix_cache"] = not args.no_prefix_cache
+        rec["paged"] = {
+            "prefill_dispatches": srv.prefill_dispatches,
+            "decode_dispatches": srv.decode_dispatches,
+            "verify_dispatches": srv.verify_dispatches,
+            "preemptions": srv.preemptions,
+            "prompt_cache_hits": srv.prompt_cache_hits,
+        }
 
     def fmt(v, unit=""):
         return "n/a" if v is None else f"{v:,.1f}{unit}"
@@ -182,6 +217,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"  latency  per-token p50 {fmt(p50 and p50 * 1e3, ' ms')}, p95 "
           f"{fmt(p95 and p95 * 1e3, ' ms')}; ttft p50 "
           f"{fmt(rec['ttft_p50_s'] and rec['ttft_p50_s'] * 1e3, ' ms')}")
+    if args.paged:
+        print("  paged    " + ", ".join(f"{k} {v}"
+                                        for k, v in rec["paged"].items()))
     if args.json_out:
         slim = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
         with open(args.json_out, "w") as f:

@@ -1,6 +1,6 @@
 """GQA attention entry points (counterpart of ``repro.models.attention``).
 
-Both go through ``kernels/ops.py``, which picks the CUDA kernel for CUDA
+All go through ``kernels/ops.py``, which picks the CUDA kernel for CUDA
 tensors and the plain version for CPU tensors.  ``attention`` routes as
 repro's kernel route: a static ``q_offset`` of 0 goes through the
 differentiable ``ops.flash_attention`` (training), anything else through
@@ -54,3 +54,16 @@ def attend_cache(q, k_cache, v_cache, length, *,
     _check_impl(impl)
     return kops.flash_attention_decode(q, k_cache, v_cache, length,
                                        window=window, scale=scale)
+
+
+def attend_paged(q, k_pool, v_pool, table, length, *,
+                 scale: Optional[float] = None, impl: str = "auto"):
+    """Paged decode attention: q [B,H,hd] against block pools
+    [NB,BL,KV,hd] through the per-row block ``table`` [B,MB] int32;
+    ``length`` [B] int32 = valid entries (at most MB*BL).  No window: the
+    paged tier serves full-attention configurations only.  The kernel
+    reads the blocks through the table; nothing is gathered into a
+    per-row view."""
+    _check_impl(impl)
+    return kops.flash_attention_paged_decode(q, k_pool, v_pool, table,
+                                             length, scale=scale)

@@ -1,6 +1,6 @@
 """The dense decoder LM (counterpart of ``repro.models.model.LM``, dense
-branch): init, forward, loss, the linear slot cache, decode and chunked
-prefill.
+branch): init, forward, loss, the linear slot cache and the paged block
+pool, decode, chunked prefill and the speculative re-score.
 
 Params are plain dicts of tensors with the same keys and shapes as repro's
 param tree: per-layer weights stacked on a leading ``[L]`` axis, ``ln*``
@@ -18,7 +18,8 @@ and prefill steps write K/V and advance ``pos`` inside the tensors they
 are given and return the same dict.  The writes repro drops with
 ``mode="drop"`` (inactive slots, a prefill chunk's tail past max_len) are
 masked here without ever indexing out of range or wrapping a negative
-index."""
+index; in the paged pool they go to block 0, the null sink that the host
+allocator (runtime/paged.py) never hands out."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from .attention import attend_cache, attention
+from .attention import attend_cache, attend_paged, attention
 from .common import (dense_init, embed_init, resolve_device, rms_norm, rope,
                      softmax_cross_entropy)
 
@@ -49,8 +50,7 @@ def prefill_parallel_ok(cfg: ArchConfig) -> bool:
 
 def paged_ok(cfg: ArchConfig) -> bool:
     """Whether the paged block-pool KV layout applies (same precondition
-    as parallel prefill, as in repro).  The paged tier itself is not in
-    the port yet."""
+    as parallel prefill, as in repro)."""
     return prefill_parallel_ok(cfg)
 
 
@@ -229,8 +229,44 @@ class LM:
                        "v": torch.zeros(shape, dtype=torch.bfloat16,
                                         device=dev)}}
 
+    def init_cache_paged(self, batch: int, max_len: int, n_blocks: int,
+                         block_len: int, device="cuda") -> Cache:
+        """Paged serving cache: one block pool per layer, no per-slot
+        max_len reservation, plus a per-slot block table mapping logical
+        block index -> pool block id: {"pos": [B] int32, "block_table":
+        [B, max_len // block_len] int32, "pages": {"k", "v": [L, NB, BL,
+        KV, hd] bf16}}.  Block 0 is the host allocator's reserved null
+        sink (zeroed table rows point at it).  Dense full-attention
+        configurations only (``paged_ok``)."""
+        cfg = self.cfg
+        if not paged_ok(cfg):
+            raise ValueError(
+                f"paged KV cache unsupported for {cfg.name} (recurrent "
+                "state or ring-buffer SWA cache)")
+        if max_len % block_len:
+            raise ValueError(
+                f"block_len={block_len} must divide max_len={max_len} "
+                "(keeps the gathered per-slot view the same length as "
+                "the linear cache: the bit-equality invariant)")
+        dev = resolve_device(device)
+        shape = (cfg.n_layers, n_blocks, block_len, cfg.n_kv_heads, cfg.hd)
+        return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+                "block_table": torch.zeros((batch, max_len // block_len),
+                                           dtype=torch.int32, device=dev),
+                "pages": {"k": torch.zeros(shape, dtype=torch.bfloat16,
+                                           device=dev),
+                          "v": torch.zeros(shape, dtype=torch.bfloat16,
+                                           device=dev)}}
+
     def reset_slot(self, cache: Cache, slot: int) -> Cache:
-        """Zero one slot's K/V and position, in place."""
+        """Zero one slot's K/V and position, in place.  For a paged cache
+        only the slot's position and table row are cleared: the pool
+        blocks are recycled by the host allocator, and a zeroed table row
+        points at the null block."""
+        if "pages" in cache:
+            cache["pos"][slot] = 0
+            cache["block_table"][slot].zero_()
+            return cache
         cache["kv"]["k"][:, slot].zero_()
         cache["kv"]["v"][:, slot].zero_()
         cache["pos"][slot] = 0
@@ -248,27 +284,20 @@ class LM:
     def decode_step(self, params: Params, cache: Cache, tokens: torch.Tensor,
                     active: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Cache]:
-        """tokens [B] -> (logits [B, V], cache updated in place).
+        """tokens [B] -> (logits [B, V], cache updated in place).  The
+        cache is linear (``init_cache``) or paged (``init_cache_paged``).
 
         ``active`` [B] bool: inactive rows keep their cache row and
         position (repro drops their write with an out-of-range index)."""
         cfg = self.cfg
         hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         pos = cache["pos"]
-        kc_all, vc_all = cache["kv"]["k"], cache["kv"]["v"]
-        S = kc_all.shape[2]
         x = params["embed"][tokens]
         b = x.shape[0]
-        slot = pos % S if cfg.swa_window is not None else pos
-        ok = slot < S
-        if active is not None:
-            ok = ok & active
-        # a dropped row rewrites its own position 0 with the value already
-        # there, so every index stays in range and no two rows collide
-        idx = torch.where(ok, slot, torch.zeros_like(slot)).long()
-        rows = torch.arange(b, device=x.device)
-        keep = ok[:, None, None]
-        length = torch.clamp(pos + 1, max=S).to(torch.int32)
+        if "pages" in cache:
+            attend = self._paged_writer(cache, pos, active, b)
+        else:
+            attend = self._linear_writer(cache, pos, active, b)
         rpos = pos[:, None]
         for li, p in enumerate(self._layers(params)):
             pa = p["attn"]
@@ -277,12 +306,7 @@ class LM:
             q = rope(q.reshape(b, 1, h, hd), rpos, cfg.rope_theta)[:, 0]
             k = rope(k.reshape(b, 1, kvh, hd), rpos, cfg.rope_theta)[:, 0]
             v = v.reshape(b, kvh, hd)
-            kc, vc = kc_all[li], vc_all[li]
-            kc[rows, idx] = torch.where(keep, k.to(torch.bfloat16),
-                                        kc[rows, idx])
-            vc[rows, idx] = torch.where(keep, v.to(torch.bfloat16),
-                                        vc[rows, idx])
-            o = attend_cache(q, kc, vc, length)
+            o = attend(li, q, k, v)
             x = x + o.reshape(b, h * hd) @ pa["wo"]
             x = x + _mlp_forward(p["mlp"], rms_norm(x, p["ln2"],
                                                     cfg.norm_eps))
@@ -293,13 +317,70 @@ class LM:
             pos += active.to(pos.dtype)
         return self._head(params, x), cache
 
+    def _linear_writer(self, cache: Cache, pos: torch.Tensor,
+                       active: Optional[torch.Tensor], b: int):
+        """attend(layer, q, k, v) for a decode step on the linear cache:
+        write the new K/V at each row's position, then attend."""
+        kc_all, vc_all = cache["kv"]["k"], cache["kv"]["v"]
+        S = kc_all.shape[2]
+        slot = pos % S if self.cfg.swa_window is not None else pos
+        ok = slot < S
+        if active is not None:
+            ok = ok & active
+        # a dropped row rewrites its own position 0 with the value already
+        # there, so every index stays in range and no two rows collide
+        idx = torch.where(ok, slot, torch.zeros_like(slot)).long()
+        rows = torch.arange(b, device=pos.device)
+        keep = ok[:, None, None]
+        length = torch.clamp(pos + 1, max=S).to(torch.int32)
+
+        def attend(li, q, k, v):
+            kc, vc = kc_all[li], vc_all[li]
+            kc[rows, idx] = torch.where(keep, k.to(torch.bfloat16),
+                                        kc[rows, idx])
+            vc[rows, idx] = torch.where(keep, v.to(torch.bfloat16),
+                                        vc[rows, idx])
+            return attend_cache(q, kc, vc, length)
+        return attend
+
+    def _paged_writer(self, cache: Cache, pos: torch.Tensor,
+                      active: Optional[torch.Tensor], b: int):
+        """attend(layer, q, k, v) for a decode step on the paged pool
+        (repro's ``_attn_decode_paged``): write the new K/V through each
+        row's table at block pos // BL, offset pos % BL, then attend
+        through the table.  A row that is inactive or whose position lies
+        past its table writes into the null block 0 instead of being
+        dropped, so no index is out of range and no such write can land
+        in a live or trie-shared block."""
+        kp_all, vp_all = cache["pages"]["k"], cache["pages"]["v"]
+        table = cache["block_table"]
+        bl, mb = kp_all.shape[2], table.shape[1]
+        p64 = pos.long()
+        bidx = p64 // bl
+        ok = bidx < mb
+        if active is not None:
+            ok = ok & active
+        rows = torch.arange(b, device=pos.device)
+        blk = table[rows, bidx.clamp(max=mb - 1)].long()
+        wblk = torch.where(ok, blk, torch.zeros_like(blk))
+        woff = p64 % bl
+        length = torch.clamp(pos + 1, max=mb * bl).to(torch.int32)
+
+        def attend(li, q, k, v):
+            kp, vp = kp_all[li], vp_all[li]
+            kp[wblk, woff] = k.to(torch.bfloat16)
+            vp[wblk, woff] = v.to(torch.bfloat16)
+            return attend_paged(q, kp, vp, table, length)
+        return attend
+
     # -- chunked prefill -----------------------------------------------------
     def prefill_chunk(self, params: Params, cache: Cache,
                       tokens: torch.Tensor, slot: int, n_valid: int,
                       impl: str = "auto") -> Tuple[torch.Tensor, Cache]:
         """Consume ``tokens`` [C] (first ``n_valid`` real, rest padding)
         into one slot at its current position.  Returns (f32 logits [V]
-        of the last valid token, cache updated in place).
+        of the last valid token, cache updated in place).  The cache is
+        linear or paged.
 
         ``impl``: "auto" runs the chunk in parallel (offset flash attention
         against the slot's cache) where prefill_parallel_ok allows, else
@@ -311,6 +392,16 @@ class LM:
         if not 1 <= n_valid <= tokens.shape[0]:
             raise ValueError(f"n_valid={n_valid} outside [1, "
                              f"{tokens.shape[0]}]")
+        if "pages" in cache:
+            # the pool has no slot axis: writes go through the slot's
+            # table row instead of a batch-1 view
+            if impl == "scan":
+                logits = self._prefill_chunk_paged_scan(params, cache,
+                                                        tokens, slot, n_valid)
+            else:
+                logits = self._prefill_chunk_attn_paged(params, cache,
+                                                        tokens, slot, n_valid)
+            return logits, cache
         parallel_ok = prefill_parallel_ok(self.cfg)
         if impl == "parallel" and not parallel_ok:
             raise ValueError(
@@ -375,3 +466,108 @@ class LM:
         last = rms_norm(x[0, n_valid - 1], params["ln_f"], cfg.norm_eps)
         pos0 += n_valid
         return self._head(params, last).float()
+
+    # -- paged serving: block-pool prefill and the speculative re-score ----
+    def _prefill_chunk_attn_paged(self, params: Params, cache: Cache,
+                                  tokens: torch.Tensor, slot: int,
+                                  n_valid: int) -> torch.Tensor:
+        """Parallel chunk prefill through the paged pool (repro's
+        ``_prefill_chunk_attn_paged``): the chunk's K/V is written through
+        the slot's table row at its absolute positions (padded rows and
+        rows past the table into the null block 0), then the chunk's
+        queries attend the slot's gathered view [1, MB*BL, KV, hd] with
+        the causal offset ``pos``, as the reference does."""
+        cfg = self.cfg
+        hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        kp_all, vp_all = cache["pages"]["k"], cache["pages"]["v"]
+        bl, mb = kp_all.shape[2], cache["block_table"].shape[1]
+        pos0 = cache["pos"][slot:slot + 1]                  # [1] int32
+        row = cache["block_table"][slot].long()             # [MB]
+        c = tokens.shape[0]
+        x = params["embed"][tokens][None]                   # [1, C, D]
+        ar = torch.arange(c, device=x.device)
+        positions = (pos0.long() + ar)[None]
+        abs_pos = positions[0]
+        bidx = abs_pos // bl
+        ok = (ar < n_valid) & (bidx < mb)
+        blk = row[bidx.clamp(max=mb - 1)]
+        wblk = torch.where(ok, blk, torch.zeros_like(blk))
+        woff = abs_pos % bl
+        for li, p in enumerate(self._layers(params)):
+            pa = p["attn"]
+            xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+            q, k, v = self._qkv(pa, xn)
+            q = rope(q.reshape(1, c, h, hd), positions, cfg.rope_theta)
+            k = rope(k.reshape(1, c, kvh, hd), positions, cfg.rope_theta)
+            v = v.reshape(1, c, kvh, hd)
+            kp, vp = kp_all[li], vp_all[li]                 # [NB,BL,KV,hd]
+            kp[wblk, woff] = k[0].to(torch.bfloat16)
+            vp[wblk, woff] = v[0].to(torch.bfloat16)
+            kview = kp[row].reshape(1, mb * bl, kvh, hd)
+            vview = vp[row].reshape(1, mb * bl, kvh, hd)
+            o = attention(q, kview, vview, causal=True, q_offset=pos0)
+            x = x + o.reshape(1, c, h * hd) @ pa["wo"]
+            x = x + _mlp_forward(p["mlp"], rms_norm(x, p["ln2"],
+                                                    cfg.norm_eps))
+        last = rms_norm(x[0, n_valid - 1], params["ln_f"], cfg.norm_eps)
+        pos0 += n_valid
+        return self._head(params, last).float()
+
+    def _prefill_chunk_paged_scan(self, params: Params, cache: Cache,
+                                  tokens: torch.Tensor, slot: int,
+                                  n_valid: int) -> torch.Tensor:
+        """Sequential prefill for the paged pool: step the pool-wide
+        decode_step over the chunk's valid tokens with a one-hot active
+        mask, so only ``slot`` writes and advances.  Pool-wide and not on
+        a batch-1 view: this is the preemption resume, and it recomputes
+        decode-written K/V bit-exactly only at the batch width that first
+        wrote them."""
+        b = cache["pos"].shape[0]
+        onehot = torch.arange(b, device=tokens.device) == slot
+        zero = torch.zeros((), dtype=tokens.dtype, device=tokens.device)
+        logits = None
+        for i in range(n_valid):
+            feed = torch.where(onehot, tokens[i], zero)
+            logits, _ = self.decode_step(params, cache, feed, active=onehot)
+        return logits[slot].float()
+
+    def decode_rescore(self, params: Params, cache: Cache,
+                       tokens: torch.Tensor, rows: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+        """Read-only batched re-score for speculative verification: logits
+        [N, V] for feeding ``tokens`` [N] at cache ``positions`` [N] of
+        pool rows ``rows`` [N].  The cache already holds the drafted K/V,
+        each token's own position included, so nothing is written.  On a
+        paged cache the kernel reads through ``table[rows]`` with lengths
+        ``positions + 1`` (the reference's gather, then attend_cache, with
+        no [N, MB*BL, KV, hd] view built); on a linear cache the rows'
+        caches are gathered and attended, as the reference does."""
+        cfg = self.cfg
+        hd, h = cfg.hd, cfg.n_heads
+        n = tokens.shape[0]
+        paged = "pages" in cache
+        length = (positions + 1).to(torch.int32)
+        if paged:
+            kv_all = cache["pages"]
+            table = cache["block_table"][rows]              # [N, MB]
+        else:
+            kv_all = cache["kv"]
+        x = params["embed"][tokens]                         # [N, D]
+        rpos = positions[:, None]
+        for li, p in enumerate(self._layers(params)):
+            pa = p["attn"]
+            xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+            q = xn @ pa["wq"]
+            if cfg.qkv_bias:
+                q = q + pa["bq"]
+            q = rope(q.reshape(n, 1, h, hd), rpos, cfg.rope_theta)[:, 0]
+            kc, vc = kv_all["k"][li], kv_all["v"][li]
+            if paged:
+                o = attend_paged(q, kc, vc, table, length)
+            else:
+                o = attend_cache(q, kc[rows], vc[rows], length)
+            x = x + o.reshape(n, h * hd) @ pa["wo"]
+            x = x + _mlp_forward(p["mlp"], rms_norm(x, p["ln2"],
+                                                    cfg.norm_eps))
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return self._head(params, x)

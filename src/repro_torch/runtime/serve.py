@@ -1,5 +1,5 @@
-"""Continuous-batching slot-pool server, linear KV tier (counterpart of
-``repro.runtime.serve``).
+"""Continuous-batching slot-pool server (counterpart of
+``repro.runtime.serve``), linear and paged KV tiers.
 
 A fixed pool of ``slots`` requests decodes together in one pool-wide step;
 admission and retirement happen between decode steps:
@@ -11,25 +11,47 @@ admission and retirement happen between decode steps:
 - slot scheduler: per-slot position and output count, EOS / length /
   max_len retirement, and a waiting queue that backfills freed slots;
 - isolation: each slot attends only its own cache rows (per-slot
-  lengths), and a freed slot is zeroed before reuse;
+  lengths), and a freed slot is zeroed (linear) or unmapped (paged)
+  before reuse;
 - sampling: greedy, temperature or top-k over the pool, with one
   ``torch.Generator`` per (request, token index) so that a request's
   sampled stream does not depend on what else is in the pool.  The bits
   differ from repro's ``jax.random`` streams; greedy streams match.
 
-The paged tier, speculative decoding, plan sharding and the obs wiring
-are not ported yet: ``ServeConfig`` raises on ``paged=True`` or
-``spec_k > 1``."""
+Paged tier (``ServeConfig.paged``):
+
+- block-pool KV cache: one block pool per layer plus a per-slot block
+  table (``LM.init_cache_paged``); the host side of the allocator is
+  runtime/paged.py (``BlockPool`` refcounts, ``PrefixTrie``).  Memory is
+  committed per block written; an admission that finds no free block
+  stays queued (``NoFreeBlocks``), and decode-time growth preempts the
+  youngest slot (LIFO) once the trie has nothing left to evict.  A
+  preempted request is requeued at the front with its generated tokens
+  folded into its prompt and resumes through prefill (and trie
+  re-linking), continuing its stream exactly;
+- shared-prefix reuse: an admission walks the trie, re-links the fully
+  matched blocks, copies a partially matched block (copy-on-write) and
+  prefills only the unmatched suffix;
+- self-speculative decoding (``spec_k > 1``): one round drafts ``spec_k``
+  tokens per slot by stepping the exact decode step, then one batched
+  read-only re-score (``LM.decode_rescore``) verifies the draft; emitted
+  tokens always come from the draft, so the stream equals sequential
+  decoding while tokens arrive up to ``spec_k`` per round.
+
+Plan sharding and the obs wiring are not ported yet: ``Server`` takes no
+mesh, plan, registry or monitor."""
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..models.model import LM
+from ..models.model import LM, paged_ok
+from .paged import BlockPool, NoFreeBlocks, PrefixTrie
 
 # budget sentinel for "generate until EOS / cache full"
 _UNBOUNDED = 1 << 60
@@ -46,17 +68,16 @@ class ServeConfig:
     temperature: float = 0.0       # 0 -> greedy
     top_k: int = 0                 # 0 -> full distribution
     seed: int = 0
+    # -- paged KV tier (dense full-attention configurations only) ----------
     paged: bool = False
-    spec_k: int = 1
-
-    def __post_init__(self):
-        if self.paged:
-            raise NotImplementedError(
-                "the paged KV tier is not ported yet (paged=True)")
-        if self.spec_k != 1:
-            raise NotImplementedError(
-                f"speculative decoding is not ported yet (spec_k="
-                f"{self.spec_k})")
+    block_len: int = 16            # must divide max_len
+    # pool size; None -> slots * (max_len // block_len) + 1 (the +1 is the
+    # reserved null block: the same capacity as the linear cache)
+    n_blocks: Optional[int] = None
+    prefix_cache: bool = True      # radix shared-prefix reuse
+    # -- self-speculative decoding ------------------------------------------
+    spec_k: int = 1                # tokens drafted per round; 1 = off
+    spec_verify: bool = True       # batched re-score of the draft
 
 
 @dataclasses.dataclass
@@ -64,6 +85,9 @@ class Request:
     rid: int
     prompt: List[int]
     max_new_tokens: Optional[int] = None
+    # outputs already generated before a preemption; the resume prompt
+    # carries them, and sampling continues at this token index
+    prior_out: int = 0
 
 
 def stream_seed(seed: int, rid: int, count: int) -> int:
@@ -106,10 +130,11 @@ class Server:
     Scheduler API:
       submit(prompt, max_new_tokens) -> rid     enqueue a request
       step() -> events                          admissions + one decode
+                                                (or speculative) round
       run(max_steps) -> {rid: tokens}           drive until drained
       pending() -> {rid: "waiting"|"inflight"}  what run() did not finish
     Lower-level pieces (the harness and the tests use them):
-      admit_waiting() / decode_once(forced_tokens)
+      admit_waiting() / decode_once(forced_tokens) / spec_once()
       admit(prompt, slot, ...) -> rid           direct admission
       generate(n) -> per-slot outputs           seed-era demo API
     """
@@ -127,16 +152,74 @@ class Server:
         self.budget = np.full((n,), _UNBOUNDED, np.int64)
         self.prompt_len = np.zeros((n,), np.int64)
         self.slot_rid = np.full((n,), -1, np.int64)
+        self.slot_seq = np.full((n,), -1, np.int64)  # admission order
         self.outputs: Dict[int, List[int]] = {}
         self.finished: Dict[int, str] = {}           # rid -> retire reason
         self.waiting: collections.deque = collections.deque()
         self.prefill_logits = np.zeros((n, model.cfg.vocab), np.float32)
         self.last_logits: Optional[torch.Tensor] = None
         self._next_rid = 0
+        self._seq = itertools.count()
+        self._slot_prompt: Dict[int, List[int]] = {}
+        self._events: List[Tuple] = []               # preemptions, drained
         self.prefill_dispatches = 0
         self.decode_dispatches = 0
-        self.cache = self.model.init_cache(n, scfg.max_len,
-                                           device=self.device)
+        self.verify_dispatches = 0
+        self.preemptions = 0
+        self.prompt_cache_hits = 0        # prompt tokens served from trie
+
+        # paged allocator state (host side of the block pool)
+        self.paged = scfg.paged
+        self.pool: Optional[BlockPool] = None
+        self.trie: Optional[PrefixTrie] = None
+        if self.paged:
+            self.bl = scfg.block_len
+            if scfg.max_len % self.bl:
+                raise ValueError(
+                    f"block_len={self.bl} must divide "
+                    f"max_len={scfg.max_len}")
+            self.mb = scfg.max_len // self.bl
+            nb = (scfg.n_blocks if scfg.n_blocks is not None
+                  else n * self.mb + 1)
+            if nb < self.mb + 1:
+                raise ValueError(
+                    f"n_blocks={nb} cannot hold one full-length request "
+                    f"({self.mb} blocks + the reserved null block): the "
+                    "scheduler could deadlock")
+            self.n_blocks = nb
+            self.pool = BlockPool(nb)
+            if scfg.prefix_cache:
+                self.trie = PrefixTrie(self.pool, self.bl)
+            self.table = np.zeros((n, self.mb), np.int32)
+            self.n_slot_blocks = np.zeros((n,), np.int64)
+            self.cache = self.model.init_cache_paged(
+                n, scfg.max_len, nb, self.bl, device=self.device)
+        else:
+            self.cache = self.model.init_cache(n, scfg.max_len,
+                                               device=self.device)
+        self._table_dirty = False
+        self._pos_dirty = False
+        self._can_verify = paged_ok(model.cfg)
+
+    def _drain(self) -> List[Tuple]:
+        ev, self._events = self._events, []
+        return ev
+
+    def _flush_host_state(self) -> None:
+        """Push the host's truth (block table, positions) to the device
+        cache.  The host mutates its mirrors freely between dispatches
+        (admission, preemption, speculative rollback) and flushes once
+        before the next dispatch.  The copies are blocking: the host
+        waits until the stream has read its arrays, so it may write them
+        again at once (an asynchronous copy from these arrays could read
+        them after a later mutation)."""
+        if self._table_dirty:
+            self.cache["block_table"].copy_(torch.from_numpy(self.table))
+            self._table_dirty = False
+        if self._pos_dirty:
+            self.cache["pos"].copy_(
+                torch.from_numpy(self.pos.astype(np.int32)))
+            self._pos_dirty = False
 
     # -- sampling ---------------------------------------------------------
     def _generators(self, rids, counts) -> List[torch.Generator]:
@@ -184,18 +267,32 @@ class Server:
                method: str = "chunked") -> List[Tuple]:
         self._check_prompt(req.prompt)
         prompt = np.asarray(req.prompt, np.int64)
-        logits = self._prefill_linear(prompt, slot, method)
-        tok = int(self._sample(logits[None], [req.rid], [0])[0])
+        if self.paged:
+            # may raise NoFreeBlocks, before any state is touched
+            logits = self._prefill_paged(prompt, slot, method,
+                                         resume_tail=req.prior_out)
+        else:
+            logits = self._prefill_linear(prompt, slot, method)
+        tok = int(self._sample(logits[None], [req.rid], [req.prior_out])[0])
         self.prefill_logits[slot] = logits.cpu().numpy()
         self.active[slot] = True
         self.slot_rid[slot] = req.rid
+        self.slot_seq[slot] = next(self._seq)
         self.prompt_len[slot] = len(prompt)
         self.pos[slot] = len(prompt)
-        self.n_out[slot] = 0
+        self.n_out[slot] = req.prior_out
         self.budget[slot] = (req.max_new_tokens
                              if req.max_new_tokens is not None
                              else _UNBOUNDED)
+        # a resumed (preempted) request keeps its outputs so far
         self.outputs.setdefault(req.rid, [])
+        # the request's own prompt, without the outputs a resume folds in:
+        # a later preemption appends all its outputs to it, and the cache
+        # holds this prompt followed by the outputs.  (repro keeps the
+        # resume prompt here, so a second preemption of one request
+        # duplicates its first outputs; ROADMAP C.)
+        self._slot_prompt[slot] = [
+            int(x) for x in prompt[:len(prompt) - req.prior_out]]
         return [("admit", req.rid, slot)] + self._append(slot, tok)
 
     def _prefill_linear(self, prompt: np.ndarray, slot: int,
@@ -214,6 +311,209 @@ class Server:
                 impl=self.scfg.prefill_impl)
             self.prefill_dispatches += 1
         return logits
+
+    # -- paged admission: trie match + CoW + suffix prefill ---------------
+    def _prefill_paged(self, prompt: np.ndarray, slot: int, method: str,
+                       resume_tail: int = 0) -> torch.Tensor:
+        """Build the slot's block-table row (re-linking trie-cached prefix
+        blocks, copy-on-write for a partial block match, fresh blocks for
+        the suffix), then prefill only the unmatched suffix.
+        ``resume_tail`` > 0 marks a preempted request coming back: its
+        last ``resume_tail`` prompt tokens were decode-written before the
+        preemption, so they run again through the scan prefill (the
+        decode step itself), while the original prompt keeps the
+        configured prefill and its chunk boundaries; a full recompute
+        then reproduces the first admission bit for bit.  Raises
+        NoFreeBlocks, with every acquired reference rolled back, before
+        touching any scheduler or device state."""
+        scfg, bl = self.scfg, self.bl
+        p_len = len(prompt)
+        toks = [int(x) for x in prompt]
+        acquired: List[int] = []    # one caller reference each
+        row: List[int] = []
+        pending_copy = None
+        cached = 0
+        full: List[int] = []
+        part = cow = None
+        take = 0
+        try:
+            # at least one suffix token must remain to produce logits
+            limit = p_len - 1
+            if self.trie is not None:
+                full, part = self.trie.match(toks)
+                acquired += full
+                if part is not None:
+                    acquired.append(part[0])
+            keep = min(len(full), limit // bl)
+            if len(full) > keep:
+                # prompt fully covered: the next full block degrades to a
+                # CoW source for its first (limit - keep * bl) tokens
+                cow = (full[keep], bl)
+            elif part is not None:
+                cow = part
+            row = list(full[:keep])
+            cached = keep * bl
+            if cow is not None:
+                take = min(cow[1], limit - cached)
+            if take > 0:
+                dst = self._alloc_block()
+                acquired.append(dst)
+                pending_copy = (dst, cow[0])
+                row.append(dst)
+                cached += take
+            while len(row) < (p_len - 1) // bl + 1:
+                b = self._alloc_block()
+                acquired.append(b)
+                row.append(b)
+        except NoFreeBlocks:
+            for b in acquired:
+                self.pool.decref(b)
+            raise
+        # drop the references not kept: unused full matches past the CoW
+        # source, the partial match when a full block won the CoW slot,
+        # and the CoW source itself when nothing was taken
+        drop_now = list(full[keep + 1:])
+        if part is not None and (cow is None or cow[0] != part[0]):
+            drop_now.append(part[0])
+        if cow is not None and take <= 0:
+            drop_now.append(cow[0])
+        for b in drop_now:
+            self.pool.decref(b)
+
+        self.table[slot, :] = 0
+        self.table[slot, :len(row)] = row
+        self.n_slot_blocks[slot] = len(row)
+        self.pos[slot] = cached
+        self._table_dirty = True
+        self._pos_dirty = True
+        self.prompt_cache_hits += cached
+        c = scfg.prefill_chunk if method == "chunked" else 1
+        # the decode-written tail of a resumed prompt must scan; the
+        # original prompt keeps the configured impl, with chunks capped at
+        # the boundary exactly as the first admission capped them at its
+        # prompt end
+        split = p_len - resume_tail
+        if pending_copy is not None:
+            self._copy_block(*pending_copy)
+            self.pool.decref(pending_copy[1])
+        self._flush_host_state()
+        logits = None
+        i = cached
+        while i < p_len:
+            if i < split:
+                j, impl = min(i + c, split), scfg.prefill_impl
+            else:
+                j, impl = min(i + c, p_len), "scan"
+            chunk = prompt[i:j]
+            nv = j - i
+            if nv < c:
+                chunk = np.pad(chunk, (0, c - nv))
+            logits, self.cache = self.model.prefill_chunk(
+                self.params, self.cache,
+                torch.as_tensor(chunk, device=self.device), slot, nv,
+                impl=impl)
+            self.prefill_dispatches += 1
+            i = j
+        if self.trie is not None:
+            self.trie.insert(toks, row[:p_len // bl])
+        return logits
+
+    def _copy_block(self, dst: int, src: int) -> None:
+        """Copy-on-write: duplicate pool block ``src`` into ``dst`` in
+        every layer, in place, once per pool (K and V)."""
+        for pool in self.cache["pages"].values():
+            pool[:, dst] = pool[:, src]
+
+    # -- paged allocator glue ---------------------------------------------
+    def _alloc_block(self, protect: Optional[int] = None,
+                     allow_preempt: bool = False) -> int:
+        """One free pool block, reclaiming in escalation order: free list
+        -> trie LRU eviction -> (decode time only) preempting the youngest
+        active slot.  Admissions never preempt: they requeue on
+        NoFreeBlocks instead, so a burst cannot thrash the pool."""
+        while True:
+            try:
+                return self.pool.alloc()
+            except NoFreeBlocks:
+                if self.trie is not None and self.trie.evict(1):
+                    continue
+                if not allow_preempt:
+                    raise
+                victim = self._pick_victim(protect)
+                if victim is None:
+                    raise
+                self._preempt(victim)
+
+    def _pick_victim(self, protect: Optional[int]) -> Optional[int]:
+        best, best_seq = None, -1
+        for s in range(self.scfg.slots):
+            if s == protect or not self.active[s]:
+                continue
+            if self.slot_seq[s] > best_seq:
+                best_seq, best = int(self.slot_seq[s]), s
+        return best
+
+    def _preempt(self, slot: int) -> None:
+        """LIFO preemption: release the slot's blocks (registering its
+        prefix in the trie, so the resume re-links instead of
+        recomputing) and requeue the request at the front with its
+        generated tokens folded into its prompt.  Sampling resumes at
+        ``prior_out``, so the output stream continues exactly."""
+        rid = int(self.slot_rid[slot])
+        outs = list(self.outputs.get(rid, []))
+        self._release_blocks(slot, rid)
+        self.active[slot] = False
+        self.slot_rid[slot] = -1
+        self.pos[slot] = 0
+        self._pos_dirty = True
+        b = int(self.budget[slot])
+        self.waiting.appendleft(Request(
+            rid, self._slot_prompt.get(slot, []) + outs,
+            None if b >= _UNBOUNDED else b, prior_out=len(outs)))
+        self.preemptions += 1
+        self._events.append(("preempt", rid, slot))
+
+    def _release_blocks(self, slot: int, rid: int) -> None:
+        """Give the slot's block-table row back to the pool, first caching
+        the full-block prefix of (prompt + outputs in the cache) in the
+        trie for later shared-prefix admissions."""
+        nb = int(self.n_slot_blocks[slot])
+        row = [int(b) for b in self.table[slot, :nb]]
+        if self.trie is not None and row:
+            pos = int(self.pos[slot])
+            seq = (self._slot_prompt.get(slot, [])
+                   + self.outputs.get(rid, []))
+            nfull = pos // self.bl
+            self.trie.insert(seq[:pos], row[:nfull])
+            # the partially filled tail block too: a preempted request
+            # resumes by re-linking these exact bytes (CoW), which keeps
+            # the resume bit-exact instead of recomputing K/V
+            if pos % self.bl and nfull < len(row):
+                self.trie.insert_partial(seq[:pos], row[nfull])
+        for b in row:
+            self.pool.decref(b)
+        self.table[slot, :] = 0
+        self.n_slot_blocks[slot] = 0
+        self._table_dirty = True
+
+    def _ensure_blocks(self, slot: int, last_pos: int) -> None:
+        """Map pool blocks covering writes up to position ``last_pos``
+        (escalating through trie eviction and preemption; the slot itself
+        is protected)."""
+        while int(self.n_slot_blocks[slot]) * self.bl <= last_pos:
+            blk = self._alloc_block(protect=slot, allow_preempt=True)
+            self.table[slot, int(self.n_slot_blocks[slot])] = blk
+            self.n_slot_blocks[slot] += 1
+            self._table_dirty = True
+
+    def _ensure_active_blocks(self, last_pos) -> None:
+        """_ensure_blocks for every active slot, up to ``last_pos(slot)``.
+        Growing one slot can preempt a later one in the same loop, so each
+        slot is checked again when its turn comes."""
+        for slot in np.nonzero(self.active)[0]:
+            s = int(slot)
+            if self.active[s]:
+                self._ensure_blocks(s, last_pos(s))
 
     # -- slot bookkeeping -------------------------------------------------
     def _append(self, slot: int, tok: int) -> List[Tuple]:
@@ -234,6 +534,8 @@ class Server:
 
     def _retire(self, slot: int, reason: str) -> Tuple:
         rid = int(self.slot_rid[slot])
+        if self.paged:
+            self._release_blocks(slot, rid)
         self.active[slot] = False
         self.slot_rid[slot] = -1
         self.finished[rid] = reason
@@ -242,8 +544,9 @@ class Server:
     # -- the serving loop -------------------------------------------------
     def admit_waiting(self) -> List[Tuple]:
         """Backfill free slots from the waiting queue.  A request whose
-        admission raises ValueError is retired as "rejected", never
-        silently dropped."""
+        admission fails is requeued (NoFreeBlocks: the paged pool is full
+        for now; admission order is kept) or retired as "rejected" (an
+        invalid request), never silently dropped."""
         events: List[Tuple] = []
         for slot in range(self.scfg.slots):
             if not self.waiting:
@@ -253,6 +556,8 @@ class Server:
             req = self.waiting[0]
             try:
                 ev = self._admit(req, slot)
+            except NoFreeBlocks:
+                break          # stays queued; retirements will free blocks
             except ValueError:
                 self.waiting.popleft()
                 self.outputs.setdefault(req.rid, [])
@@ -261,7 +566,7 @@ class Server:
                 continue
             self.waiting.popleft()
             events += ev
-        return events
+        return self._drain() + events
 
     def decode_once(self, forced_tokens: Optional[np.ndarray] = None
                     ) -> List[Tuple]:
@@ -269,9 +574,16 @@ class Server:
         (or ``forced_tokens``, teacher forcing), sample, append, retire.
         Idle slots are masked out of the step (their cache position must
         not drift between requests)."""
+        events = self._drain()
         if not self.active.any():
-            return []
-        act = self.active.copy()
+            return events
+        if self.paged:
+            self._ensure_active_blocks(lambda s: int(self.pos[s]))
+        act = self.active.copy()        # after any preemption
+        events += self._drain()
+        if not act.any():
+            return events
+        self._flush_host_state()
         feed = (self.next_tok if forced_tokens is None
                 else np.asarray(forced_tokens, np.int64))
         logits, self.cache = self.model.decode_step(
@@ -282,15 +594,103 @@ class Server:
         self.last_logits = logits
         self.decode_dispatches += 1
         self.pos[act] += 1
-        events: List[Tuple] = []
         for slot in np.nonzero(act)[0]:
             events += self._append(int(slot), int(toks[slot]))
         return events
 
+    def spec_once(self) -> List[Tuple]:
+        """One speculative round: draft ``spec_k`` tokens per active slot
+        by stepping the decode step ``spec_k`` times (the steps, tokens
+        and generators of ``spec_k`` decode_once calls), optionally verify
+        them with one batched re-score, then accept the longest prefix on
+        which draft and verify agree (at least one token).  Emitted tokens
+        always come from the draft, so the stream equals decode_once's."""
+        events = self._drain()
+        if not self.active.any():
+            return events
+        kk, max_len = self.scfg.spec_k, self.scfg.max_len
+        if self.paged:
+            self._ensure_active_blocks(
+                lambda s: min(int(self.pos[s]) + kk - 1, max_len - 1))
+        act = self.active.copy()
+        events += self._drain()
+        if not act.any():
+            return events
+        self._flush_host_state()
+        base_pos = self.pos.copy()
+        base_out = self.n_out.copy()
+        n = self.scfg.slots
+        toks = np.zeros((kk, n), np.int64)
+        feed, counts, dpos = self.next_tok.copy(), base_out.copy(), \
+            base_pos.copy()
+        logits = None
+        for j in range(kk):
+            # a row reaching max_len freezes mid-draft
+            a = act & (dpos < max_len)
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache,
+                torch.as_tensor(feed, device=self.device),
+                active=torch.as_tensor(a, device=self.device))
+            logits = logits.float()
+            nt = np.where(a, self._sample(logits, self.slot_rid, counts),
+                          feed)
+            counts = counts + a
+            dpos = dpos + a
+            toks[j] = nt
+            feed = nt
+        self.decode_dispatches += 1
+        accept = np.full((n,), kk, np.int64)
+        if kk > 1 and self.scfg.spec_verify and self._can_verify:
+            # feed_v[j] is the token that produced draft token j
+            feed_v = np.concatenate([self.next_tok[None], toks[:-1]], 0)
+            vt = self._verify(feed_v.T.reshape(-1), base_pos, base_out)
+            self.verify_dispatches += 1
+            agree = vt.T == toks                      # [K, B]
+            for s in range(n):
+                if not act[s] or agree[:, s].all():
+                    continue
+                accept[s] = max(1, int(np.argmin(agree[:, s])))
+        self.last_logits = logits
+        for slot in np.nonzero(act)[0]:
+            s = int(slot)
+            for j in range(int(accept[s])):
+                if not self.active[s]:
+                    break                             # retired mid-round
+                self.pos[s] += 1
+                events += self._append(s, int(toks[j, s]))
+        # the device ran spec_k steps ahead of what was accepted (and a
+        # retirement mid-round stops earlier): roll the positions back to
+        # the host's truth.  The K/V written past them is overwritten by
+        # the next write at the same position before any attention reads
+        # it (length masking), so only pos needs the rollback.
+        self._pos_dirty = True
+        self._flush_host_state()
+        return events + self._drain()
+
+    def _verify(self, feed: np.ndarray, base_pos: np.ndarray,
+                base_out: np.ndarray) -> np.ndarray:
+        """Batched re-score of a K-token draft: tokens [B, K] sampled from
+        the logits of feeding feed[b * K + j] at position base_pos[b] + j
+        of row b, with the generators the draft used.  Read-only."""
+        n, kk = self.scfg.slots, self.scfg.spec_k
+        rows = np.repeat(np.arange(n), kk)
+        positions = (base_pos[:, None] + np.arange(kk)).reshape(-1)
+        logits = self.model.decode_rescore(
+            self.params, self.cache, torch.as_tensor(feed, device=self.device),
+            torch.as_tensor(rows, device=self.device),
+            torch.as_tensor(positions, device=self.device))
+        counts = (base_out[:, None] + np.arange(kk)).reshape(-1)
+        return self._sample(logits.float(), np.repeat(self.slot_rid, kk),
+                            counts).reshape(n, kk)
+
     def step(self) -> List[Tuple]:
-        """Admissions, then one decode step.  Returns event tuples
-        ("admit" | "token" | "retire", rid, value)."""
-        return self.admit_waiting() + self.decode_once()
+        """Admissions, then one decode (or speculative) round.  Returns
+        event tuples ("admit" | "token" | "retire" | "preempt", rid,
+        value)."""
+        events = self.admit_waiting()
+        if self.scfg.spec_k > 1:
+            return events + self.spec_once()
+        return events + self.decode_once()
 
     def run(self, max_steps: Optional[int] = None) -> Dict[int, List[int]]:
         """Drive until the queue and the pool drain (or max_steps; see

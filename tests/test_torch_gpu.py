@@ -84,6 +84,82 @@ def test_decode_kernel_matches_plain(cuda, window, hd):
     assert _rel_err(o, o_r) <= 1e-2
 
 
+def _paged_case(dev, b, h, kv, hd, bl, mb, lengths, seed=0):
+    """Pools with each row's blocks scattered over a shuffled pool (rows
+    0 and 1 share their first block), table entries past a row's blocks
+    on the null block 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb = b * mb + 1
+    q = torch.randn(b, h, hd, generator=g, device=dev).bfloat16()
+    kp = torch.randn(nb, bl, kv, hd, generator=g, device=dev).bfloat16()
+    vp = torch.randn(nb, bl, kv, hd, generator=g, device=dev).bfloat16()
+    perm = np.random.default_rng(seed).permutation(nb - 1) + 1
+    table = np.zeros((b, mb), np.int32)
+    for r, n in enumerate(lengths):
+        owned = -(-int(n) // bl)
+        table[r, :owned] = perm[r * mb:r * mb + owned]
+    if b > 1 and min(lengths[:2]) > 0:
+        table[1, 0] = table[0, 0]
+    return (q, kp, vp, torch.tensor(table, device=dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("b,h,kv,hd,bl,mb", [
+    (16, 12, 2, 128, 16, 128), (4, 4, 1, 16, 8, 8), (3, 8, 2, 64, 48, 4)])
+def test_paged_decode_kernel_matches_plain(cuda, b, h, kv, hd, bl, mb):
+    """Within one bf16 ulp of the plain version, bit-equal to
+    flash_decode on the gathered view, and blind to poison (1e9, NaN)
+    in every block the rows do not own, block 0 included."""
+    rng = np.random.default_rng(b)
+    lengths = rng.integers(1, mb * bl + 1, size=b)
+    lengths[0], lengths[-1] = 0, mb * bl - 5          # empty and ragged
+    q, kp, vp, table, ln = _paged_case(cuda, b, h, kv, hd, bl, mb,
+                                       lengths.tolist())
+    before = fa.launches["flash_paged_decode"]
+    o = ops.flash_attention_paged_decode(q, kp, vp, table, ln)
+    assert fa.launches["flash_paged_decode"] == before + 1
+    o_r = ref.flash_attention_paged_decode_ref(q, kp, vp, table, ln)
+    assert _rel_err(o, o_r) <= 1e-2
+    assert float(o[0].float().abs().max()) == 0.0      # length 0 -> zeros
+    view = [p[table.long()].reshape(b, mb * bl, kv, hd) for p in (kp, vp)]
+    assert torch.equal(o, fa.flash_attention_decode(q, *view, ln))
+    owned = set(table.flatten().tolist()) - {0}
+    for poison in (1e9, float("nan")):
+        dk, dv = kp.clone(), vp.clone()
+        for blk in range(kp.shape[0]):
+            if blk not in owned:
+                dk[blk] = poison
+                dv[blk] = poison
+        assert torch.equal(
+            fa.flash_attention_paged_decode(q, dk, dv, table, ln), o)
+
+
+def test_paged_server_on_card_uses_only_the_kernels(cuda):
+    cfg = get_arch("qwen2-1.5b").reduced()
+    model = LM(cfg)
+    params = model.init(0, device=cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, 11).tolist() for _ in range(4)]
+    lin = Server(model, params, ServeConfig(slots=2, max_len=48,
+                                            prefill_chunk=8))
+    for p in prompts:
+        lin.submit(p, 30)
+    want = lin.run()
+    srv = Server(model, params, ServeConfig(slots=2, max_len=48,
+                                            prefill_chunk=8, paged=True,
+                                            block_len=8, n_blocks=7,
+                                            spec_k=3))
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    for p in prompts:
+        srv.submit(p, 30)
+    assert srv.run() == want
+    assert srv.preemptions > 0 and srv.verify_dispatches > 0
+    assert fa.launches["flash_decode"] == 0
+    assert fa.launches["flash_paged_decode"] > 0
+    assert not any(ops.plain_calls.values())
+
+
 @pytest.mark.parametrize("b,s,h,kv,hd,causal,window", [
     (2, 1000, 12, 2, 128, True, None), (1, 256, 12, 12, 128, False, None),
     (1, 512, 12, 2, 128, True, 128), (2, 100, 8, 2, 64, False, 50),

@@ -142,7 +142,8 @@ def test_cpu_backward_takes_the_plain_path():
     assert not any(fa.launches.values())
     assert ops.plain_calls == {"flash_attention_fwd_ref": 1,
                                "flash_attention_bwd_ref": 1,
-                               "flash_attention_decode_ref": 0}
+                               "flash_attention_decode_ref": 0,
+                               "flash_attention_paged_decode_ref": 0}
 
 
 def test_bwd_wrapper_takes_cuda_tensors_only():
