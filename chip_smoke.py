@@ -10,7 +10,15 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      with nvcc for sm_90a into build/ (ptxas register / smem lines shown);
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, at the serving path's shapes (12 q heads over 2 KV heads,
-     hd 128) and at the reduced configs' hd 16;
+     hd 128), at zamba2's (32 heads, g 1, hd 80) and at the reduced
+     configs' hd 16;
+     The SSD chunk scan against the sequential recurrence (ref.ssd_ref)
+     at the training shape (xh [2,1024,80,64], N 64, chunk 256, inputs
+     drawn as the model draws them, so the clip at -60 is active), the
+     reduced shape (P 8, N 8, chunk 8), chunk == S, chunk 128, and S = 96
+     with chunk 64 through the dispatcher's pad; the training shape,
+     chunk 128, chunk == S and the pad again for a long-memory head
+     (A = 0.01), where every key tile and the carried state show in y;
      The backward kernels (dq, dk/dv) are held the same way, causal and
      not, with a window, GQA groups 1 and 6, hd 16 / 64 / 128, a ragged
      S = 1000 and the training shape;
@@ -41,13 +49,26 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      remat recompute) and flash_bwd_dq / flash_bwd_dkv 56 each, no plain
      call; then the reduced model's loss and grads on the card against the
      CPU, and 3 compressed-sync engine steps on both;
+  4d. hybrid train: zamba2-2.7b at full width (54 Mamba2 layers, d 2560,
+     80 SSM heads of P 64 / N 64, chunk 256; the shared attention+MLP
+     block, 32 heads of hd 80, after every 6 layers), f32 master weights,
+     global batch 4 x 1024 in 2 microbatches, AdamW lr 3e-4 with 2 warmup
+     steps, 8 steps through launch.train's runner; every loss finite, the
+     last below the first, launches per step exactly ssd_chunk_scan 216
+     (54 layers x 2 microbatches x forward and remat recompute), flash_fwd
+     36, flash_bwd_dq / flash_bwd_dkv 18 each, no decode kernel, 108 SSD
+     backward recomputes, no plain call; then the reduced zamba2's loss
+     and grads on the card against the CPU;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch), its bound, the plain version's time and SDPA's (forward or
      backward; for the paged kernel an index_select gather, then SDPA) as
-     the library yardstick;
+     the library yardstick; the attention kernels also at hd 80 (zamba2's
+     shared block); ssd_chunk_scan at the training shape, with the
+     chunked PyTorch scan (kernels/ssd.ssd_scan) as its yardstick, as no
+     single PyTorch call computes the scan;
   6. the kernels line and the contract's last line.
 With --profile, also torch.profiler over one admission and 8 decode
-steps on each tier, and 2 full-width training steps.
+steps on each tier, and 2 full-width training steps of each model.
 Imports nothing of JAX and nothing of the repro (JAX) package.
 """
 from __future__ import annotations
@@ -98,6 +119,12 @@ PARAM_GRAD_REL = 0.1
 TRAIN_LOSS_ATOL = 0.08
 # the full-width training run: 12 steps, 2 of them warmup
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 12, 4, 1024, 2
+# the hybrid (zamba2-2.7b) run: 8 steps of the same batch, 2 of them warmup
+HYBRID_ARCH, HYBRID_STEPS = "zamba2-2.7b", 8
+# SSD kernel vs its plain version: y is f32 on both sides, the sequential
+# recurrence against the chunked form, so the same terms summed in another
+# order (up to a chunk of 256 in one sum): |err| <= 2e-4 x max(1, max|ref|).
+SSD_TOL = 2e-4
 
 
 def fail(msg: str) -> None:
@@ -243,6 +270,8 @@ def check_kernels(dev, tag):
         (2, 100, 300, 8, 2, 64, 37, True, 50),
         (1, 40, 64, 4, 1, 16, 30, True, None),
         (2, 33, 70, 4, 2, 16, 0, False, 9),
+        (2, 1024, 1024, 32, 32, 80, 0, True, None),   # zamba2, g 1, hd 80
+        (1, 256, 1024, 32, 32, 80, 768, True, None),
     ]
     for i, (b, sq, sk, h, kv, hd, off, causal, window) in enumerate(
             fwd_cases):
@@ -268,7 +297,7 @@ def check_kernels(dev, tag):
     # (b, s, h, kv, hd, window)
     dec_cases = [(16, 2048, 12, 2, 128, None), (16, 2048, 12, 2, 128, 256),
                  (4, 64, 4, 2, 16, None), (4, 64, 4, 1, 16, 7),
-                 (3, 200, 8, 8, 64, None)]
+                 (3, 200, 8, 8, 64, None), (4, 1024, 32, 32, 80, None)]
     for i, (b, s, h, kv, hd, window) in enumerate(dec_cases):
         q = rnd((b, h, hd), 100 + 3 * i)
         kc, vc = rnd((b, s, kv, hd), 101 + 3 * i), rnd((b, s, kv, hd),
@@ -302,6 +331,7 @@ def check_kernels(dev, tag):
         (2, 100, 8, 2, 64, False, 50),
         (2, 33, 4, 1, 16, True, 9),
         (1, 40, 4, 4, 16, False, None),
+        (2, 1024, 32, 32, 80, True, None),               # zamba2's block
     ]
     for i, (b, s, h, kv, hd, causal, window) in enumerate(bwd_cases):
         q, do = rnd((b, s, h, hd), 200 + 4 * i), rnd((b, s, h, hd), 201 + 4 * i)
@@ -328,7 +358,76 @@ def check_kernels(dev, tag):
             case=i, max_abs_err=max(errs["dk"][0], errs["dv"][0]),
             rel_err=max(errs["dk"][1], errs["dv"][1])))
         del q, k, v, do, o, lse, got, want
+    rows["ssd_chunk_scan"] = check_ssd(dev, tag)
     return rows
+
+
+def ssd_inputs(dev, b, s, h, p, n, seed, a=1.0):
+    """SSD scan inputs drawn as mamba_forward draws them at init (dt_bias
+    0, identity conv on unit-variance projections) for a head with
+    A = exp(A_log) = a: x, B, C = silu(normal), dt = softplus(normal),
+    a_log = -a dt, xh = x dt.  At init (a = 1) a_log averages ~ -0.8 a
+    step, so cum reaches ~ -200 within a 256-row chunk and the clip at -60
+    is active, but key tiles off the diagonal and the carried state add
+    exp(-50) or less.  A long-memory head (a = 0.01) keeps cum ~ -2 over a
+    chunk, so every key tile and the state carried across chunks show
+    in y."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    dt = F.softplus(rnd(b, s, h))
+    xh = (F.silu(rnd(b, s, h, p)) * dt[..., None]).contiguous()
+    return (xh, (-a * dt).contiguous(), F.silu(rnd(b, s, n)),
+            F.silu(rnd(b, s, n)))
+
+
+def check_ssd(dev, tag):
+    """ssd_chunk_scan against the sequential recurrence ref.ssd_ref."""
+    from repro_torch.kernels import ref, ssd
+    from repro_torch.models import mamba
+
+    # (b, s, h, p, n, chunk, through the dispatcher, A); A = 0.01 is a
+    # long-memory head: every key tile and the carried state count
+    cases = [(2, TRAIN_SEQ, 80, 64, 64, 256, False, 1.0),  # training shape
+             (2, 64, 16, 8, 8, 8, False, 1.0),             # reduced zamba2
+             (2, 512, 16, 64, 64, 512, False, 1.0),        # chunk == S
+             (2, TRAIN_SEQ, 16, 64, 64, 128, False, 1.0),  # chunk 128
+             (2, 96, 80, 64, 64, 64, True, 1.0),           # S = 96: the pad
+             (2, TRAIN_SEQ, 80, 64, 64, 256, False, 0.01),
+             (2, TRAIN_SEQ, 16, 64, 64, 128, False, 0.01),
+             (2, 512, 16, 64, 64, 512, False, 0.01),
+             (2, 96, 80, 64, 64, 64, True, 0.01)]
+    out = []
+    for i, (b, s, h, p, n, chunk, via, a) in enumerate(cases):
+        xh, al, bb, cc = ssd_inputs(dev, b, s, h, p, n, 500 + i, a)
+        before = ssd.launches["ssd_chunk_scan"]
+        with torch.no_grad():
+            y = (mamba.ssd_dispatch(xh, al, bb, cc, chunk, "kernel") if via
+                 else ssd.ssd_chunk_scan(xh, al, bb, cc, chunk=chunk))
+        y_r, _ = ref.ssd_ref(xh, al, bb, cc)
+        q = min(chunk, s)
+        cum_min = float(torch.nn.functional.pad(al, (0, 0, 0, -s % q))
+                        .reshape(b, -1, q, h).cumsum(2).min())
+        torch.cuda.synchronize()
+        err = float((y - y_r).abs().max())
+        ref_max = float(y_r.abs().max())
+        ok = (err <= SSD_TOL * max(1.0, ref_max)
+              and bool(torch.isfinite(y).all())
+              and ssd.launches["ssd_chunk_scan"] == before + 1)
+        print(f"check ssd_chunk_scan b={b} s={s} h={h} p={p} n={n} "
+              f"chunk={chunk} A={a}{' (dispatcher pad)' if via else ''}: "
+              f"max|dy|={err:.3g} max|y|={ref_max:.3g} (band {SSD_TOL} x "
+              f"max(1, max|y|)), min cum {cum_min:.1f} "
+              f"{'ok' if ok else 'MISS'} {tag}")
+        if not ok:
+            fail(f"ssd_chunk_scan disagrees with its plain version (case {i})")
+        out.append(dict(case=i, a=a, max_abs_err=err, max_abs_ref=ref_max,
+                        min_cum=cum_min))
+        del xh, al, bb, cc, y, y_r
+    return out
 
 
 def paged_case(dev, b, h, kv, hd, bl, mb, lengths, seed):
@@ -375,7 +474,8 @@ def check_paged(dev, tag):
              (64, 12, 2, 128, 16, 128,
               np.repeat(serving, 4).clip(1).tolist()),
              (4, 4, 1, 16, 8, 8, [37, 16, 0, 64]),
-             (3, 12, 2, 128, 48, 6, [200, 97, 288])]
+             (3, 12, 2, 128, 48, 6, [200, 97, 288]),
+             (3, 32, 32, 80, 16, 8, [5, 128, 77])]
     out = []
     for i, (b, h, kv, hd, bl, mb, lengths) in enumerate(cases):
         q, kp, vp, table, ln, live = paged_case(dev, b, h, kv, hd, bl, mb,
@@ -430,7 +530,9 @@ def time_kernels(dev, tag, timer):
     768 against a 2048-slot cache (row 2) and a 16-slot decode step (row
     3) of serving; the forward without an offset (row 1) and the two
     backward kernels (rows 5, 6) at the training shape, q [4,1024,12,128]
-    against kv [4,1024,2,128], causal."""
+    against kv [4,1024,2,128], causal, and at zamba2's microbatch through
+    its shared block, [2,1024,32,80] (g 1); the SSD scan (row 7) at the
+    hybrid training shape."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -442,7 +544,7 @@ def time_kernels(dev, tag, timer):
     h, kv, hd = 12, 2, 128
     scale = hd ** -0.5
 
-    def fwd_record(b, sq, sk, off):
+    def fwd_record(b, sq, sk, off, h=h, kv=kv, hd=hd):
         q, k, v = (rnd((b, sq, h, hd)), rnd((b, sk, kv, hd)),
                    rnd((b, sk, kv, hd)))
         offt = (None if off is None
@@ -458,7 +560,7 @@ def time_kernels(dev, tag, timer):
             bound_ms=bms, bound_by=bby, bytes=by, flops=fl)
         try:
             rec["library_ms"] = timer(sdpa_fwd(q, k, v, off or 0, True, None,
-                                               scale))
+                                               hd ** -0.5))
         except (TypeError, RuntimeError) as e:  # no enable_gqa in this torch
             print(f"SDPA yardstick unavailable: {e}")
             rec["library_ms"] = None
@@ -466,7 +568,9 @@ def time_kernels(dev, tag, timer):
 
     out = {"flash_fwd": fwd_record(1, 256, 2048, 768),
            "flash_fwd (row 1, training shape)": fwd_record(
-               TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, None)}
+               TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, None),
+           "flash_fwd (row 1, hd 80, zamba2 microbatch)": fwd_record(
+               TRAIN_MICRO, TRAIN_SEQ, TRAIN_SEQ, None, 32, 32, 80)}
 
     b, s = 16, 2048
     q, kc, vc = rnd((b, h, hd)), rnd((b, s, kv, hd)), rnd((b, s, kv, hd))
@@ -490,13 +594,18 @@ def time_kernels(dev, tag, timer):
         rec["library_ms"] = None
     out["flash_decode"] = rec
     out["flash_paged_decode"] = time_paged(dev, timer, ln, h, kv, hd, scale)
-    out.update(time_bwd(dev, timer, rnd, h, kv, hd))
+    out.update(time_bwd(dev, timer, rnd, TRAIN_BATCH, h, kv, hd))
+    out.update({f"{k} (hd 80, zamba2 microbatch)": v for k, v in time_bwd(
+        dev, timer, rnd, TRAIN_MICRO, 32, 32, 80).items()})
+    out["ssd_chunk_scan"] = time_ssd(dev, timer)
     for name, r in out.items():
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        bwd = (f", backward (chunked recompute) {r['bwd_ms']:.4f} ms"
+               if "bwd_ms" in r else "")
         print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms, SDPA {lib} {tag}")
+              f"{r['plain_ms']:.4f} ms, library {lib}{bwd} {tag}")
     return out
 
 
@@ -543,6 +652,38 @@ def time_paged(dev, timer, ln, h, kv, hd, scale):
     return rec
 
 
+def time_ssd(dev, timer):
+    """ssd_chunk_scan at the hybrid training shape (one Mamba layer of a
+    2 x 1024 microbatch: xh [2,1024,80,64], N 64, chunk 256).  Plain: the
+    sequential recurrence.  Library: no single PyTorch call computes the
+    scan, so the yardstick is the chunked PyTorch scan
+    (kernels/ssd.ssd_scan: batched matmuls and a carry over 4 chunks).
+    Also the backward of ops.ssd_chunk_scan_diff (the chunked scan
+    recomputed under autograd, then its backward), which no kernel
+    carries."""
+    from repro_torch.kernels import ops, ref, ssd
+
+    b, s, h, p, n, q = TRAIN_MICRO, TRAIN_SEQ, 80, 64, 64, 256
+    xh, al, bb, cc = ssd_inputs(dev, b, s, h, p, n, 600)
+    by, fl = ssd_work(b, s, h, p, n, q)
+    bms, bby = bound(by, fl)
+    ins = [t.clone().requires_grad_(True) for t in (xh, al, bb, cc)]
+    y = ops.ssd_chunk_scan_diff(*ins, q)
+    dy = torch.randn_like(y)
+    bwd_ms = timer(lambda: torch.autograd.grad(y, ins, dy, retain_graph=True),
+                   n=5)
+    del ins, y, dy
+    with torch.no_grad():
+        return dict(bwd_ms=bwd_ms,
+            shape=f"xh[{b},{s},{h},{p}] bb/cc[{b},{s},{n}] chunk {q}; "
+                  f"library = the chunked PyTorch scan (kernels/ssd."
+                  f"ssd_scan), no single call computes it",
+            ms=timer(lambda: ssd.ssd_chunk_scan(xh, al, bb, cc, chunk=q)),
+            plain_ms=timer(lambda: ref.ssd_ref(xh, al, bb, cc), n=3, warm=1),
+            library_ms=timer(lambda: ssd.ssd_scan(xh, al, bb, cc, q), n=5),
+            bound_ms=bms, bound_by=bby, bytes=by, flops=fl)
+
+
 def bwd_work(b, s, h, kv, hd, causal, window, which):
     """Bytes (each input read once, each output written once) and FLOPs
     of the dq kernel (3 products over the visible keys: S, dP, dQ) or the
@@ -556,15 +697,15 @@ def bwd_work(b, s, h, kv, hd, causal, window, which):
     return 2 * qsz + 4 * kvsz + 2 * rows, 4 * 2.0 * hd * h * b * vis
 
 
-def time_bwd(dev, timer, rnd, h, kv, hd):
-    """The two backward kernels timed apart at the training shape; the
+def time_bwd(dev, timer, rnd, b, h, kv, hd):
+    """The two backward kernels timed apart at a training shape; the
     plain version and SDPA's backward compute dq, dk and dv together, so
     both rows carry the same plain and library time."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    b, s = TRAIN_BATCH, TRAIN_SEQ
+    s = TRAIN_SEQ
     q, k, v, do = (rnd((b, s, h, hd)), rnd((b, s, kv, hd)),
                    rnd((b, s, kv, hd)), rnd((b, s, h, hd)))
     o, lse = fa.flash_attention_fwd(q, k, v)
@@ -1007,8 +1148,39 @@ def train_flops(cfg, b, s):
     return 3 * (mm + attn)
 
 
-def train_argv():
-    return ["--arch", "qwen2-1.5b", "--steps", str(TRAIN_STEPS),
+def ssd_work(b, s, h, p, n, q):
+    """Bytes (xh, a_log, B, C read once, y written once, f32) and FLOPs of
+    one SSD chunk scan: per (b, h, chunk) the causal half of the Q x Q
+    scores (C.B over N) and of their product with x (over P), the
+    inter-chunk C.S_prev and the state update (Q x P x N each)."""
+    pairs = q * (q + 1) / 2
+    per_chunk = 2 * pairs * n + 2 * pairs * p + 2 * 2 * q * p * n
+    return 4.0 * (2 * b * s * h * p + b * s * h + 2 * b * s * n), \
+        b * h * (s // q) * per_chunk
+
+
+def hybrid_train_flops(cfg, b, s):
+    """Model FLOPs of one hybrid training step (3 x the forward, remat
+    recompute not counted): the Mamba layers' projections (w_in, w_bcdt,
+    w_out) and SSD chunk scans, the shared block's matmuls and causal
+    attention at each of its L / attn_every applications, and the untied
+    head."""
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm.state_dim
+    p = cfg.ssm.head_dim
+    nh = di // p
+    hd, h, kv, f = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    apps = cfg.n_layers // cfg.attn_every
+    mamba = d * 2 * di + d * (2 * n + nh) + di * d
+    shared = d * (h + 2 * kv) * hd + h * hd * d + 3 * d * f
+    mm = 2.0 * b * s * (cfg.n_layers * mamba + apps * shared + d * cfg.vocab)
+    attn = apps * 4.0 * hd * h * b * s * (s + 1) / 2
+    q = min(cfg.ssm.chunk, s)
+    ssd = cfg.n_layers * ssd_work(b, s, nh, p, n, q)[1]
+    return 3 * (mm + attn + ssd)
+
+
+def train_argv(arch="qwen2-1.5b", steps=TRAIN_STEPS):
+    return ["--arch", arch, "--steps", str(steps),
             "--warmup", "2", "--batch", str(TRAIN_BATCH), "--seq",
             str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--buckets",
             "4", "--lr", "3e-4", "--log-every", "5", "--seed", "0"]
@@ -1062,7 +1234,65 @@ def train_full_width(dev, tag):
     return rec, launches
 
 
-def profile_train(dev, tag):
+def train_hybrid_full_width(dev, tag):
+    """The hybrid training main path: zamba2-2.7b through launch.train's
+    runner at full width, with exact launch identities."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_arch(HYBRID_ARCH)
+    args = launch_train.build_argparser().parse_args(
+        train_argv(HYBRID_ARCH, HYBRID_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    ssd.reset_launches()
+    ops.reset_plain_calls()
+    rec = launch_train.run(args)
+    launches = dict(fa.launches, **ssd.launches)
+    recomputes = dict(ops.bwd_recomputes)
+    plain = dict(ops.plain_calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    L, n, m = cfg.n_layers, HYBRID_STEPS, TRAIN_MICRO
+    apps = L // cfg.attn_every
+    want = {"flash_fwd": 2 * apps * m * n, "flash_decode": 0,
+            "flash_paged_decode": 0, "flash_bwd_dq": apps * m * n,
+            "flash_bwd_dkv": apps * m * n, "ssd_chunk_scan": 2 * L * m * n}
+    losses = rec["losses"]
+    print(f"hybrid train: {cfg.name} full width, {L} Mamba2 layers + the "
+          f"shared block x {apps}, {n} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens in {m} microbatches, losses "
+          f"{[round(x, 4) for x in losses]}")
+    print(f"hybrid train: launches {launches} (want {want}), SSD backward "
+          f"recomputes {recomputes} (want {L * m * n}), plain calls {plain}")
+    if len(losses) != n or not np.isfinite(losses).all():
+        fail(f"hybrid training losses not all finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"hybrid: last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    if launches != want:
+        fail(f"hybrid training launches {launches}, expected {want}")
+    if recomputes != {"ssd_chunk_scan": L * m * n}:
+        fail(f"SSD backward recomputes {recomputes}, expected {L * m * n}")
+    if any(plain.values()):
+        fail(f"a plain version ran on the hybrid training path: {plain}")
+    flops = hybrid_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    mfu = flops / rec["mean_step_s"] / BF16_FLOPS_PER_S
+    print(f"hybrid train metrics: {rec['tokens_per_s']:.1f} tok/s, mean step "
+          f"{rec['mean_step_s'] * 1e3:.2f} ms over "
+          f"{rec['meta']['measured_steps']} steps, model FLOPs "
+          f"{flops / 1e12:.3f} TFLOP/step = {100 * mfu:.2f}% of 989 TFLOP/s, "
+          f"peak memory {peak / 2**30:.2f} GiB, breakdown "
+          f"{rec['breakdown_s']} {tag}")
+    rec.update(launches=launches, bwd_recomputes=recomputes,
+               peak_memory_bytes=peak, model_flops_per_step=flops, mfu=mfu)
+    return rec, launches
+
+
+def profile_train(dev, tag, arch="qwen2-1.5b"):
     """torch.profiler over 2 full-width training steps (after one warm
     step), fed by BatchFeed as the training loop feeds them."""
     from torch.profiler import ProfilerActivity, profile
@@ -1074,7 +1304,7 @@ def profile_train(dev, tag):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.train_loop import TrainConfig, make_engine
 
-    args = launch_train.build_argparser().parse_args(train_argv())
+    args = launch_train.build_argparser().parse_args(train_argv(arch))
     cfg = get_arch(args.arch)
     tcfg = TrainConfig(microbatches=args.microbatches, buckets=args.buckets,
                        optim=AdamWConfig(lr=args.lr, warmup_steps=2,
@@ -1094,21 +1324,19 @@ def profile_train(dev, tag):
             torch.cuda.synchronize()      # the window's own end: 1 call
             wall_ms = (time.perf_counter() - t0) * 1e3
     del state, engine
-    return report_profile(prof, "train (2 steps)", wall_ms, tag)
+    return report_profile(prof, f"train {arch} (2 steps)", wall_ms, tag)
 
 
-def reduced_train_card_vs_cpu(dev, tag):
-    """The reduced qwen2-1.5b on the card against the same weights on the
-    CPU: the loss and every param's grad; then 3 steps of the engine with
-    the int8 compressed sync on both."""
+def reduced_grads_card_vs_cpu(dev, tag, arch):
+    """A reduced model on the card against the same weights on the CPU:
+    the loss and every param's grad.  -> (dloss, worst grad ratio, its
+    key, model, CPU params, data config)."""
     from repro_torch import tree
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, host_batch
     from repro_torch.models.model import LM
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train.engine import EngineConfig, TrainEngine
 
-    cfg = get_arch("qwen2-1.5b").reduced()
+    cfg = get_arch(arch).reduced()
     model = LM(cfg)
     p_cpu = model.init(0, device="cpu")
     dcfg = DataConfig(seed=0, vocab=cfg.vocab, seq_len=64, global_batch=4)
@@ -1129,13 +1357,26 @@ def reduced_train_card_vs_cpu(dev, tag):
                                                    1e-12)
         if ratio > worst:
             worst, worst_key = ratio, tree.key(path)
-    print(f"reduced qwen2-1.5b train, card vs CPU: |dloss|={dloss:.4g} (band "
+    print(f"reduced {arch} train, card vs CPU: |dloss|={dloss:.4g} (band "
           f"{LOSS_ATOL}), worst max|dgrad|/max|grad| {worst:.4g} at "
           f"{worst_key} (band {PARAM_GRAD_REL}) {tag}")
     if not dloss <= LOSS_ATOL or not worst <= PARAM_GRAD_REL:
-        fail("reduced model's loss or grads on the card disagree with the "
+        fail(f"reduced {arch}'s loss or grads on the card disagree with the "
              "CPU")
+    return dloss, worst, worst_key, model, p_cpu, dcfg
 
+
+def reduced_train_card_vs_cpu(dev, tag):
+    """The reduced qwen2-1.5b's loss and grads on the card against the
+    CPU; then 3 steps of the engine with the int8 compressed sync on
+    both."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import host_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.engine import EngineConfig, TrainEngine
+
+    dloss, worst, worst_key, model, p_cpu, dcfg = reduced_grads_card_vs_cpu(
+        dev, tag, "qwen2-1.5b")
     losses = {}
     for d in ("cpu", dev):
         eng = TrainEngine(model, EngineConfig(
@@ -1174,6 +1415,7 @@ def main() -> int:
                          "(torch.profiler)")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -1221,32 +1463,51 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     reduced_train = reduced_train_card_vs_cpu(dev, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phases 1-4b done at {time.perf_counter() - t_start:.1f}s")
+
+    # 4d. the hybrid family: zamba2-2.7b training at full width, then the
+    # reduced zamba2 against the CPU
+    hybrid_rec, hybrid_launches = train_hybrid_full_width(dev, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if args.profile:
+        hybrid_rec["profile"] = profile_train(dev, tag, HYBRID_ARCH)
+        gc.collect()
+        torch.cuda.empty_cache()
+    hybrid_reduced = reduced_grads_card_vs_cpu(dev, tag, HYBRID_ARCH)[:3]
+    print(f"phase 4d done at {time.perf_counter() - t_start:.1f}s")
 
     # 5. times
     times = time_kernels(dev, tag, timer)
+    print(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
 
     # 6. the kernels line: launches are those of the main paths (linear
-    # serving, the four paged runs, training)
+    # serving, the four paged runs, training, hybrid training)
     fa_py = "src/repro/kernels/flash_attention.py"
     replaces = {"flash_fwd": f"{fa_py}:146 and {fa_py}:191",
                 "flash_decode": f"{fa_py}:280",
                 "flash_paged_decode": f"{fa_py}:378",
                 "flash_bwd_dq": f"{fa_py}:491",
-                "flash_bwd_dkv": f"{fa_py}:519"}
+                "flash_bwd_dkv": f"{fa_py}:519",
+                "ssd_chunk_scan": "src/repro/kernels/ssd.py:73"}
     csrc = "src/repro_torch/kernels/csrc"
     sources = {"flash_fwd": f"{csrc}/flash_fwd.cu",
                "flash_decode": f"{csrc}/flash_decode.cu",
                "flash_paged_decode": f"{csrc}/flash_paged_decode.cu",
                "flash_bwd_dq": f"{csrc}/flash_bwd.cu",
-               "flash_bwd_dkv": f"{csrc}/flash_bwd.cu"}
+               "flash_bwd_dkv": f"{csrc}/flash_bwd.cu",
+               "ssd_chunk_scan": f"{csrc}/ssd_scan.cu"}
     kernels = []
     for k in replaces:
         t = times[k]
         kernels.append({
             "name": k, "route": "cuda", "source": sources[k],
             "replaces": replaces[k],
-            "launches": (serve_launches[k] + paged_launches[k]
-                         + train_launches[k]),
+            "launches": sum(run.get(k, 0) for run in (
+                serve_launches, paged_launches, train_launches,
+                hybrid_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in checks[k]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1259,6 +1520,8 @@ def main() -> int:
             serve=serve_rec, paged=paged_rec,
             reduced_card_vs_cpu=reduced_err,
             train=train_rec, reduced_train_card_vs_cpu=reduced_train,
+            hybrid_train=hybrid_rec,
+            reduced_hybrid_card_vs_cpu=hybrid_reduced,
             kernels=kernels), indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 
 Every architecture gets a ``configs/<id>.py`` exporting CONFIG with the
 published numbers.  ``reduced()`` derives the CPU-test variant (same
-family, tiny sizes).  The port serves the dense family only; the other
-families' fields stay so that a config reads the same in both packages."""
+family, tiny sizes).  The port runs the dense family and trains the
+hybrid one (zamba2); the other families' fields stay so that a config
+reads the same in both packages."""
 from __future__ import annotations
 
 import dataclasses
@@ -63,6 +64,10 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def d_inner(self) -> int:
+        return (self.ssm.expand * self.d_model) if self.ssm else 0
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (same rule as repro)."""
         def shrink_moe(m: Optional[MoECfg]) -> Optional[MoECfg]:
@@ -111,5 +116,5 @@ def all_archs() -> List[str]:
 
 def load_all() -> None:
     import importlib
-    for mod in ("qwen2_1p5b", "llama3p2_3b"):
+    for mod in ("zamba2_2p7b", "qwen2_1p5b", "llama3p2_3b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -1,5 +1,5 @@
-"""Build the CUDA kernels with ``nvcc`` at first use and load them with
-ctypes.
+"""Build the CUDA kernels (attention and the SSD scan) with ``nvcc`` at
+first use and load them with ctypes.
 
 The sources are ``kernels/csrc/*.cu`` (plain C interface, no PyTorch
 headers).  Each ``.cu`` compiles to an object in its own ``nvcc`` process,
@@ -134,6 +134,9 @@ def load_library() -> ctypes.CDLL:
     lib.repro_flash_paged_decode.argtypes = [vp] * 6 + [i32] * 6 + [f32, i32,
                                                                      vp]
     lib.repro_flash_paged_decode.restype = i32
+    # pointers (xh a_log bb cc y), then B S H P N chunk, stream
+    lib.repro_ssd_chunk_scan.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    lib.repro_ssd_chunk_scan.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

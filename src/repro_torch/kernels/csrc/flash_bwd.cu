@@ -428,6 +428,8 @@ static int dispatch_hd(int hd, int q_is_f32, const BwdArgs& a) {
       return dispatch_bwd<DKV, 16>(q_is_f32, a);
     case 64:
       return dispatch_bwd<DKV, 64>(q_is_f32, a);
+    case 80:
+      return dispatch_bwd<DKV, 80>(q_is_f32, a);
     case 128:
       return dispatch_bwd<DKV, 128>(q_is_f32, a);
     default:

@@ -86,6 +86,9 @@ extern "C" int repro_flash_decode(const void* q, const void* kc,
     case 64:
       return repro::dispatch_decode<64>(q_is_f32, q, kc, vc, o, lengths, B, S,
                                         H, KV, window, scale, st);
+    case 80:
+      return repro::dispatch_decode<80>(q_is_f32, q, kc, vc, o, lengths, B, S,
+                                        H, KV, window, scale, st);
     case 128:
       return repro::dispatch_decode<128>(q_is_f32, q, kc, vc, o, lengths, B,
                                          S, H, KV, window, scale, st);

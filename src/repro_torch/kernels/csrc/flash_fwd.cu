@@ -170,6 +170,10 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
       return repro::dispatch_fwd<64>(q_is_f32, q, k, v, o, lse, q_off,
                                      q_off_value, B, Sq, Sk, H, KV, causal,
                                      window, scale, st);
+    case 80:
+      return repro::dispatch_fwd<80>(q_is_f32, q, k, v, o, lse, q_off,
+                                     q_off_value, B, Sq, Sk, H, KV, causal,
+                                     window, scale, st);
     case 128:
       return repro::dispatch_fwd<128>(q_is_f32, q, k, v, o, lse, q_off,
                                       q_off_value, B, Sq, Sk, H, KV, causal,

@@ -112,6 +112,10 @@ extern "C" int repro_flash_paged_decode(const void* q, const void* kp,
       return repro::dispatch_paged_decode<64>(q_is_f32, q, kp, vp, o, table,
                                               lengths, B, MB, BL, H, KV,
                                               scale, st);
+    case 80:
+      return repro::dispatch_paged_decode<80>(q_is_f32, q, kp, vp, o, table,
+                                              lengths, B, MB, BL, H, KV,
+                                              scale, st);
     case 128:
       return repro::dispatch_paged_decode<128>(q_is_f32, q, kp, vp, o, table,
                                                lengths, B, MB, BL, H, KV,

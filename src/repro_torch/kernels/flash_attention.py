@@ -17,7 +17,7 @@ import torch
 
 from .ref import check_gqa
 
-HEAD_DIMS = (16, 64, 128)
+HEAD_DIMS = (16, 64, 80, 128)
 MAX_GROUP = 16            # decode: query heads per KV head (8 warps x 2)
 MAX_TABLE = 32768         # paged decode: table entries per row (128 KB)
 

@@ -1,4 +1,4 @@
-"""Public attention ops, dispatched by the tensors' device.
+"""Public attention and SSD ops, dispatched by the tensors' device.
 
 A CUDA tensor launches the hand-written kernel (``flash_attention.py``)
 or raises; a CPU tensor runs the plain version (``ref.py``).  There is no
@@ -9,7 +9,11 @@ calls made through here, so a run on the card can show it made none.
 
 ``flash_attention`` is the differentiable op (the counterpart of repro's
 ``jax.custom_vjp``): its forward and backward each go through the same
-device dispatch."""
+device dispatch.  ``ssd_chunk_scan_diff`` is the counterpart of repro's
+``models/mamba._ssd_pallas``: the forward through the device dispatch,
+the backward by autograd through the chunked ``ssd.ssd_scan``
+(repro's backward is ``jax.vjp`` of its XLA scan, not a kernel);
+``bwd_recomputes`` counts those backward passes."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -18,16 +22,20 @@ import torch
 
 from . import flash_attention as fa
 from . import ref
+from . import ssd
 
 plain_calls: Dict[str, int] = {"flash_attention_fwd_ref": 0,
                                "flash_attention_bwd_ref": 0,
                                "flash_attention_decode_ref": 0,
-                               "flash_attention_paged_decode_ref": 0}
+                               "flash_attention_paged_decode_ref": 0,
+                               "ssd_ref": 0}
+bwd_recomputes: Dict[str, int] = {"ssd_chunk_scan": 0}
 
 
 def reset_plain_calls() -> None:
-    for name in plain_calls:
-        plain_calls[name] = 0
+    for counts in (plain_calls, bwd_recomputes):
+        for name in counts:
+            counts[name] = 0
 
 
 def _route(*tensors: torch.Tensor) -> str:
@@ -36,7 +44,7 @@ def _route(*tensors: torch.Tensor) -> str:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
     kind = tensors[0].device.type
     if kind not in ("cuda", "cpu"):
-        raise ValueError(f"no attention path for device type {kind!r}")
+        raise ValueError(f"no kernel path for device type {kind!r}")
     return kind
 
 
@@ -119,3 +127,44 @@ def flash_attention_paged_decode(q, k_pool, v_pool, table, lengths, *,
     plain_calls["flash_attention_paged_decode_ref"] += 1
     return ref.flash_attention_paged_decode_ref(q, k_pool, v_pool, table,
                                                 lengths, scale=scale)
+
+
+def ssd_chunk_scan(xh, a_log, bb, cc, *, chunk: int):
+    """y [B,S,H,P] f32 of the SSD scan (S % min(chunk, S) == 0); see
+    ref.ssd_ref for the semantics.  The plain version returns the final
+    state too; the kernel, as repro's, does not."""
+    if _route(xh, a_log, bb, cc) == "cuda":
+        return ssd.ssd_chunk_scan(xh, a_log, bb, cc, chunk=chunk)
+    s = xh.shape[1]
+    q = min(int(chunk), s)
+    if s and (q < 1 or s % q):
+        raise ValueError(f"S={s} is not a multiple of the chunk {q}")
+    plain_calls["ssd_ref"] += 1
+    return ref.ssd_ref(xh, a_log, bb, cc)[0]
+
+
+class _SSDChunkScan(torch.autograd.Function):
+    """Saves the inputs; the backward recomputes the chunked scan under
+    autograd and returns its input grads (dy cast to f32, as repro's
+    ``_ssd_pallas_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, xh, a_log, bb, cc, chunk):
+        ctx.save_for_backward(xh, a_log, bb, cc)
+        ctx.chunk = chunk
+        return ssd_chunk_scan(xh, a_log, bb, cc, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        bwd_recomputes["ssd_chunk_scan"] += 1
+        ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, _ = ssd.ssd_scan(*ins, ctx.chunk)
+            grads = torch.autograd.grad(y, ins, dy.float())
+        return (*grads, None)
+
+
+def ssd_chunk_scan_diff(xh, a_log, bb, cc, chunk: int) -> torch.Tensor:
+    """Differentiable ``ssd_chunk_scan`` (f32 inputs, S a multiple of the
+    chunk)."""
+    return _SSDChunkScan.apply(xh, a_log, bb, cc, chunk)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the attention kernels and the SSD scan.
 
 They are what a CPU tensor runs (``kernels/ops.py`` dispatches by device)
 and what ``chip_smoke.py`` and the tests hold the CUDA kernels to.  All
@@ -150,3 +150,24 @@ def flash_attention_paged_decode_ref(q, k_pool, v_pool, table, lengths, *,
     return flash_attention_decode_ref(q, torch.where(live, kc, zero),
                                       torch.where(live, vc, zero), lengths,
                                       scale=scale)
+
+
+def ssd_ref(xh, a_log, bb, cc):
+    """Sequential state-space recurrence (the SSD oracle).  xh [B,S,H,P]
+    (dt folded in), a_log [B,S,H] (per-step log decay), bb/cc [B,S,N]
+    shared across heads:  h_t = exp(a_log_t) h_{t-1} + x_t (x) B_t,
+    y_t = C_t . h_t.  -> (y [B,S,H,P] f32, final state [B,H,P,N] f32)."""
+    b, s, h, p = xh.shape
+    n = bb.shape[-1]
+    x32, a32 = xh.float(), a_log.float()
+    b32, c32 = bb.float(), cc.float()
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=xh.device)
+    ys = []
+    for t in range(s):
+        state = (state * torch.exp(a32[:, t])[..., None, None]
+                 + x32[:, t, :, :, None] * b32[:, t, None, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c32[:, t]))
+    y = (torch.stack(ys, 1) if ys
+         else torch.zeros((b, 0, h, p), dtype=torch.float32,
+                          device=xh.device))
+    return y, state

@@ -5,6 +5,9 @@ pipeline and reports tokens/s with a step-time breakdown (counterpart of
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --steps 12 --batch 4 --seq 1024 --microbatches 2
+  # the hybrid family (Mamba2 + shared attention), full width:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
+      --steps 8 --batch 4 --seq 1024 --microbatches 2
   # on the CPU, at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --reduced --device cpu --steps 3

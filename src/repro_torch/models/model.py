@@ -1,11 +1,17 @@
-"""The dense decoder LM (counterpart of ``repro.models.model.LM``, dense
-branch): init, forward, loss, the linear slot cache and the paged block
-pool, decode, chunked prefill and the speculative re-score.
+"""The decoder LM (counterpart of ``repro.models.model.LM``, its dense
+and hybrid branches): for the dense family init, forward, loss, the
+linear slot cache and the paged block pool, decode, chunked prefill and
+the speculative re-score; for the hybrid family (zamba2: Mamba2 layers
+with one shared attention+MLP block applied after every ``attn_every``
+of them) init, forward and loss.  The hybrid family's cache and decode
+wait for the hybrid serving slice and raise ``NotImplementedError``.
 
 Params are plain dicts of tensors with the same keys and shapes as repro's
-param tree: per-layer weights stacked on a leading ``[L]`` axis, ``ln*``
-in f32, the rest in ``cfg.dtype``, weights ``[in, out]`` used as
-``x @ w``.  Layers run as a Python loop over per-layer views.  ``forward``
+param tree: per-layer weights stacked on a leading ``[L]`` axis (the
+hybrid family's ``mamba``; its ``shared`` layer is one unstacked dense
+layer), ``ln*`` and the Mamba scalars and norm in f32, the rest in
+``cfg.dtype``, weights ``[in, out]`` used as ``x @ w``.  Layers run as
+a Python loop over per-layer views.  ``forward``
 (training) takes the views with ``torch.unbind`` on every call, so the
 backward stacks each weight's L gradients in one node, and under autograd
 it runs each layer under ``torch.utils.checkpoint`` (repro's per-layer
@@ -33,6 +39,7 @@ from ..configs.base import ArchConfig
 from .attention import attend_cache, attend_paged, attention
 from .common import (dense_init, embed_init, resolve_device, rms_norm, rope,
                      softmax_cross_entropy)
+from .mamba import SSD_IMPLS, mamba_forward, mamba_shapes
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -54,17 +61,26 @@ def paged_ok(cfg: ArchConfig) -> bool:
     return prefill_parallel_ok(cfg)
 
 
+def is_hybrid(cfg: ArchConfig) -> bool:
+    """The zamba2 layout: Mamba2 layers and one shared dense block applied
+    after every ``attn_every`` of them (repro's hybrid branch)."""
+    return (cfg.family == "hybrid" and bool(cfg.attn_every)
+            and cfg.ssm is not None)
+
+
 def _unsupported_family(cfg: ArchConfig) -> Optional[str]:
     if cfg.moe is not None:
         return "moe"
-    if cfg.family == "hybrid" or cfg.attn_every:
-        return "hybrid"
-    if cfg.family == "ssm" or cfg.ssm is not None:
-        return "ssm"
     if cfg.xlstm is not None:
         return "xlstm"
     if cfg.embed_stub:
         return "embed-stub"
+    if is_hybrid(cfg):
+        return None
+    if cfg.family == "hybrid" or cfg.attn_every:
+        return "hybrid"
+    if cfg.family == "ssm" or cfg.ssm is not None:
+        return "ssm"
     return None
 
 
@@ -95,6 +111,11 @@ def _mlp_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class LM:
     cfg: ArchConfig
+    # the SSD scan of the hybrid family's Mamba layers: "kernel" (repro's
+    # "pallas": the CUDA kernel on the card, its plain version on the
+    # CPU), "chunked" (repro's "xla"), or "auto" (the kernel on a CUDA
+    # tensor, the chunked scan elsewhere)
+    ssd_impl: str = "auto"
     # per-layer views of the last params["layers"] seen (built once, not
     # on every step); holds the dict itself so identity stays meaningful
     _views: Tuple[Any, List[Params]] = dataclasses.field(
@@ -105,37 +126,65 @@ class LM:
         if fam is not None:
             raise NotImplementedError(
                 f"{self.cfg.name}: the {fam} family is not ported yet; the "
-                "port serves the dense family")
+                "port runs the dense family and trains the hybrid one")
+        if self.ssd_impl not in SSD_IMPLS:
+            raise ValueError(f"ssd_impl must be one of {SSD_IMPLS}, got "
+                             f"{self.ssd_impl!r}")
+        if is_hybrid(self.cfg) and self.cfg.n_layers % self.cfg.attn_every:
+            raise ValueError(
+                f"{self.cfg.name}: {self.cfg.n_layers} layers are not a "
+                f"multiple of attn_every={self.cfg.attn_every}")
+
+    def _dense_only(self, what: str) -> None:
+        if is_hybrid(self.cfg):
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} of the hybrid family waits for the "
+                "hybrid serving slice (mamba_step, the shared ring cache)")
 
     # -- params ------------------------------------------------------------
     def param_shapes(self) -> Params:
         """Tree of (shape, dtype) with repro's keys, for init and for the
         JAX weight converter's checks."""
         cfg = self.cfg
-        d, hd, L = cfg.d_model, cfg.hd, cfg.n_layers
-        h, kv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+        d, L = cfg.d_model, cfg.n_layers
         dt, f32 = torch_dtype(cfg), torch.float32
-        attn = {"wq": ((L, d, h * hd), dt), "wk": ((L, d, kv * hd), dt),
-                "wv": ((L, d, kv * hd), dt), "wo": ((L, h * hd, d), dt)}
-        if cfg.qkv_bias:
-            attn.update(bq=((L, h * hd), dt), bk=((L, kv * hd), dt),
-                        bv=((L, kv * hd), dt))
-        tree: Params = {
-            "embed": ((cfg.vocab, d), dt),
-            "ln_f": ((d,), f32),
-            "layers": {"ln1": ((L, d), f32), "ln2": ((L, d), f32),
-                       "attn": attn,
-                       "mlp": {"wg": ((L, d, f), dt), "wu": ((L, d, f), dt),
-                               "wd": ((L, f, d), dt)}},
-        }
+        tree: Params = {"embed": ((cfg.vocab, d), dt), "ln_f": ((d,), f32)}
+        if is_hybrid(cfg):
+            mamba = {k: ((L,) + shape, t)
+                     for k, (shape, t) in mamba_shapes(cfg, dt).items()}
+            mamba["ln"] = ((L, d), f32)
+            tree["mamba"] = mamba
+            tree["shared"] = self._dense_layer_shapes(())
+        else:
+            tree["layers"] = self._dense_layer_shapes((L,))
         if not cfg.tie_embeddings:
             tree["lm_head"] = ((d, cfg.vocab), dt)
         return tree
 
+    def _dense_layer_shapes(self, lead: Tuple[int, ...]) -> Params:
+        """One dense layer's (shape, dtype) tree, each shape prefixed with
+        ``lead`` (``(L,)`` when stacked)."""
+        cfg = self.cfg
+        d, hd = cfg.d_model, cfg.hd
+        h, kv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+        dt, f32 = torch_dtype(cfg), torch.float32
+        attn = {"wq": (lead + (d, h * hd), dt), "wk": (lead + (d, kv * hd), dt),
+                "wv": (lead + (d, kv * hd), dt),
+                "wo": (lead + (h * hd, d), dt)}
+        if cfg.qkv_bias:
+            attn.update(bq=(lead + (h * hd,), dt), bk=(lead + (kv * hd,), dt),
+                        bv=(lead + (kv * hd,), dt))
+        return {"ln1": (lead + (d,), f32), "ln2": (lead + (d,), f32),
+                "attn": attn,
+                "mlp": {"wg": (lead + (d, f), dt), "wu": (lead + (d, f), dt),
+                        "wd": (lead + (f, d), dt)}}
+
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random params from ``torch.Generator(seed)`` on ``device``:
         normal/sqrt(fan_in) weights, 0.02-normal embedding, zero biases,
-        unit norms (repro's init rules; the values differ, the PRNGs do)."""
+        unit norms; for the Mamba layers a conv of zeros with its last tap
+        1, ``A_log`` and ``dt_bias`` 0, ``D`` and ``norm`` 1 (repro's init
+        rules; the values differ, the PRNGs do)."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -143,10 +192,14 @@ class LM:
             if isinstance(spec, dict):
                 return {k: make(k, v) for k, v in spec.items()}
             shape, dt = spec
-            if name.startswith("ln"):
+            if name.startswith("ln") or name in ("D", "norm"):
                 return torch.ones(shape, dtype=dt, device=dev)
-            if name in ("bq", "bk", "bv"):
+            if name in ("bq", "bk", "bv", "A_log", "dt_bias"):
                 return torch.zeros(shape, dtype=dt, device=dev)
+            if name == "conv_w":                 # identity-ish: last tap 1
+                w = torch.zeros(shape, dtype=dt, device=dev)
+                w[..., -1, :] = 1
+                return w
             if name == "embed":
                 return embed_init(shape, gen, dtype=dt, device=dev)
             # stacked [L, in, out] (or [in, out] for lm_head): fan_in = in
@@ -156,6 +209,7 @@ class LM:
         return {k: make(k, v) for k, v in self.param_shapes().items()}
 
     def _layers(self, params: Params) -> List[Params]:
+        self._dense_only("decoding")
         src, views = self._views
         if src is not params["layers"]:
             views = [_index(params["layers"], i)
@@ -190,20 +244,38 @@ class LM:
         return x + _mlp_forward(p["mlp"], rms_norm(x, p["ln2"],
                                                    cfg.norm_eps))
 
+    def _mamba_layer(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        return x + mamba_forward(p, rms_norm(x, p["ln"], self.cfg.norm_eps),
+                                 self.cfg, impl=self.ssd_impl)
+
     def forward(self, params: Params,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens [B, S] -> (logits [B, S, V], aux_loss 0).  Under autograd
-        each layer is rematerialised in the backward."""
+        each layer (each Mamba layer and each application of the hybrid
+        family's shared block) is rematerialised in the backward."""
         x = params["embed"][tokens]
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         remat = torch.is_grad_enabled()
-        for p in _unbind(params["layers"]):
+
+        def run(fn, *args):
             if remat:
-                x = checkpoint(self._layer, p, x, positions,
-                               use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = self._layer(p, x, positions)
+                return checkpoint(fn, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return fn(*args)
+
+        if is_hybrid(self.cfg):
+            # groups of attn_every Mamba layers, each followed by the shared
+            # block; autograd sums the shared weights' grads over the groups
+            period = self.cfg.attn_every
+            mamba = _unbind(params["mamba"])
+            for g0 in range(0, len(mamba), period):
+                for p in mamba[g0:g0 + period]:
+                    x = run(self._mamba_layer, p, x)
+                x = run(self._layer, params["shared"], x, positions)
+        else:
+            for p in _unbind(params["layers"]):
+                x = run(self._layer, p, x, positions)
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         return self._head(params, x), torch.zeros((), device=x.device)
 
@@ -219,6 +291,7 @@ class LM:
     def init_cache(self, batch: int, max_len: int, device="cuda") -> Cache:
         """{"pos": [B] int32, "kv": {"k", "v": [L, B, S, KV, hd] bf16}}.
         The cache is bf16 whatever the model dtype, as in repro."""
+        self._dense_only("init_cache")
         cfg = self.cfg
         dev = resolve_device(device)
         s = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
@@ -238,6 +311,7 @@ class LM:
         KV, hd] bf16}}.  Block 0 is the host allocator's reserved null
         sink (zeroed table rows point at it).  Dense full-attention
         configurations only (``paged_ok``)."""
+        self._dense_only("init_cache_paged")
         cfg = self.cfg
         if not paged_ok(cfg):
             raise ValueError(
@@ -263,6 +337,7 @@ class LM:
         only the slot's position and table row are cleared: the pool
         blocks are recycled by the host allocator, and a zeroed table row
         points at the null block."""
+        self._dense_only("reset_slot")
         if "pages" in cache:
             cache["pos"][slot] = 0
             cache["block_table"][slot].zero_()
@@ -289,6 +364,7 @@ class LM:
 
         ``active`` [B] bool: inactive rows keep their cache row and
         position (repro drops their write with an out-of-range index)."""
+        self._dense_only("decode_step")
         cfg = self.cfg
         hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         pos = cache["pos"]
@@ -386,6 +462,7 @@ class LM:
         against the slot's cache) where prefill_parallel_ok allows, else
         steps decode_step over it; "scan" forces the stepwise path;
         "parallel" forces the parallel one."""
+        self._dense_only("prefill_chunk")
         if impl not in PREFILL_IMPLS:
             raise ValueError(f"prefill impl must be one of {PREFILL_IMPLS}, "
                              f"got {impl!r}")

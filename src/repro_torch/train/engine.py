@@ -29,6 +29,7 @@ import torch
 from .. import tree
 from ..checkpoint import ckpt
 from ..models.common import resolve_device
+from ..models.mamba import SSD_IMPLS
 from ..models.model import LM
 from ..optim import adamw
 from ..optim.adamw import AdamWConfig, apply_updates
@@ -44,6 +45,11 @@ class EngineConfig:
     grad_compression: bool = False  # error-feedback int8 sync
     master_fp32: bool = True       # bf16 compute / f32 master weights
     optim: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
+    # "auto" | "kernel" | "chunked": the SSD scan of the hybrid family's
+    # Mamba layers, replacing the model's ssd_impl unless "auto" (which
+    # keeps it; the model's own "auto" takes the CUDA kernel on the card,
+    # as repro's engine takes Pallas on the TPU)
+    kernels: str = "auto"
 
 
 class TrainEngine:
@@ -56,8 +62,14 @@ class TrainEngine:
                 "the port trains on one card; mesh= waits for the "
                 "multi-card slice")
         self.cfg = cfg or EngineConfig()
-        self.model = model
         self.device = resolve_device(device)
+        kernels = self.cfg.kernels
+        if kernels not in SSD_IMPLS:
+            raise ValueError(f"kernels must be one of {SSD_IMPLS}, got "
+                             f"{kernels!r}")
+        if kernels != "auto":
+            model = dataclasses.replace(model, ssd_impl=kernels)
+        self.model = model
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: int = 0, params: Optional[Tree] = None

@@ -268,3 +268,148 @@ def test_launch_main_on_card(cuda, tmp_path):
     assert launch_serve.main(["--arch", "qwen2-1.5b", "--reduced",
                               "--requests", "3", "--gen", "3",
                               "--json-out", str(tmp_path / "r.json")]) == 0
+
+
+# ---------------------------------------------------------------------------
+# the hybrid slice: hd-80 attention, the SSD chunk scan, zamba2 training
+# ---------------------------------------------------------------------------
+
+# The SSD kernel and its plain version are both f32: sums of up to a chunk
+# of terms (the sequential recurrence against the chunked form) in another
+# order, so |err| <= 2e-4 x max(1, max|ref|).
+SSD_TOL = 2e-4
+
+
+def _ssd_inputs(dev, b, s, h, p, n, seed=0, a=1.0):
+    """Inputs as mamba_forward draws them at init (dt_bias 0, identity
+    conv) for a head with A = exp(A_log) = a: x, B, C = silu(normal),
+    dt = softplus(normal), a_log = -a dt, xh = x dt.  At a = 1 cum
+    reaches about -0.8 S within a chunk and the clip at -60 is active; at
+    a = 0.01 (a long-memory head) it stays ~ -2 over a chunk of 256, so
+    every key tile and the carried state show in y."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    xh = torch.nn.functional.silu(rnd(b, s, h, p)) * dt[..., None]
+    bb = torch.nn.functional.silu(rnd(b, s, n))
+    cc = torch.nn.functional.silu(rnd(b, s, n))
+    return xh.contiguous(), (-a * dt).contiguous(), bb, cc
+
+
+def _ssd_err(y, y_ref):
+    return float((y - y_ref).abs().max()) / max(1.0,
+                                                float(y_ref.abs().max()))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,a", [
+    (2, 1024, 80, 64, 64, 256, 1.0),   # the training shape
+    (2, 64, 16, 8, 8, 8, 1.0),         # reduced zamba2
+    (1, 512, 8, 64, 64, 512, 1.0),     # chunk == S
+    (1, 512, 8, 64, 64, 128, 1.0),
+    (2, 64, 3, 16, 8, 96, 1.0),        # chunk > S: one chunk of 64
+    # a long-memory head: the key tiles off the diagonal and the state
+    # carried across chunks weigh as much as the diagonal tile
+    (2, 1024, 80, 64, 64, 256, 0.01),
+    (1, 1024, 8, 64, 64, 128, 0.01),
+    (1, 512, 8, 64, 64, 512, 0.01),    # every key tile, no carry
+    (2, 64, 16, 8, 8, 8, 0.01)])
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, a):
+    from repro_torch.kernels import ssd
+
+    xh, al, bb, cc = _ssd_inputs(cuda, b, s, h, p, n, seed=s + h, a=a)
+    before = ssd.launches["ssd_chunk_scan"]
+    y = ops.ssd_chunk_scan(xh, al, bb, cc, chunk=chunk)
+    assert ssd.launches["ssd_chunk_scan"] == before + 1
+    y_ref, _ = ref.ssd_ref(xh, al, bb, cc)
+    assert bool(torch.isfinite(y).all())
+    assert _ssd_err(y, y_ref) <= SSD_TOL
+
+
+def test_ssd_dispatch_pads_and_grads_on_card(cuda):
+    """S = 96 with chunk 64 through the dispatcher's pad, for a
+    long-memory head (so the second chunk reads the carried state); the
+    values against the plain version, the grads against autograd through the
+    chunked scan (the backward is that scan, so they are equal)."""
+    from repro_torch.kernels import ssd
+    from repro_torch.models import mamba
+
+    xh, al, bb, cc = _ssd_inputs(cuda, 2, 96, 4, 8, 8, seed=5, a=0.01)
+    ins = [t.clone().requires_grad_(True) for t in (xh, al, bb, cc)]
+    ops.reset_plain_calls()
+    y = mamba.ssd_dispatch(*ins, 64, "kernel")
+    assert y.shape == xh.shape
+    assert _ssd_err(y.detach(), ref.ssd_ref(xh, al, bb, cc)[0]) <= SSD_TOL
+    dy = torch.randn(y.shape, device=cuda)
+    got = torch.autograd.grad(y, ins, dy)
+    assert ops.bwd_recomputes["ssd_chunk_scan"] == 1
+    ins2 = [t.clone().requires_grad_(True) for t in (xh, al, bb, cc)]
+    want = torch.autograd.grad(ssd.ssd_scan(*ins2, 64)[0], ins2, dy)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
+    assert not any(ops.plain_calls.values())
+
+
+def test_hd80_attention_kernels_match_plain(cuda):
+    """zamba2's shared block: hd 80, 32 heads, g 1.  Forward (causal and
+    at an offset), backward (dq, dk/dv), decode and paged decode against
+    their plain versions in the bands above."""
+    g = torch.Generator(device=cuda).manual_seed(80)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).bfloat16()
+
+    q, k, v, do = (rnd(2, 1024, 32, 80) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_r, lse_r = ref.flash_attention_fwd_ref(q, k, v)
+    assert _rel_err(o, o_r) <= 1e-2
+    assert float((lse - lse_r).abs().max()) <= 1e-3
+    for a, w in zip(fa.flash_attention_bwd(q, k, v, o, lse, do),
+                    ref.flash_attention_bwd_ref(q, k, v, o, lse, do)):
+        assert _rel_err(a, w) <= 1e-2
+    qc = rnd(1, 256, 32, 80)
+    off = torch.tensor([768], dtype=torch.int32, device=cuda)
+    o, _ = fa.flash_attention_fwd(qc, k[:1].contiguous(), v[:1].contiguous(),
+                                  q_offset=off)
+    o_r, _ = ref.flash_attention_fwd_ref(qc, k[:1], v[:1], q_offset=768)
+    assert _rel_err(o, o_r) <= 1e-2
+    qd = rnd(2, 32, 80)
+    ln = torch.tensor([700, 1024], dtype=torch.int32, device=cuda)
+    assert _rel_err(fa.flash_attention_decode(qd, k, v, ln),
+                    ref.flash_attention_decode_ref(qd, k, v, ln)) <= 1e-2
+    qp, kp, vp, table, lp = _paged_case(cuda, 3, 32, 32, 80, 16, 8,
+                                        [5, 128, 77])
+    assert _rel_err(fa.flash_attention_paged_decode(qp, kp, vp, table, lp),
+                    ref.flash_attention_paged_decode_ref(qp, kp, vp, table,
+                                                         lp)) <= 1e-2
+
+
+def test_hybrid_train_steps_on_card_use_only_the_kernels(cuda):
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import ssd
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.engine import EngineConfig, TrainEngine
+
+    cfg = get_arch("zamba2-2.7b").reduced()
+    eng = TrainEngine(LM(cfg), EngineConfig(
+        microbatches=2, optim=AdamWConfig(lr=2e-3, warmup_steps=2)),
+        device=cuda)
+    state = eng.init_state(0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    fa.reset_launches()
+    ssd.reset_launches()
+    ops.reset_plain_calls()
+    losses = []
+    for step in range(4):
+        state, m = eng.step(state, host_batch(dcfg, step))
+        losses.append(float(m["loss"]))
+    L, apps = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    assert ssd.launches["ssd_chunk_scan"] == 4 * 2 * 2 * L
+    assert ops.bwd_recomputes["ssd_chunk_scan"] == 4 * 2 * L
+    assert fa.launches["flash_fwd"] == 4 * 2 * 2 * apps
+    assert fa.launches["flash_bwd_dq"] == fa.launches["flash_bwd_dkv"] \
+        == 4 * 2 * apps
+    assert not any(ops.plain_calls.values())
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -181,7 +181,8 @@ def test_cpu_tensors_take_the_plain_path():
     assert ops.plain_calls == {"flash_attention_fwd_ref": 1,
                                "flash_attention_bwd_ref": 0,
                                "flash_attention_decode_ref": 1,
-                               "flash_attention_paged_decode_ref": 0}
+                               "flash_attention_paged_decode_ref": 0,
+                               "ssd_ref": 0}
 
 
 def _imports(path):
