@@ -7,7 +7,9 @@
 Phases, each of which exits non-zero on failure (nothing is caught):
   1. device: requires a CUDA card; prints its name and power limit;
   2. build: compiles the CUDA kernels from src/repro_torch/kernels/csrc
-     with nvcc for sm_90a into build/ (ptxas register / smem lines shown);
+     with nvcc for sm_90a into build/ (ptxas register / smem lines shown),
+     and counts the HGMMA (wgmma) instructions in the SASS of every
+     instance of the two backward kernels: none is a failure;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, at the serving path's shapes (12 q heads over 2 KV heads,
      hd 128), at zamba2's (32 heads, g 1, hd 80) and at the reduced
@@ -19,9 +21,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      with chunk 64 through the dispatcher's pad; the training shape,
      chunk 128, chunk == S and the pad again for a long-memory head
      (A = 0.01), where every key tile and the carried state show in y;
-     The backward kernels (dq, dk/dv) are held the same way, causal and
-     not, with a window, GQA groups 1 and 6, hd 16 / 64 / 128, a ragged
-     S = 1000 and the training shape;
+     The backward kernels (dq, dk/dv) are held the same way at the edges
+     of their 64-row tiles: causal and not, ragged S = 1000 and 1089,
+     windows of 128 and 200, GQA groups 1, 2, 4, 6 and 8, hd 16 / 64 / 80
+     / 128, the training shape, and f32 queries (the f32 kernels); every
+     case twice, bit for bit, and dk/dv at every split of the group; SDPA's
+     backward (each pinned backend) against the same plain version on the
+     training shape's inputs, for comparison;
      The paged decode kernel at the serving shape (16 slots, ~1000 tokens
      each, shuffled blocks, one block shared by two rows), the re-score's
      64-row grid, hd 16, a 48-token block, ragged and empty rows: within
@@ -61,9 +67,12 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      and grads on the card against the CPU;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch), its bound, the plain version's time and SDPA's (forward or
-     backward; for the paged kernel an index_select gather, then SDPA) as
-     the library yardstick; the attention kernels also at hd 80 (zamba2's
-     shared block); ssd_chunk_scan at the training shape, with the
+     backward under each backend pinned in turn, the fastest as the
+     yardstick, all printed; for the paged
+     kernel an index_select gather, then SDPA) as the library yardstick;
+     the backward kernels' TFLOP/s and share of their bound, and dk/dv at
+     every split of the group; the attention kernels also at hd 80
+     (zamba2's shared block); ssd_chunk_scan at the training shape, with the
      chunked PyTorch scan (kernels/ssd.ssd_scan) as its yardstick, as no
      single PyTorch call computes the scan;
   6. the kernels line and the contract's last line.
@@ -107,6 +116,9 @@ LOGITS_ATOL = 0.25
 # The backward's dq, dk and dv are bf16: the same f32 sums (dk/dv also
 # over the g query heads and the q tiles) in another order, rounded to
 # bf16, so the same one-ulp band as O_TOL: |err| <= 1e-2 * max(1, |ref|).
+# P and dS enter the tensor cores as hi + lo bf16 pairs (~16 bits): a
+# single bf16 rounding of them moves dv by up to two ulps, past this band,
+# as SDPA's backward does (phase 3 prints its gap).
 GRAD_TOL = 1e-2
 # Reduced model's loss on the card vs the CPU, bf16: repro's LOSS_ATOL
 # (verify/numerics.py).  Its param grads: each bf16 computation lies
@@ -238,9 +250,102 @@ def sdpa_decode(q, kc, vc, lengths, window, scale):
         enable_gqa=True)
 
 
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_bwd(q, k, v, do):
+    """SDPA's whole backward (dq, dk, dv, causal), the yardstick of the two
+    backward kernels, under each backend of SDPA_BACKENDS pinned in turn
+    that takes the inputs: with enable_gqa or, where that is refused, with
+    K/V expanded to the q heads outside the timed call (dk/dv then come
+    per q head, and the group sum is left out of the call).  -> [(fn,
+    to_port, backend)]: fn() runs the backward; to_port(fn()) gives the
+    port's layout, group-summed."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    dot = do.transpose(1, 2).contiguous()
+    found = []
+    for name in SDPA_BACKENDS:
+        for expand in ((False, True) if g > 1 else (False,)):
+            kt, vt = (t.transpose(1, 2) for t in (k, v))
+            if expand:
+                kt, vt = (t.repeat_interleave(g, 1) for t in (kt, vt))
+            leaves = (qt,) + tuple(t.contiguous().requires_grad_(True)
+                                   for t in (kt, vt))
+            try:
+                with sdpa_kernel([getattr(SDPBackend, name)]):
+                    out = F.scaled_dot_product_attention(
+                        *leaves, is_causal=True,
+                        enable_gqa=g > 1 and not expand)
+                torch.autograd.grad(out, leaves, dot, retain_graph=True)
+            except RuntimeError as e:
+                print(f"SDPA backward: {name}{' expanded' if expand else ''} "
+                      f"refused: {str(e).splitlines()[0][:80]}")
+                continue
+
+            def fn(out=out, leaves=leaves):
+                return torch.autograd.grad(out, leaves, dot,
+                                           retain_graph=True)
+
+            def to_port(grads, expand=expand):
+                gq, gk, gv = grads
+                if expand:
+                    gk, gv = (t.float().reshape(b, kv, g, s, hd).sum(2)
+                              .to(k.dtype) for t in (gk, gv))
+                return tuple(t.transpose(1, 2) for t in (gq, gk, gv))
+            found.append((fn, to_port, name + (" (K/V expanded outside the "
+                                               "call)" if expand else "")))
+            break
+    return found
+
+
+def sdpa_bwd_gap(q, k, v, do, want, tag):
+    """SDPA's backward under each pinned backend (as in phase 5) against
+    the same plain version as the kernels, on the same inputs: how far a
+    library backward that rounds P and dS to bf16 lands."""
+    out = {}
+    for fn, to_port, backend in sdpa_bwd(q, k, v, do):
+        got = to_port(fn())
+        torch.cuda.synchronize()
+        errs = {n: rel_err(a, w) for n, a, w in zip(("dq", "dk", "dv"), got,
+                                                     want)}
+        print(f"check SDPA backward ({backend}) vs the plain version, same "
+              f"inputs: " + " ".join(f"max|d{n}|={e:.3g} rel={r:.3g}"
+                                     for n, (e, r) in errs.items())
+              + f" {tag}")
+        out[backend] = {n: r for n, (_, r) in errs.items()}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
+
+def hgmma_counts(lib_path) -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each instance of the two
+    backward kernels, from cuobjdump beside nvcc."""
+    from repro_torch.kernels import build
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "flash_bwd_dq_kernel" not in fn and \
+                    "flash_bwd_dkv_kernel" not in fn:
+                fn = None
+            else:
+                counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
 
 def rel_err(out, ref):
     """max |out - ref| and max of it over max(1, |ref|), in f32."""
@@ -252,10 +357,10 @@ def check_kernels(dev, tag):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    def rnd(shape, seed):
+    def rnd(shape, seed, dtype=torch.bfloat16):
         g = torch.Generator(device=dev).manual_seed(seed)
         return torch.randn(shape, generator=g, device=dev,
-                           dtype=torch.float32).to(torch.bfloat16)
+                           dtype=torch.float32).to(dtype)
 
     rows = {"flash_fwd": [], "flash_decode": [], "flash_bwd_dq": [],
             "flash_bwd_dkv": []}
@@ -322,42 +427,77 @@ def check_kernels(dev, tag):
 
     rows["flash_paged_decode"] = check_paged(dev, tag)
 
-    # (b, s, h, kv, hd, causal, window)
+    rows["flash_bwd_dq_f32"], rows["flash_bwd_dkv_f32"] = [], []
+    bf, f32 = torch.bfloat16, torch.float32
+    # (b, s, h, kv, hd, causal, window, q/o/do dtype): the backward's 64-row
+    # tiles cut S = 1000 and 1089 raggedly, windows of 128 and 200 start
+    # inside a tile, g is 1, 2, 4, 6 and 8, hd 16 / 64 / 80 / 128
     bwd_cases = [
-        (TRAIN_BATCH, TRAIN_SEQ, 12, 2, 128, True, None),  # training shape
-        (2, 1000, 12, 2, 128, True, None),                # ragged S
-        (1, 512, 12, 12, 128, False, None),               # g = 1
-        (1, 512, 12, 2, 128, True, 128),                  # window
-        (2, 100, 8, 2, 64, False, 50),
-        (2, 33, 4, 1, 16, True, 9),
-        (1, 40, 4, 4, 16, False, None),
-        (2, 1024, 32, 32, 80, True, None),               # zamba2's block
+        (TRAIN_BATCH, TRAIN_SEQ, 12, 2, 128, True, None, bf),  # training
+        (2, 1000, 12, 2, 128, True, None, bf),                # ragged S
+        (1, 1089, 8, 1, 64, True, None, bf),                  # ragged, g 8
+        (1, 1089, 16, 2, 128, False, None, bf),               # g 8, full
+        (1, 512, 12, 12, 128, False, None, bf),               # g = 1
+        (1, 512, 12, 2, 128, True, 128, bf),                  # window
+        (1, 600, 6, 1, 80, True, 200, bf),                    # window 200
+        (2, 100, 8, 2, 64, False, 50, bf),
+        (2, 33, 4, 1, 16, True, 9, bf),
+        (1, 40, 4, 4, 16, False, None, bf),
+        (2, 1024, 32, 32, 80, True, None, bf),               # zamba2's block
+        (1, 300, 12, 2, 128, True, None, f32),               # f32 kernels
+        (2, 77, 8, 2, 80, False, 30, f32),
     ]
-    for i, (b, s, h, kv, hd, causal, window) in enumerate(bwd_cases):
-        q, do = rnd((b, s, h, hd), 200 + 4 * i), rnd((b, s, h, hd), 201 + 4 * i)
-        k, v = rnd((b, s, kv, hd), 202 + 4 * i), rnd((b, s, kv, hd), 203 + 4 * i)
+    for i, (b, s, h, kv, hd, causal, window, dt) in enumerate(bwd_cases):
+        q, do = (rnd((b, s, h, hd), 200 + 4 * i, dt),
+                 rnd((b, s, h, hd), 201 + 4 * i, dt))
+        k, v = (rnd((b, s, kv, hd), 202 + 4 * i),
+                rnd((b, s, kv, hd), 203 + 4 * i))
         kw = dict(causal=causal, window=window)
         o, lse = fa.flash_attention_fwd(q, k, v, **kw)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
         errs = {n: rel_err(a, w) for n, a, w in zip(("dq", "dk", "dv"), got,
                                                      want)}
+        # dk/dv at every split of the group (bf16), each in the band and
+        # deterministic
+        g, split_errs = h // kv, []
+        if dt == bf and g > 1:
+            delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)[1]
+            for sp in (d for d in range(1, g + 1) if g % d == 0):
+                one = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                                 split=sp, **kw)
+                two = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                                 split=sp, **kw)
+                same = same and all(torch.equal(a, c) for a, c in zip(one,
+                                                                       two))
+                split_errs.append((sp, max(rel_err(one[0], want[1])[1],
+                                           rel_err(one[1], want[2])[1])))
         ok = (all(r <= GRAD_TOL for _, r in errs.values())
+              and all(r <= GRAD_TOL for _, r in split_errs) and same
               and all(bool(torch.isfinite(a).all()) for a in got))
         print(f"check flash_bwd b={b} s={s} h={h} kv={kv} hd={hd} "
-              f"causal={causal} window={window}: "
+              f"causal={causal} window={window} {str(dt)[6:]}: "
               + " ".join(f"max|d{n}|={e:.3g} rel={r:.3g}"
                          for n, (e, r) in errs.items())
-              + f" {'ok' if ok else 'MISS'} {tag}")
+              + (" splits " + " ".join(f"{sp}:{r:.3g}" for sp, r in
+                                       split_errs) if split_errs else "")
+              + f" bitwise-repeatable={same} {'ok' if ok else 'MISS'} {tag}")
         if not ok:
-            fail(f"flash_bwd disagrees with its plain version (case {i})")
-        rows["flash_bwd_dq"].append(dict(case=i, max_abs_err=errs["dq"][0],
-                                         rel_err=errs["dq"][1]))
-        rows["flash_bwd_dkv"].append(dict(
+            fail(f"flash_bwd disagrees with its plain version or is not "
+                 f"deterministic (case {i})")
+        sfx = "_f32" if dt == f32 else ""
+        rows["flash_bwd_dq" + sfx].append(dict(
+            case=i, max_abs_err=errs["dq"][0], rel_err=errs["dq"][1]))
+        rows["flash_bwd_dkv" + sfx].append(dict(
             case=i, max_abs_err=max(errs["dk"][0], errs["dv"][0]),
-            rel_err=max(errs["dk"][1], errs["dv"][1])))
-        del q, k, v, do, o, lse, got, want
+            rel_err=max(errs["dk"][1], errs["dv"][1]),
+            splits=split_errs))
+        if i == 0:
+            rows["sdpa_bwd_gap"] = sdpa_bwd_gap(q, k, v, do, want, tag)
+        del q, k, v, do, o, lse, got, again, want
     rows["ssd_chunk_scan"] = check_ssd(dev, tag)
     return rows
 
@@ -603,6 +743,9 @@ def time_kernels(dev, tag, timer):
                else f"{r['library_ms']:.4f} ms")
         bwd = (f", backward (chunked recompute) {r['bwd_ms']:.4f} ms"
                if "bwd_ms" in r else "")
+        if "tflops" in r:
+            bwd += (f", {r['tflops']:.1f} TFLOP/s, {100 * r['bound_share']:.1f}"
+                    f"% of its bound")
         print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, library {lib}{bwd} {tag}")
@@ -701,7 +844,6 @@ def time_bwd(dev, timer, rnd, b, h, kv, hd):
     """The two backward kernels timed apart at a training shape; the
     plain version and SDPA's backward compute dq, dk and dv together, so
     both rows carry the same plain and library time."""
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -712,19 +854,15 @@ def time_bwd(dev, timer, rnd, b, h, kv, hd):
     _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
     plain_ms = timer(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
                      n=5)
-    try:
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                      for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-        dot = do.transpose(1, 2).contiguous()
-        lib_ms = timer(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                   retain_graph=True))
-    except (TypeError, RuntimeError) as e:   # no enable_gqa in this torch
-        print(f"SDPA backward yardstick unavailable: {e}")
-        lib_ms = None
+    # the library time: the fastest pinned SDPA backend
+    sdpa_ms = {backend: timer(fn) for fn, _, backend in sdpa_bwd(q, k, v, do)}
+    backend = min(sdpa_ms, key=sdpa_ms.get) if sdpa_ms else "none"
+    lib_ms = sdpa_ms.get(backend)
+    print(f"time SDPA backward by pinned backend: "
+          + ", ".join(f"{n}: {t:.4f} ms" for n, t in sdpa_ms.items()))
     shape = (f"q/do [{b},{s},{h},{hd}] kv [{b},{s},{kv},{hd}] causal; plain "
-             f"and SDPA times are the whole backward")
+             f"and SDPA times are the whole backward; SDPA backend "
+             f"{backend} (the fastest pinned)")
     fns = {"flash_bwd_dq": lambda: fa.flash_attention_bwd_dq(
                q, k, v, o, lse, do),
            "flash_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
@@ -733,9 +871,19 @@ def time_bwd(dev, timer, rnd, b, h, kv, hd):
     for name, fn in fns.items():
         by, fl = bwd_work(b, s, h, kv, hd, True, None, name[len("flash_bwd_"):])
         bms, bby = bound(by, fl)
-        out_rec[name] = dict(shape=shape, ms=timer(fn), plain_ms=plain_ms,
+        ms = timer(fn)
+        out_rec[name] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
                              bound_ms=bms, bound_by=bby, bytes=by, flops=fl,
-                             library_ms=lib_ms)
+                             library_ms=lib_ms, sdpa_ms=sdpa_ms,
+                             tflops=fl / ms * 1e-9, bound_share=bms / ms)
+    # dk/dv at every split of the group (the wrapper picks one)
+    g = h // kv
+    splits = {sp: timer(lambda sp=sp: fa.flash_attention_bwd_dkv(
+        q, k, v, lse, delta, do, split=sp))
+        for sp in range(1, g + 1) if g % sp == 0}
+    out_rec["flash_bwd_dkv"]["split_ms"] = splits
+    print(f"time flash_bwd_dkv by split of the group (g {g}): "
+          + ", ".join(f"{sp}: {t:.4f} ms" for sp, t in splits.items()))
     return out_rec
 
 
@@ -1207,7 +1355,8 @@ def train_full_width(dev, tag):
     L, n = cfg.n_layers, TRAIN_STEPS
     want = {"flash_fwd": 2 * L * TRAIN_MICRO * n, "flash_decode": 0,
             "flash_paged_decode": 0, "flash_bwd_dq": L * TRAIN_MICRO * n,
-            "flash_bwd_dkv": L * TRAIN_MICRO * n}
+            "flash_bwd_dkv": L * TRAIN_MICRO * n, "flash_bwd_dq_f32": 0,
+            "flash_bwd_dkv_f32": 0}
     losses = rec["losses"]
     print(f"train: {cfg.name} full width, {n} steps of {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches, losses "
@@ -1260,7 +1409,8 @@ def train_hybrid_full_width(dev, tag):
     apps = L // cfg.attn_every
     want = {"flash_fwd": 2 * apps * m * n, "flash_decode": 0,
             "flash_paged_decode": 0, "flash_bwd_dq": apps * m * n,
-            "flash_bwd_dkv": apps * m * n, "ssd_chunk_scan": 2 * L * m * n}
+            "flash_bwd_dkv": apps * m * n, "flash_bwd_dq_f32": 0,
+            "flash_bwd_dkv_f32": 0, "ssd_chunk_scan": 2 * L * m * n}
     losses = rec["losses"]
     print(f"hybrid train: {cfg.name} full width, {L} Mamba2 layers + the "
           f"shared block x {apps}, {n} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
@@ -1439,6 +1589,13 @@ def main() -> int:
           f"(cached={build.build_info.get('cached')})")
     for ln in build.build_info.get("ptxas", []):
         print(f"  {ln}")
+    hgmma = hgmma_counts(lib)
+    for fn, n in sorted(hgmma.items()):
+        print(f"  HGMMA {n:3d} {fn}")
+    for kern in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        found = [n for fn, n in hgmma.items() if kern in fn]
+        if not found or min(found) == 0:
+            fail(f"{kern}: an instance without HGMMA in its SASS ({found})")
 
     # 3. kernel vs plain
     timer = Timer(dev)
@@ -1516,7 +1673,7 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             device=name, nvidia_smi=smi, torch=torch.__version__,
-            build=build.build_info, checks=checks, times=times,
+            build=build.build_info, hgmma=hgmma, checks=checks, times=times,
             serve=serve_rec, paged=paged_rec,
             reduced_card_vs_cpu=reduced_err,
             train=train_rec, reduced_train_card_vs_cpu=reduced_train,

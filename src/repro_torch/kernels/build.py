@@ -101,7 +101,8 @@ def build(build_root: Optional[Path] = None) -> Path:
             raise RuntimeError("nvcc link failed:\n" + link.stdout)
         os.replace(tmp_lib, lib)      # atomic: concurrent builds agree
     ptxas = [ln.strip() for log in logs for ln in log.splitlines()
-             if "registers" in ln or "Compiling" in ln or "spill" in ln]
+             if "registers" in ln or "Compiling" in ln or "spill" in ln
+             or "wgmma" in ln]
     build_info.update(seconds=time.perf_counter() - t0, path=str(lib),
                       ptxas=ptxas, cached=False)
     return lib
@@ -119,12 +120,18 @@ def load_library() -> ctypes.CDLL:
                                     i32, i32, f32, i32, vp]
     lib.repro_flash_fwd.restype = i32
     # pointers (q k v o dO lse delta dq), then B Sq Sk H KV hd causal
-    # window, scale, q_is_f32, stream
-    lib.repro_flash_bwd_dq.argtypes = [vp] * 8 + [i32] * 8 + [f32, i32, vp]
-    lib.repro_flash_bwd_dq.restype = i32
-    # pointers (q k v dO lse delta dk dv), then as repro_flash_bwd_dq
-    lib.repro_flash_bwd_dkv.argtypes = [vp] * 8 + [i32] * 8 + [f32, i32, vp]
+    # window, scale, stream; the same for the f32-query kernel
+    for fn in (lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dq_f32):
+        fn.argtypes = [vp] * 8 + [i32] * 8 + [f32, vp]
+        fn.restype = i32
+    # pointers (q k v dO lse delta dk dv partial arrived), then B Sq Sk H
+    # KV hd nsplit causal window, scale, stream
+    lib.repro_flash_bwd_dkv.argtypes = [vp] * 10 + [i32] * 9 + [f32, vp]
     lib.repro_flash_bwd_dkv.restype = i32
+    # pointers (q k v dO lse delta dk dv), then B Sq Sk H KV hd causal
+    # window, scale, stream
+    lib.repro_flash_bwd_dkv_f32.argtypes = [vp] * 8 + [i32] * 8 + [f32, vp]
+    lib.repro_flash_bwd_dkv_f32.restype = i32
     lib.repro_flash_decode.argtypes = [vp, vp, vp, vp, vp,
                                        i32, i32, i32, i32, i32,
                                        i32, f32, i32, vp]

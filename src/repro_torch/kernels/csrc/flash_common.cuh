@@ -1,5 +1,5 @@
 // Shared pieces of the attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_decode.cu, flash_paged_decode.cu).
+// flash_bwd_f32.cu, flash_decode.cu, flash_paged_decode.cu).
 //
 // Numerics follow src/repro/kernels/flash_attention.py: f32 arithmetic,
 // the finite sentinel NEG_INF = -1e30 for masked scores (a fully masked
@@ -30,6 +30,16 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// Whether query row ``row`` sees key ``kpos`` (no offset; the backward's
+// mask): both inside the arrays, causal and window bounds as flagged.
+__device__ __forceinline__ bool visible(int row, int kpos, int Sq, int Sk,
+                                        int causal, int window) {
+  bool ok = kpos < Sk && row < Sq;
+  if (causal) ok = ok && kpos <= row;
+  if (window > 0) ok = ok && kpos > row - window;
+  return ok;
 }
 
 __device__ __forceinline__ float2 bf2_to_f2(uint32_t w) {

@@ -1,5 +1,5 @@
 """ctypes wrappers of the CUDA attention kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, ``csrc/flash_decode.cu``,
+``csrc/flash_bwd.cu``, ``csrc/flash_bwd_f32.cu``, ``csrc/flash_decode.cu``,
 ``csrc/flash_paged_decode.cu``).
 
 Each wrapper checks what the kernel takes (device, dtype, shape,
@@ -20,12 +20,14 @@ from .ref import check_gqa
 HEAD_DIMS = (16, 64, 80, 128)
 MAX_GROUP = 16            # decode: query heads per KV head (8 warps x 2)
 MAX_TABLE = 32768         # paged decode: table entries per row (128 KB)
+TILE = 64                 # backward: q rows / keys per tile (flash_bwd.cu)
 
 # launches per kernel since the last reset_launches(); a plain integer
 # each, read by chip_smoke.py to show the main path ran the kernels
 launches: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0,
                              "flash_paged_decode": 0,
-                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                             "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
 
 
 def reset_launches() -> None:
@@ -156,15 +158,16 @@ def _bwd_args(q, b, sq, sk, h, kv, hd, causal, window, scale):
     scale = scale if scale is not None else hd ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return (b, sq, sk, h, kv, hd, int(causal), _window_arg(window),
-            float(scale), int(q.dtype == torch.float32),
-            ctypes.c_void_p(stream))
+            float(scale), ctypes.c_void_p(stream))
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
                            window: Optional[int] = None,
                            scale: Optional[float] = None):
     """The dq kernel: -> (dq like q, delta [B,H,S] f32 = rowsum(o * do)).
-    Shapes and dtypes as flash_attention_bwd."""
+    Shapes and dtypes as flash_attention_bwd; bf16 queries take the
+    wgmma kernel (``flash_bwd_dq``), f32 ones the f32 kernel
+    (``flash_bwd_dq_f32``)."""
     from .build import load_library
 
     b, sq, sk, h, kv, hd = _check_bwd(q, k, v, lse, do, o)
@@ -173,21 +176,42 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), delta.zero_()
     lib = load_library()
-    code = lib.repro_flash_bwd_dq(
+    name = "flash_bwd_dq_f32" if q.dtype == torch.float32 else "flash_bwd_dq"
+    code = getattr(lib, "repro_" + name)(
         _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
         _ptr(delta), _ptr(dq),
         *_bwd_args(q, b, sq, sk, h, kv, hd, causal, window, scale))
-    _raise_on(code, lib, "flash_bwd_dq")
-    launches["flash_bwd_dq"] += 1
+    _raise_on(code, lib, name)
+    launches[name] += 1
     return dq, delta
+
+
+def dkv_split(b: int, sk: int, kv: int, g: int, sms: int) -> int:
+    """Blocks per group of g query heads in the dk/dv kernel: the least
+    divisor of g that fills every SM with the two blocks it holds at a
+    time, else g.  A larger split writes and reads more f32 partials: at
+    qwen2's shape (128 key-tile blocks, g 6) splits 1 / 2 / 3 / 6 took
+    0.2917 / 0.2283 / 0.1919 / 0.2323 ms on an H100 80GB HBM3 at 700 W
+    (``chip_smoke.py`` phase 5 times every split)."""
+    blocks = -(-sk // TILE) * kv * b
+    for d in range(1, g + 1):
+        if g % d == 0 and blocks * d >= 2 * sms:
+            return d
+    return g
 
 
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, causal: bool = True,
                             window: Optional[int] = None,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None,
+                            split: Optional[int] = None):
     """The dk/dv kernel, summing over each KV head's g query heads inside
     the kernel: -> (dk, dv like k).  ``delta`` as flash_attention_bwd_dq
-    returns it."""
+    returns it.  bf16 queries take the wgmma kernel (``flash_bwd_dkv``),
+    where ``split`` (a divisor of g; by default ``dkv_split``) is the
+    number of blocks that share a group's heads; their f32 partials are
+    summed in a fixed order, so the bits depend on it and on nothing else.
+    f32 queries take the f32 kernel (``flash_bwd_dkv_f32``), one block
+    per key tile and group (``split`` None or 1)."""
     from .build import load_library
 
     b, sq, sk, h, kv, hd = _check_bwd(q, k, v, lse, do)
@@ -195,17 +219,39 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, causal: bool = True,
     if delta.shape != lse.shape:
         raise ValueError(f"delta {tuple(delta.shape)} does not match lse "
                          f"{tuple(lse.shape)}")
+    g = h // kv
+    f32 = q.dtype == torch.float32
+    if split is None:
+        split = 1 if f32 else dkv_split(
+            b, sk, kv, g,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+    if split < 1 or g % split or (f32 and split != 1):
+        raise ValueError(f"split {split} does not divide the group {g}"
+                         + (" (f32 queries take 1)" if f32 else ""))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dk.zero_(), dv.zero_()
+    groups = -(-sk // TILE) * kv * b
+    partial = arrived = None
+    if split > 1:
+        partial = torch.empty((groups * split, 128 * hd), dtype=torch.float32,
+                              device=q.device)
+        arrived = torch.zeros(groups, dtype=torch.int32, device=q.device)
     lib = load_library()
-    code = lib.repro_flash_bwd_dkv(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
-        _ptr(dk), _ptr(dv),
-        *_bwd_args(q, b, sq, sk, h, kv, hd, causal, window, scale))
-    _raise_on(code, lib, "flash_bwd_dkv")
-    launches["flash_bwd_dkv"] += 1
+    args = _bwd_args(q, b, sq, sk, h, kv, hd, causal, window, scale)
+    ptrs = [_ptr(t) for t in (q, k, v, do, lse, delta, dk, dv)]
+    if f32:
+        name = "flash_bwd_dkv_f32"
+        code = lib.repro_flash_bwd_dkv_f32(*ptrs, *args)
+    else:
+        name = "flash_bwd_dkv"
+        code = lib.repro_flash_bwd_dkv(
+            *ptrs, None if partial is None else _ptr(partial),
+            None if arrived is None else _ptr(arrived), *args[:6], split,
+            *args[6:])
+    _raise_on(code, lib, name)
+    launches[name] += 1
     return dk, dv
 
 

@@ -163,11 +163,15 @@ def test_paged_server_on_card_uses_only_the_kernels(cuda):
 @pytest.mark.parametrize("b,s,h,kv,hd,causal,window", [
     (2, 1000, 12, 2, 128, True, None), (1, 256, 12, 12, 128, False, None),
     (1, 512, 12, 2, 128, True, 128), (2, 100, 8, 2, 64, False, 50),
-    (2, 33, 4, 1, 16, True, 9)])
+    (2, 33, 4, 1, 16, True, 9), (1, 1089, 8, 1, 64, True, None),
+    (1, 1089, 16, 2, 128, False, None), (1, 600, 6, 1, 80, True, 200),
+    (1, 256, 32, 32, 80, True, None)])
 def test_bwd_kernels_match_plain(cuda, b, s, h, kv, hd, causal, window):
     """dq, dk, dv of the CUDA backward against flash_attention_bwd_ref, at
-    1e-2 x max(1, |ref|): the same f32 sums in another order, rounded to
-    bf16."""
+    1e-2 x max(1, |ref|): the same f32 sums in another order (P and dS
+    enter the tensor cores as hi + lo bf16 pairs), rounded to bf16.  The
+    64-row tiles cut S = 1000 and 1089 raggedly, the windows start inside
+    a tile, g runs over 1, 6 and 8."""
     g = torch.Generator(device=cuda).manual_seed(s + hd)
 
     def rnd(*shape):
@@ -185,6 +189,57 @@ def test_bwd_kernels_match_plain(cuda, b, s, h, kv, hd, causal, window):
     for a, w in zip(got, want):
         assert a.dtype == w.dtype and a.shape == w.shape
         assert _rel_err(a, w) <= 1e-2
+
+
+@pytest.mark.parametrize("h,kv,causal,window", [
+    (12, 2, True, None), (8, 1, False, 200), (4, 4, True, 128)])
+def test_bwd_kernels_are_deterministic(cuda, h, kv, causal, window):
+    """Two launches on the same inputs give the same bits, at every split
+    of the group in dk/dv (the f32 partials are summed in split order
+    whichever block finishes last)."""
+    g = torch.Generator(device=cuda).manual_seed(h * kv)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).bfloat16()
+
+    b, s, hd = 2, 1089, 128
+    q, k, v = rnd(b, s, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd)
+    do = rnd(b, s, h, hd)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    one = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    two = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(one, two))
+    delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)[1]
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for sp in (d for d in range(1, h // kv + 1) if (h // kv) % d == 0):
+        a = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, split=sp,
+                                       **kw)
+        c = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, split=sp,
+                                       **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, c))
+        assert _rel_err(a[0], want[1]) <= 1e-2
+        assert _rel_err(a[1], want[2]) <= 1e-2
+
+
+def test_bwd_f32_queries_take_the_f32_kernels(cuda):
+    """f32 q/o/do go to the f32 kernels (their own counters), within the
+    same band of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    q, do = (torch.randn(1, 300, 12, 128, generator=g, device=cuda)
+             for _ in range(2))
+    k, v = (torch.randn(1, 300, 2, 128, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    before = dict(fa.launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert fa.launches["flash_bwd_dq_f32"] == before["flash_bwd_dq_f32"] + 1
+    assert fa.launches["flash_bwd_dkv_f32"] == \
+        before["flash_bwd_dkv_f32"] + 1
+    assert fa.launches["flash_bwd_dq"] == before["flash_bwd_dq"]
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and _rel_err(a, w) <= 1e-2
 
 
 def test_train_steps_on_card_use_only_the_kernels(cuda):
@@ -222,6 +277,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                .transpose(1, 2), q)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q, q.half(), q)
+    q = torch.zeros(1, 8, 6, 16, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 16, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 6, 8, device=cuda)
+    with pytest.raises(ValueError, match="split"):
+        fa.flash_attention_bwd_dkv(q, k, k, lse, lse, q, split=2)
 
 
 def test_reduced_model_card_matches_cpu(cuda):

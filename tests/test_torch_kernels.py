@@ -169,6 +169,19 @@ class TestChecks:
                                       torch.ones(1, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("b,sk,kv,g,want", [
+    (4, 1024, 2, 6, 3),     # qwen2's training shape: 128 key-tile blocks
+    (2, 1024, 32, 1, 1),    # zamba2's shared block: g 1
+    (1, 40, 1, 4, 4),       # a tiny grid takes the whole group
+    (8, 4096, 2, 6, 1)])    # the key tiles alone fill 132 SMs twice
+def test_dkv_split_fills_the_card(b, sk, kv, g, want):
+    """The dk/dv kernel's group split: the least divisor of g whose grid
+    gives each of 132 SMs its two resident blocks, else all of g."""
+    got = fa.dkv_split(b, sk, kv, g, 132)
+    assert got == want and g % got == 0
+    assert -(-sk // fa.TILE) * kv * b * got >= 2 * 132 or got == g
+
+
 def test_cpu_tensors_take_the_plain_path():
     fa.reset_launches()
     ops.reset_plain_calls()
@@ -177,7 +190,8 @@ def test_cpu_tensors_take_the_plain_path():
     attend_cache(q[:, 0], k, v, torch.tensor([3, 8], dtype=torch.int32))
     assert fa.launches == {"flash_fwd": 0, "flash_decode": 0,
                            "flash_paged_decode": 0, "flash_bwd_dq": 0,
-                           "flash_bwd_dkv": 0}
+                           "flash_bwd_dkv": 0, "flash_bwd_dq_f32": 0,
+                           "flash_bwd_dkv_f32": 0}
     assert ops.plain_calls == {"flash_attention_fwd_ref": 1,
                                "flash_attention_bwd_ref": 0,
                                "flash_attention_decode_ref": 1,

@@ -64,15 +64,18 @@ def _port_bwd(q, k, v, o, lse, do, causal, window):
         *t, causal=causal, window=window)]
 
 
-# (q heads, kv heads), causal, window: g in {1, 2, 4}
+# (q heads, kv heads[, head dim, 16 if absent]), causal, window: g in
+# {1, 2, 4}; zamba2's shared block (hd 80, g 1), causal and under a window;
+# windows whose edge falls inside an 8-row block (5, 11)
 BWD_GRID = [((4, 4), True, None), ((4, 2), True, 5), ((4, 1), False, None),
-            ((4, 4), False, 5)]
+            ((4, 4), False, 5), ((2, 2, 80), True, None),
+            ((2, 2, 80), True, 11), ((4, 2, 16), False, 11)]
 
 
 @pytest.mark.parametrize("heads,causal,window", BWD_GRID)
 def test_bwd_ref_matches_pallas(heads, causal, window):
-    h, kv = heads
-    q, k, v, do = _inputs(11, 2, 16, h, kv, 16)
+    h, kv, hd = (*heads, 16)[:3]
+    q, k, v, do = _inputs(11, 2, 16, h, kv, hd)
     o, lse, want = _jax_bwd(q, k, v, do, causal, window, block=8)
     got = _port_bwd(q, k, v, o, lse, do, causal, window)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
