@@ -9,11 +9,17 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   2. build: compiles the CUDA kernels from src/repro_torch/kernels/csrc
      with nvcc for sm_90a into build/ (ptxas register / smem lines shown),
      and counts the HGMMA (wgmma) instructions in the SASS of every
-     instance of the two backward kernels: none is a failure;
+     instance of the bf16 forward kernel and of the two backward kernels
+     (one instance per hd): none is a failure;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, at the serving path's shapes (12 q heads over 2 KV heads,
      hd 128), at zamba2's (32 heads, g 1, hd 80) and at the reduced
      configs' hd 16;
+     The forward (FWD_CASES): the prefill chunk at offsets 0 to 1900
+     (past the cache end), the training shapes (the dense step's
+     microbatch and phase 5's row among them), ragged S = 1000 / 1089,
+     g 1 / 6 / 8, hd 16 / 64 / 80 / 128, windows, and two f32-query cases
+     (the f32 kernel); every case twice, bit for bit;
      The SSD chunk scan against the sequential recurrence (ref.ssd_ref)
      at the training shape (xh [2,1024,80,64], N 64, chunk 256, inputs
      drawn as the model draws them, so the clip at -60 is active), the
@@ -66,12 +72,14 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      backward recomputes, no plain call; then the reduced zamba2's loss
      and grads on the card against the CPU;
   5. times: each kernel's time (CUDA events, L2 flushed before every
-     launch), its bound, the plain version's time and SDPA's (forward or
+     launch, the stream held by a spin kernel so the interval is device
+     time; the forward also without the hold), its bound, the plain version's time and SDPA's (forward or
      backward under each backend pinned in turn, the fastest as the
      yardstick, all printed; for the paged
      kernel an index_select gather, then SDPA) as the library yardstick;
-     the backward kernels' TFLOP/s and share of their bound, and dk/dv at
-     every split of the group; the attention kernels also at hd 80
+     the forward's and the backward kernels' TFLOP/s and share of their
+     bound, the forward with P the other way, and dk/dv at every split of
+     the group; the attention kernels also at hd 80
      (zamba2's shared block); ssd_chunk_scan at the training shape, with the
      chunked PyTorch scan (kernels/ssd.ssd_scan) as its yardstick, as no
      single PyTorch call computes the scan;
@@ -158,21 +166,34 @@ def nvidia_smi_line() -> str:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
+# cycles of the spin kernel that holds the stream before each timed launch
+# (~0.5 ms on an H100): the host enqueues fn()'s kernels meanwhile, so the
+# event interval holds their device time and not the wrapper's host time
+# (~0.03-0.06 ms a call, which a short kernel would otherwise show)
+HOLD_CYCLES = 1_000_000
+
+
 class Timer:
     """Mean device time of fn() over n launches, with the 50 MB L2
     flushed before each launch (the serving path reads each layer's
-    cache cold)."""
+    cache cold) and, with ``hold``, the stream held by a spin kernel so
+    that the interval starts when fn()'s kernels are already queued.
+    Without it the interval also holds whatever host time fn() takes
+    beyond the flush (the enqueue-inclusive time)."""
 
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
 
-    def __call__(self, fn, n: int = 20, warm: int = 3) -> float:
+    def __call__(self, fn, n: int = 20, warm: int = 3,
+                 hold: bool = True) -> float:
         for _ in range(warm):
             fn()
         total = 0.0
         pairs = []
         for _ in range(n):
             self.flush.zero_()
+            if hold:
+                torch.cuda._sleep(HOLD_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -326,9 +347,14 @@ def sdpa_bwd_gap(q, k, v, do, want, tag):
 # phases
 # ---------------------------------------------------------------------------
 
+WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel")
+
+
 def hgmma_counts(lib_path) -> dict:
-    """HGMMA (wgmma) instructions in the SASS of each instance of the two
-    backward kernels, from cuobjdump beside nvcc."""
+    """HGMMA (wgmma) instructions in the SASS of each instance of the bf16
+    forward kernel and of the two backward kernels, from cuobjdump beside
+    nvcc."""
     from repro_torch.kernels import build
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib_path)],
@@ -337,8 +363,7 @@ def hgmma_counts(lib_path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            if "flash_bwd_dq_kernel" not in fn and \
-                    "flash_bwd_dkv_kernel" not in fn:
+            if not any(kern in fn for kern in WGMMA_KERNELS):
                 fn = None
             else:
                 counts[fn] = 0
@@ -353,6 +378,82 @@ def rel_err(out, ref):
     return float(d.max()), float((d / ref.float().abs().clamp(min=1.0)).max())
 
 
+# (b, sq, sk, h, kv, hd, q_off, causal, window, q dtype): the serving
+# path's prefill chunk at offsets from 0 to past the cache end (1900), the
+# training shapes, ragged S = 1000 / 1089 against the 64-row tiles, GQA
+# groups 1, 6 and 8, hd 16 / 64 / 80 / 128, windows starting inside a
+# tile, and f32 queries (the f32 kernel)
+FWD_CASES = [
+    (1, 256, 2048, 12, 2, 128, 0, True, None, "bf16"),
+    (1, 256, 2048, 12, 2, 128, 768, True, None, "bf16"),
+    (1, 256, 2048, 12, 2, 128, 1792, True, None, "bf16"),
+    (1, 256, 2048, 12, 2, 128, 1900, True, None, "bf16"),  # tail past the cache
+    (1, 512, 512, 12, 2, 128, 0, True, None, "bf16"),
+    (1, 512, 512, 12, 2, 128, 0, True, 128, "bf16"),
+    (2, 100, 300, 8, 2, 64, 37, True, 50, "bf16"),
+    (1, 40, 64, 4, 1, 16, 30, True, None, "bf16"),
+    (2, 33, 70, 4, 2, 16, 0, False, 9, "bf16"),
+    (2, 1024, 1024, 32, 32, 80, 0, True, None, "bf16"),   # zamba2, g 1, hd 80
+    (1, 256, 1024, 32, 32, 80, 768, True, None, "bf16"),
+    (1, 256, 2048, 12, 2, 128, 256, True, None, "bf16"),
+    (1, 256, 2048, 12, 2, 128, 1300, True, 512, "bf16"),
+    (1, 1000, 1000, 12, 2, 128, 0, True, None, "bf16"),   # ragged S
+    (1, 1089, 1089, 8, 1, 64, 0, True, None, "bf16"),     # ragged, g 8
+    (1, 1089, 1089, 16, 2, 128, 0, False, None, "bf16"),  # g 8, full
+    (1, 600, 600, 6, 1, 80, 0, True, 200, "bf16"),        # hd 80, window
+    (2, 70, 150, 12, 2, 80, 80, True, 33, "bf16"),
+    (1, 300, 300, 12, 2, 128, 0, True, None, "f32"),      # the f32 kernel
+    (2, 77, 150, 8, 2, 80, 40, True, 30, "f32"),
+    # the dense training step's microbatch (112 launches a step) and
+    # phase 5's training row
+    (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, TRAIN_SEQ, 12, 2, 128, 0, True,
+     None, "bf16"),
+    (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 12, 2, 128, 0, True, None, "bf16"),
+]
+
+
+def check_fwd(dev, tag, rnd):
+    """Phase 3's forward cases: each against the plain version, launched
+    twice and bit-equal.  Rows that see no key have no defined output
+    (ref.py) and are skipped."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rows = {"flash_fwd": [], "flash_fwd_f32": []}
+    for i, (b, sq, sk, h, kv, hd, off, causal, window, dt) in enumerate(
+            FWD_CASES):
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        q, k, v = (rnd((b, sq, h, hd), 3 * i, dtype),
+                   rnd((b, sk, kv, hd), 3 * i + 1),
+                   rnd((b, sk, kv, hd), 3 * i + 2))
+        offt = torch.tensor([off], dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, window=window)
+        o_r, lse_r = ref.flash_attention_fwd_ref(q, k, v, q_offset=off, **kw)
+        rows_ok = torch.as_tensor(
+            fwd_visible(sq, sk, off, causal, window)[0] > 0, device=dev)
+        o_r, lse_r = o_r[:, rows_ok], lse_r[:, :, rows_ok]
+        o, lse = fa.flash_attention_fwd(q, k, v, q_offset=offt, **kw)
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, q_offset=offt, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        o, lse = o[:, rows_ok], lse[:, :, rows_ok]
+        finite = bool(torch.isfinite(o).all())
+        e_o, r_o = rel_err(o, o_r)
+        e_l = float((lse - lse_r).abs().max())
+        ok = r_o <= O_TOL and e_l <= LSE_TOL and same and finite
+        print(f"check flash_fwd{'_f32' if dt == 'f32' else ''} b={b} sq={sq} "
+              f"sk={sk} h={h} kv={kv} hd={hd} q_offset={off} causal={causal} "
+              f"window={window}: max|dO|={e_o:.3g} rel={r_o:.3g} "
+              f"max|dlse|={e_l:.3g} bitwise-repeatable={same} "
+              f"{'ok' if ok else 'MISS'} {tag}")
+        if not ok:
+            fail(f"flash_fwd disagrees with its plain version or is not "
+                 f"deterministic (case {i})")
+        rows["flash_fwd_f32" if dt == "f32" else "flash_fwd"].append(dict(
+            case=i, max_abs_err=e_o, rel_err=r_o, lse_err=e_l))
+    return rows
+
+
 def check_kernels(dev, tag):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -362,42 +463,8 @@ def check_kernels(dev, tag):
         return torch.randn(shape, generator=g, device=dev,
                            dtype=torch.float32).to(dtype)
 
-    rows = {"flash_fwd": [], "flash_decode": [], "flash_bwd_dq": [],
-            "flash_bwd_dkv": []}
-    # (b, sq, sk, h, kv, hd, q_off, causal, window)
-    fwd_cases = [
-        (1, 256, 2048, 12, 2, 128, 0, True, None),
-        (1, 256, 2048, 12, 2, 128, 768, True, None),
-        (1, 256, 2048, 12, 2, 128, 1792, True, None),
-        (1, 256, 2048, 12, 2, 128, 1900, True, None),  # tail past the cache
-        (1, 512, 512, 12, 2, 128, 0, True, None),
-        (1, 512, 512, 12, 2, 128, 0, True, 128),
-        (2, 100, 300, 8, 2, 64, 37, True, 50),
-        (1, 40, 64, 4, 1, 16, 30, True, None),
-        (2, 33, 70, 4, 2, 16, 0, False, 9),
-        (2, 1024, 1024, 32, 32, 80, 0, True, None),   # zamba2, g 1, hd 80
-        (1, 256, 1024, 32, 32, 80, 768, True, None),
-    ]
-    for i, (b, sq, sk, h, kv, hd, off, causal, window) in enumerate(
-            fwd_cases):
-        q, k, v = (rnd((b, sq, h, hd), 3 * i), rnd((b, sk, kv, hd), 3 * i + 1),
-                   rnd((b, sk, kv, hd), 3 * i + 2))
-        offt = torch.tensor([off], dtype=torch.int32, device=dev)
-        kw = dict(causal=causal, window=window)
-        o, lse = fa.flash_attention_fwd(q, k, v, q_offset=offt, **kw)
-        o_r, lse_r = ref.flash_attention_fwd_ref(q, k, v, q_offset=off, **kw)
-        torch.cuda.synchronize()
-        e_o, r_o = rel_err(o, o_r)
-        e_l = float((lse - lse_r).abs().max())
-        ok = r_o <= O_TOL and e_l <= LSE_TOL and bool(torch.isfinite(o).all())
-        print(f"check flash_fwd b={b} sq={sq} sk={sk} h={h} kv={kv} hd={hd} "
-              f"q_offset={off} causal={causal} window={window}: "
-              f"max|dO|={e_o:.3g} rel={r_o:.3g} max|dlse|={e_l:.3g} "
-              f"{'ok' if ok else 'MISS'} {tag}")
-        if not ok:
-            fail(f"flash_fwd disagrees with its plain version (case {i})")
-        rows["flash_fwd"].append(dict(case=i, max_abs_err=e_o, rel_err=r_o,
-                                      lse_err=e_l))
+    rows = {"flash_decode": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+    rows.update(check_fwd(dev, tag, rnd))
 
     # (b, s, h, kv, hd, window)
     dec_cases = [(16, 2048, 12, 2, 128, None), (16, 2048, 12, 2, 128, 256),
@@ -691,13 +758,19 @@ def time_kernels(dev, tag, timer):
                 else torch.tensor([off], dtype=torch.int32, device=dev))
         by, fl = fwd_work(b, sq, sk, h, kv, hd, off or 0, True, None)
         bms, bby = bound(by, fl)
+        ms = timer(lambda: fa.flash_attention_fwd(q, k, v, q_offset=offt))
         rec = dict(
             shape=f"q[{b},{sq},{h},{hd}] kv[{b},{sk},{kv},{hd}] "
                   f"q_offset={off}",
-            ms=timer(lambda: fa.flash_attention_fwd(q, k, v, q_offset=offt)),
+            ms=ms,
+            enqueue_ms=timer(lambda: fa.flash_attention_fwd(
+                q, k, v, q_offset=offt), hold=False),
             plain_ms=timer(lambda: ref.flash_attention_fwd_ref(
                 q, k, v, q_offset=off)),
-            bound_ms=bms, bound_by=bby, bytes=by, flops=fl)
+            bound_ms=bms, bound_by=bby, bytes=by, flops=fl,
+            tflops=fl / ms * 1e-9, bound_share=bms / ms)
+        print(f"time flash_fwd q[{b},{sq},{h},{hd}] q_offset={off}: "
+              f"enqueue-inclusive (no hold) {rec['enqueue_ms']:.4f} ms")
         try:
             rec["library_ms"] = timer(sdpa_fwd(q, k, v, off or 0, True, None,
                                                hd ** -0.5))
@@ -962,6 +1035,8 @@ def serve_full_width(dev, tag, profile=False):
              f"expected {L} x {srv.decode_dispatches}")
     if launches["flash_paged_decode"]:
         fail("the linear tier launched the paged decode kernel")
+    if launches["flash_fwd_f32"]:
+        fail("the bf16 model launched the f32-query forward kernel")
     if any(plain.values()):
         fail(f"a plain version ran on the main path: {plain}")
     if srv.nonfinite:
@@ -1090,7 +1165,7 @@ def serve_paged(base, lin_decode, dev, tag):
         want = {"flash_paged_decode": L * (calls["decode_step"]
                                            + calls["rescore"]),
                 "flash_fwd": L * calls["parallel_prefill"],
-                "flash_decode": 0}
+                "flash_fwd_f32": 0, "flash_decode": 0}
         print(f"paged {name}: {scfg.slots} slots, {srv.n_blocks} blocks of "
               f"{scfg.block_len}, spec_k {scfg.spec_k}, prefix cache "
               f"{scfg.prefix_cache}: {rec['requests']} requests, "
@@ -1353,7 +1428,8 @@ def train_full_width(dev, tag):
     peak = torch.cuda.max_memory_allocated(dev)
 
     L, n = cfg.n_layers, TRAIN_STEPS
-    want = {"flash_fwd": 2 * L * TRAIN_MICRO * n, "flash_decode": 0,
+    want = {"flash_fwd": 2 * L * TRAIN_MICRO * n, "flash_fwd_f32": 0,
+            "flash_decode": 0,
             "flash_paged_decode": 0, "flash_bwd_dq": L * TRAIN_MICRO * n,
             "flash_bwd_dkv": L * TRAIN_MICRO * n, "flash_bwd_dq_f32": 0,
             "flash_bwd_dkv_f32": 0}
@@ -1407,7 +1483,8 @@ def train_hybrid_full_width(dev, tag):
 
     L, n, m = cfg.n_layers, HYBRID_STEPS, TRAIN_MICRO
     apps = L // cfg.attn_every
-    want = {"flash_fwd": 2 * apps * m * n, "flash_decode": 0,
+    want = {"flash_fwd": 2 * apps * m * n, "flash_fwd_f32": 0,
+            "flash_decode": 0,
             "flash_paged_decode": 0, "flash_bwd_dq": apps * m * n,
             "flash_bwd_dkv": apps * m * n, "flash_bwd_dq_f32": 0,
             "flash_bwd_dkv_f32": 0, "ssd_chunk_scan": 2 * L * m * n}
@@ -1592,10 +1669,13 @@ def main() -> int:
     hgmma = hgmma_counts(lib)
     for fn, n in sorted(hgmma.items()):
         print(f"  HGMMA {n:3d} {fn}")
-    for kern in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+    # one instance per head dim
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    for kern in WGMMA_KERNELS:
         found = [n for fn, n in hgmma.items() if kern in fn]
-        if not found or min(found) == 0:
-            fail(f"{kern}: an instance without HGMMA in its SASS ({found})")
+        if len(found) != len(HEAD_DIMS) or min(found) == 0:
+            fail(f"{kern}: {len(found)} instances, want {len(HEAD_DIMS)}, "
+                 f"each with HGMMA in its SASS ({found})")
 
     # 3. kernel vs plain
     timer = Timer(dev)

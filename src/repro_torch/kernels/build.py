@@ -115,10 +115,11 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp, i32,
-                                    i32, i32, i32, i32, i32, i32,
-                                    i32, i32, f32, i32, vp]
-    lib.repro_flash_fwd.restype = i32
+    # pointers (q k v o lse q_off), then q_off_value B Sq Sk H KV hd causal
+    # window, scale, stream; the same for the f32-query kernel
+    for fn in (lib.repro_flash_fwd, lib.repro_flash_fwd_f32):
+        fn.argtypes = [vp] * 6 + [i32] * 9 + [f32, vp]
+        fn.restype = i32
     # pointers (q k v o dO lse delta dq), then B Sq Sk H KV hd causal
     # window, scale, stream; the same for the f32-query kernel
     for fn in (lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dq_f32):

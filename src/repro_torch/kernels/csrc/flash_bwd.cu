@@ -23,7 +23,8 @@
 // cp.async (rows past the array zero-filled), the streamed operand
 // double-buffered so the loads of step i + 1 overlap the products of step
 // i.  P and dS, f32 in registers, enter their products as two bf16
-// operands, hi = bf16(x) and lo = bf16(x - hi): rounding them to one bf16
+// operands, hi = bf16(x) and lo = bf16(x - hi) (to_operands,
+// flash_tiles.cuh, shared with flash_fwd.cu): rounding them to one bf16
 // moved dv by up to two bf16 ulps from the plain version, past its 1e-2
 // band; the split costs two more register-operand products a step and
 // keeps ~16 bits of P and dS.
@@ -55,25 +56,16 @@
 // window edge or the end of the arrays evaluate the mask, per element of
 // the accumulator fragment.  Rows and keys outside the arrays are zeroed
 // when staged (the TPU's _clean), and so are their lse and delta.
-#include "flash_common.cuh"
-#include "wgmma.cuh"
+#include "flash_tiles.cuh"
 
 namespace repro {
 
-constexpr int BT = 64;           // rows of a tile: q rows or keys
-constexpr int BWD_THREADS = 128;  // one warpgroup
-constexpr float LOG2E = 1.4426950408889634f;
-static_assert(BT == BK, "the backward's key tile is one K/V tile");
+constexpr int BWD_THREADS = WG_THREADS;
 static_assert(BWD_THREADS == 2 * BT, "one thread per staged lse/delta row");
 
 template <int HD>
 constexpr int bwd_smem_bytes() {
   return 6 * BT * HD * 2 + 4 * BT * 4;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -143,24 +135,6 @@ __device__ __forceinline__ void tile_product(
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
     wg::ss_n64(acc, desc_kmajor<HD>(a, kk), desc_kmajor<HD>(b, kk), kk > 0);
-}
-
-// X [64 x 64], an accumulator fragment, as two bf16 register A operands
-// hi = bf16(X), lo = bf16(X - hi), each for the four k-steps of a product
-// over X's 64 columns
-__device__ __forceinline__ void to_operands(const float (&x)[32],
-                                            uint32_t (&hi)[4][4],
-                                            uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float a = x[8 * kk + 2 * r], b = x[8 * kk + 2 * r + 1];
-      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-      const float2 hf = __bfloat1622float2(h);
-      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
-      lo[kk][r] = pack_bf16(a - hf.x, b - hf.y);
-    }
 }
 
 // acc += X B for X given by to_operands and B a staged tile read MN-major

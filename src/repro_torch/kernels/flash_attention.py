@@ -1,6 +1,6 @@
 """ctypes wrappers of the CUDA attention kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, ``csrc/flash_bwd_f32.cu``, ``csrc/flash_decode.cu``,
-``csrc/flash_paged_decode.cu``).
+``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_bwd_f32.cu``,
+``csrc/flash_decode.cu``, ``csrc/flash_paged_decode.cu``).
 
 Each wrapper checks what the kernel takes (device, dtype, shape,
 contiguity, alignment, head dim) and raises on anything else, allocates
@@ -20,12 +20,12 @@ from .ref import check_gqa
 HEAD_DIMS = (16, 64, 80, 128)
 MAX_GROUP = 16            # decode: query heads per KV head (8 warps x 2)
 MAX_TABLE = 32768         # paged decode: table entries per row (128 KB)
-TILE = 64                 # backward: q rows / keys per tile (flash_bwd.cu)
+TILE = 64                 # q rows / keys per tile (flash_fwd.cu, flash_bwd.cu)
 
 # launches per kernel since the last reset_launches(); a plain integer
 # each, read by chip_smoke.py to show the main path ran the kernels
-launches: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0,
-                             "flash_paged_decode": 0,
+launches: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_f32": 0,
+                             "flash_decode": 0, "flash_paged_decode": 0,
                              "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                              "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
 
@@ -113,7 +113,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     """q [B,Sq,H,hd] bf16|f32; k/v [B,Sk,KV,hd] bf16 -> (o like q,
     lse [B,H,Sq] f32).  ``q_offset``: None, an int (passed by value), or
     a 1-element int32 tensor on q's device (read by the kernel, so the
-    caller never syncs)."""
+    caller never syncs).  bf16 queries take the wgmma kernel
+    (``flash_fwd``), f32 ones the f32 kernel (``flash_fwd_f32``)."""
     from .build import load_library
 
     _check_cuda(q)
@@ -126,14 +127,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     if q.numel() == 0:
         return o, lse
     lib = load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.repro_flash_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse),
-        None if off is None else _ptr(off), off_value, b, sq, sk, h, kv, hd, int(causal), _window_arg(window),
-        float(scale), int(q.dtype == torch.float32),
-        ctypes.c_void_p(stream))
-    _raise_on(code, lib, "flash_fwd")
-    launches["flash_fwd"] += 1
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    args = [_ptr(t) for t in (q, k, v, o, lse)] + [
+        None if off is None else _ptr(off), off_value, b, sq, sk, h, kv, hd,
+        int(causal), _window_arg(window), float(scale)]
+    name = "flash_fwd_f32" if q.dtype == torch.float32 else "flash_fwd"
+    code = getattr(lib, "repro_" + name)(*args, stream)
+    _raise_on(code, lib, name)
+    launches[name] += 1
     return o, lse
 
 

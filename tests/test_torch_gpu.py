@@ -44,27 +44,78 @@ def _tree_to(tree, dev):
             for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("q_offset,window,hd", [
-    (0, None, 128), (768, None, 128), (1900, None, 128), (0, 128, 128),
-    (30, None, 16), (5, 9, 64)])
-def test_fwd_kernel_matches_plain(cuda, q_offset, window, hd):
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,q_offset,window", [
+    (1, 256, 2048, 12, 2, 128, 0, None), (1, 256, 2048, 12, 2, 128, 768, None),
+    (1, 256, 2048, 12, 2, 128, 1900, None), (1, 512, 512, 12, 2, 128, 0, 128),
+    (1, 40, 64, 4, 1, 16, 30, None), (1, 64, 64, 4, 1, 64, 5, 9),
+    # the prefill chunk at more offsets, ragged S against the 64-row
+    # tiles, g 8 at hd 64, hd 80 with a window
+    (1, 256, 2048, 12, 2, 128, 256, None),
+    (1, 256, 2048, 12, 2, 128, 1536, None),
+    (1, 1000, 1000, 12, 2, 128, 0, None), (1, 1089, 1089, 8, 1, 64, 0, None),
+    (1, 600, 600, 6, 1, 80, 0, 200)])
+def test_fwd_kernel_matches_plain(cuda, b, sq, sk, h, kv, hd, q_offset,
+                                  window):
     g = torch.Generator(device=cuda).manual_seed(q_offset + hd)
-    sq, sk, h, kv = (256, 2048, 12, 2) if hd == 128 else (40, 64, 4, 1)
-    if window:
-        sq = sk = 512 if hd == 128 else 64
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=cuda).bfloat16()
 
-    q, k, v = rnd(1, sq, h, hd), rnd(1, sk, kv, hd), rnd(1, sk, kv, hd)
+    q, k, v = rnd(b, sq, h, hd), rnd(b, sk, kv, hd), rnd(b, sk, kv, hd)
     off = torch.tensor([q_offset], dtype=torch.int32, device=cuda)
-    before = fa.launches["flash_fwd"]
+    before = dict(fa.launches)
     o, lse = ops.flash_attention_fwd(q, k, v, window=window, q_offset=off)
-    assert fa.launches["flash_fwd"] == before + 1
+    assert fa.launches["flash_fwd"] == before["flash_fwd"] + 1
+    assert fa.launches["flash_fwd_f32"] == before["flash_fwd_f32"]
     o_r, lse_r = ref.flash_attention_fwd_ref(q, k, v, window=window,
                                              q_offset=q_offset)
     assert _rel_err(o, o_r) <= 1e-2
     assert float((lse - lse_r).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,q_offset,causal,window", [
+    (1, 256, 2048, 12, 2, 128, 768, True, None),
+    (2, 1089, 1089, 8, 1, 64, 0, True, None),
+    (1, 300, 700, 6, 6, 80, 333, False, 200),
+    (2, 70, 150, 4, 2, 16, 80, True, 33)])
+def test_fwd_kernel_is_deterministic(cuda, b, sq, sk, h, kv, hd, q_offset,
+                                     causal, window):
+    """Two launches on the same inputs give the same bits, within the
+    plain version's band."""
+    g = torch.Generator(device=cuda).manual_seed(sq + hd)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).bfloat16()
+
+    q, k, v = rnd(b, sq, h, hd), rnd(b, sk, kv, hd), rnd(b, sk, kv, hd)
+    off = torch.tensor([q_offset], dtype=torch.int32, device=cuda)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    o_r, lse_r = ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                             window=window, q_offset=q_offset)
+    one = fa.flash_attention_fwd(q, k, v, **kw)
+    two = fa.flash_attention_fwd(q, k, v, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+    assert _rel_err(one[0], o_r) <= 1e-2
+    assert float((one[1] - lse_r).abs().max()) <= 1e-3
+
+
+def test_fwd_f32_queries_take_the_f32_kernel(cuda):
+    """f32 queries go to the f32 kernel (its own counter), within the same
+    band of the plain version, at no offset and at a device offset."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+    q = torch.randn(1, 300, 12, 128, generator=g, device=cuda)
+    k, v = (torch.randn(1, 600, 2, 128, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    for off in (None, 300):
+        offt = None if off is None else torch.tensor([off], dtype=torch.int32,
+                                                     device=cuda)
+        before = dict(fa.launches)
+        o, lse = ops.flash_attention_fwd(q, k, v, q_offset=offt)
+        assert fa.launches["flash_fwd_f32"] == before["flash_fwd_f32"] + 1
+        assert fa.launches["flash_fwd"] == before["flash_fwd"]
+        o_r, lse_r = ref.flash_attention_fwd_ref(q, k, v, q_offset=off)
+        assert o.dtype == torch.float32 and _rel_err(o, o_r) <= 1e-2
+        assert float((lse - lse_r).abs().max()) <= 1e-3
 
 
 @pytest.mark.parametrize("window,hd", [(None, 128), (256, 128), (7, 16)])
@@ -261,6 +312,7 @@ def test_train_steps_on_card_use_only_the_kernels(cuda):
         losses.append(float(m["loss"]))
     L = cfg.n_layers
     assert fa.launches["flash_fwd"] == 4 * 2 * 2 * L
+    assert fa.launches["flash_fwd_f32"] == 0
     assert fa.launches["flash_bwd_dq"] == fa.launches["flash_bwd_dkv"] \
         == 4 * 2 * L
     assert not any(ops.plain_calls.values())
@@ -319,6 +371,7 @@ def test_server_on_card_uses_only_the_kernels(cuda):
     res = srv.run()
     assert all(len(res[r]) == 4 for r in rids)
     assert fa.launches["flash_fwd"] == cfg.n_layers * srv.prefill_dispatches
+    assert fa.launches["flash_fwd_f32"] == 0
     assert fa.launches["flash_decode"] == (cfg.n_layers
                                            * srv.decode_dispatches)
     assert not any(ops.plain_calls.values())
@@ -469,6 +522,7 @@ def test_hybrid_train_steps_on_card_use_only_the_kernels(cuda):
     assert ssd.launches["ssd_chunk_scan"] == 4 * 2 * 2 * L
     assert ops.bwd_recomputes["ssd_chunk_scan"] == 4 * 2 * L
     assert fa.launches["flash_fwd"] == 4 * 2 * 2 * apps
+    assert fa.launches["flash_fwd_f32"] == 0
     assert fa.launches["flash_bwd_dq"] == fa.launches["flash_bwd_dkv"] \
         == 4 * 2 * apps
     assert not any(ops.plain_calls.values())

@@ -78,6 +78,31 @@ def test_fwd_ref_matches_pallas(heads, causal, window, q_offset):
                                atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("hd,q_offset,window,causal", [
+    (80, 0, None, True), (80, 80, 33, True), (128, 0, 33, True),
+    (128, 80, None, True), (128, 80, 33, False), (80, 0, None, False)])
+def test_fwd_ref_matches_pallas_at_the_kernel_tiles(hd, q_offset, window,
+                                                    causal):
+    """The CUDA forward's shapes: 64-row q tiles and 64-key tiles (Pallas
+    blocks of 64) cut sq 70 against sk 150 raggedly, 12 q heads on 2 KV
+    heads (g 6), hd 80 and 128, an offset, a window that starts inside a
+    tile."""
+    b, sq, sk, h, kv = 1, 70, 150, 12, 2
+    q, k, v = _inputs(hd + q_offset, b, sq, sk, h, kv, hd)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o_j, lse_j = flash_attention_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=64,
+        block_k=64, interpret=True, **kw)
+    o_t, lse_t = ref.flash_attention_fwd_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **kw)
+    rows = _visible_rows(sq, sk, q_offset, causal, window)
+    assert rows.all()
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=TOL,
+                               rtol=TOL)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_fwd_ref_without_offset_matches_pallas(causal):
     """q_offset=None: repro's row-1 pallas_call (_fwd_kernel)."""
@@ -188,10 +213,10 @@ def test_cpu_tensors_take_the_plain_path():
     q, k, v = (torch.from_numpy(a) for a in _inputs(2, 2, 5, 8, 4, 2, 16))
     ops.flash_attention_fwd(q, k, v, q_offset=3)
     attend_cache(q[:, 0], k, v, torch.tensor([3, 8], dtype=torch.int32))
-    assert fa.launches == {"flash_fwd": 0, "flash_decode": 0,
-                           "flash_paged_decode": 0, "flash_bwd_dq": 0,
-                           "flash_bwd_dkv": 0, "flash_bwd_dq_f32": 0,
-                           "flash_bwd_dkv_f32": 0}
+    assert fa.launches == {"flash_fwd": 0, "flash_fwd_f32": 0,
+                           "flash_decode": 0, "flash_paged_decode": 0,
+                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                           "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
     assert ops.plain_calls == {"flash_attention_fwd_ref": 1,
                                "flash_attention_bwd_ref": 0,
                                "flash_attention_decode_ref": 1,
