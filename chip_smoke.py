@@ -34,11 +34,18 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      case twice, bit for bit, and dk/dv at every split of the group; SDPA's
      backward (each pinned backend) against the same plain version on the
      training shape's inputs, for comparison;
+     The decode kernel (DEC_CASES): the serving step (16 slots x 2048),
+     windows, hd 16 / 64 / 80 / 128, lengths at the edges of the splits,
+     a window straddling two splits, g 16, an S that no split divides,
+     f32 queries; every case at the default split and at each split phase
+     5 times (DEC_SPLITS), twice, bit for bit; 16 rows alone and among 64
+     (a draft step, a verify re-score) bit for bit, on both kernels;
      The paged decode kernel at the serving shape (16 slots, ~1000 tokens
      each, shuffled blocks, one block shared by two rows), the re-score's
-     64-row grid, hd 16, a 48-token block, ragged and empty rows: within
-     O_TOL of its plain version, bit-equal to flash_decode on the view the
-     table spells, and unmoved by 1e9 / NaN poison in unowned blocks;
+     64-row grid, hd 16, 48-token blocks (rows running into the second
+     split and past it), ragged and empty rows: within O_TOL of its plain
+     version, bit-equal to flash_decode on the view the table spells at
+     every split, and unmoved by 1e9 / NaN poison in unowned blocks;
   4. serve: qwen2-1.5b at full width (28 layers, d 1536, vocab 151936,
      bf16, random weights from torch.Generator(0)), 16 slots x 2048,
      prefill chunk 256, 32 requests of 256-1536 prompt tokens, 32 greedy
@@ -73,16 +80,17 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      and grads on the card against the CPU;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch, the stream held by a spin kernel so the interval is device
-     time; the forward also without the hold), its bound, the plain version's time and SDPA's (forward or
-     backward under each backend pinned in turn, the fastest as the
-     yardstick, all printed; for the paged
-     kernel an index_select gather, then SDPA) as the library yardstick;
-     the forward's and the backward kernels' TFLOP/s and share of their
-     bound, the forward with P the other way, and dk/dv at every split of
-     the group; the attention kernels also at hd 80
-     (zamba2's shared block); ssd_chunk_scan at the training shape, with the
-     chunked PyTorch scan (kernels/ssd.ssd_scan) as its yardstick, as no
-     single PyTorch call computes the scan;
+     time; the forward and both decode kernels also without the hold,
+     enqueue-inclusive), its bound, the plain version's time and SDPA's
+     (forward or backward under each backend pinned in turn, the fastest
+     as the yardstick, all printed; for the paged kernel an index_select
+     gather, then SDPA) as the library yardstick; the forward's and the
+     backward kernels' TFLOP/s and share of their bound, dk/dv at every
+     split of the group, both decode kernels at each of DEC_SPLITS; the
+     attention kernels also at hd 80 (zamba2's shared block);
+     ssd_chunk_scan at the training shape, with the chunked PyTorch scan
+     (kernels/ssd.ssd_scan) as its yardstick, as no single PyTorch call
+     computes the scan;
   6. the kernels line and the contract's last line.
 With --profile, also torch.profiler over one admission and 8 decode
 steps on each tier, and 2 full-width training steps of each model.
@@ -454,6 +462,102 @@ def check_fwd(dev, tag, rnd):
     return rows
 
 
+# (b, s, h, kv, hd, window, lengths or None (drawn), q dtype): the serving
+# decode step (16 slots x 2048), a window, the reduced configs' hd 16, g 1
+# at hd 64 and 80; then lengths at the edges of the splits phase 5 times
+# (64 to 512: 128, 129, 1, 256, 257, ...), a window of 200 that starts
+# inside a split and spans two, g 16 (MAX_GROUP), an S that is not a
+# multiple of any split, and f32 queries
+DEC_SPLIT_EDGES = [128, 129, 1, 256, 257, 2048, 64, 65, 192, 1000, 1, 2047,
+                   384, 511, 512, 513]
+DEC_CASES = [(16, 2048, 12, 2, 128, None, None, "bf16"),
+             (16, 2048, 12, 2, 128, 256, None, "bf16"),
+             (4, 64, 4, 2, 16, None, None, "bf16"),
+             (4, 64, 4, 1, 16, 7, None, "bf16"),
+             (3, 200, 8, 8, 64, None, None, "bf16"),
+             (4, 1024, 32, 32, 80, None, None, "bf16"),
+             (16, 2048, 12, 2, 128, None, DEC_SPLIT_EDGES, "bf16"),
+             (16, 2048, 12, 2, 128, 200,
+              [300, 129, 1, 256, 2048, 500, 201, 199, 640, 1000, 1, 2047,
+               384, 511, 512, 513], "bf16"),
+             (4, 512, 16, 1, 64, None, [512, 1, 129, 300], "bf16"),
+             (5, 1000, 12, 2, 128, None, [1000, 999, 1, 513, 640], "bf16"),
+             (16, 2048, 12, 2, 128, None, None, "f32"),
+             (3, 200, 8, 8, 64, 37, None, "f32")]
+# the decode kernels' key positions per block that phase 5 times; phase
+# 3 runs every decode case at each, twice
+DEC_SPLITS = (64, 128, 256, 512)
+
+
+def check_decode(dev, tag, rnd, i, b, s, h, kv, hd, window, lengths, dt):
+    """One decode case against the plain version (O_TOL), at the default
+    split and at each of DEC_SPLITS, launched twice and bit-equal."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    q = rnd((b, h, hd), 100 + 3 * i, dtype)
+    kc, vc = rnd((b, s, kv, hd), 101 + 3 * i), rnd((b, s, kv, hd),
+                                                  102 + 3 * i)
+    if lengths is None:
+        ln = np.random.default_rng(i).integers(1, s + 1, size=b)
+        ln[0], ln[-1] = 1, s
+    else:
+        ln = np.asarray(lengths)
+    lengths = torch.tensor(ln, dtype=torch.int32, device=dev)
+    o_r = ref.flash_attention_decode_ref(q, kc, vc, lengths, window=window)
+    worst, same = (0.0, 0.0), True
+    for split in (None,) + DEC_SPLITS:
+        o = fa.flash_attention_decode(q, kc, vc, lengths, window=window,
+                                      split=split)
+        o2 = fa.flash_attention_decode(q, kc, vc, lengths, window=window,
+                                       split=split)
+        torch.cuda.synchronize()
+        same = same and torch.equal(o, o2) and bool(torch.isfinite(o).all())
+        worst = max(worst, rel_err(o, o_r), key=lambda x: x[1])
+    e_o, r_o = worst
+    ok = r_o <= O_TOL and same
+    print(f"check flash_decode{'' if dt == 'bf16' else ' (f32 q)'} b={b} "
+          f"s={s} h={h} kv={kv} hd={hd} window={window} lengths in "
+          f"[{ln.min()},{ln.max()}], splits default+{DEC_SPLITS}: "
+          f"max|dO|={e_o:.3g} rel={r_o:.3g} bitwise-repeatable={same} "
+          f"{'ok' if ok else 'MISS'} {tag}")
+    if not ok:
+        fail(f"flash_decode disagrees with its plain version or is not "
+             f"deterministic (case {i})")
+    return dict(case=i, max_abs_err=e_o, rel_err=r_o)
+
+
+def check_decode_batch(dev, tag, rnd):
+    """A row's bits do not depend on its batch: 16 slots alone (a draft
+    step) and among 64 rows (a verify re-score), on both decode kernels
+    (the split follows the position count alone)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, kv, hd = 64, 2048, 12, 2, 128
+    q, kc, vc = (rnd((b, h, hd), 200), rnd((b, s, kv, hd), 201),
+                 rnd((b, s, kv, hd), 202))
+    ln = torch.tensor(np.random.default_rng(9).integers(1, s + 1, size=b),
+                      dtype=torch.int32, device=dev)
+    table = torch.arange(1, b * 128 + 1, dtype=torch.int32,
+                         device=dev).reshape(b, 128)
+    kp, vp = (torch.cat([torch.zeros_like(c[:1, :16]),     # null block 0
+                         c.reshape(b * 128, 16, kv, hd)]) for c in (kc, vc))
+    full = fa.flash_attention_decode(q, kc, vc, ln)
+    same = [torch.equal(full[:16], fa.flash_attention_decode(
+                q[:16].contiguous(), kc[:16].contiguous(),
+                vc[:16].contiguous(), ln[:16])),
+            torch.equal(full, fa.flash_attention_paged_decode(
+                q, kp, vp, table, ln)),
+            torch.equal(full[:16], fa.flash_attention_paged_decode(
+                q[:16].contiguous(), kp, vp, table[:16].contiguous(),
+                ln[:16]))]
+    print(f"check decode batch: 16 of 64 rows alone bit-equal (linear, "
+          f"paged = linear, paged alone) {same} {tag}")
+    if not all(same):
+        fail("a decode row's bits depend on its batch")
+
+
 def check_kernels(dev, tag):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -466,31 +570,9 @@ def check_kernels(dev, tag):
     rows = {"flash_decode": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
     rows.update(check_fwd(dev, tag, rnd))
 
-    # (b, s, h, kv, hd, window)
-    dec_cases = [(16, 2048, 12, 2, 128, None), (16, 2048, 12, 2, 128, 256),
-                 (4, 64, 4, 2, 16, None), (4, 64, 4, 1, 16, 7),
-                 (3, 200, 8, 8, 64, None), (4, 1024, 32, 32, 80, None)]
-    for i, (b, s, h, kv, hd, window) in enumerate(dec_cases):
-        q = rnd((b, h, hd), 100 + 3 * i)
-        kc, vc = rnd((b, s, kv, hd), 101 + 3 * i), rnd((b, s, kv, hd),
-                                                      102 + 3 * i)
-        ln = np.random.default_rng(i).integers(1, s + 1, size=b)
-        ln[0], ln[-1] = 1, s
-        lengths = torch.tensor(ln, dtype=torch.int32, device=dev)
-        o = fa.flash_attention_decode(q, kc, vc, lengths, window=window)
-        o_r = ref.flash_attention_decode_ref(q, kc, vc, lengths,
-                                             window=window)
-        torch.cuda.synchronize()
-        e_o, r_o = rel_err(o, o_r)
-        ok = r_o <= O_TOL and bool(torch.isfinite(o).all())
-        print(f"check flash_decode b={b} s={s} h={h} kv={kv} hd={hd} "
-              f"window={window} lengths in [{ln.min()},{ln.max()}]: "
-              f"max|dO|={e_o:.3g} rel={r_o:.3g} {'ok' if ok else 'MISS'} "
-              f"{tag}")
-        if not ok:
-            fail(f"flash_decode disagrees with its plain version (case {i})")
-        rows["flash_decode"].append(dict(case=i, max_abs_err=e_o,
-                                         rel_err=r_o))
+    for i, case in enumerate(DEC_CASES):
+        rows["flash_decode"].append(check_decode(dev, tag, rnd, i, *case))
+    check_decode_batch(dev, tag, rnd)
 
     rows["flash_paged_decode"] = check_paged(dev, tag)
 
@@ -664,7 +746,8 @@ def paged_case(dev, b, h, kv, hd, bl, mb, lengths, seed):
 
 def check_paged(dev, tag):
     """flash_paged_decode against its plain version (O_TOL), bit-equal to
-    flash_decode on the view the table spells, and blind to poison (1e9,
+    flash_decode on the view the table spells (at the default split and
+    at each of DEC_SPLITS, twice), and blind to poison (1e9,
     then NaN) in every block no row reads (block 0 included) and in the
     dead rows of each row's last block."""
     from repro_torch.kernels import flash_attention as fa
@@ -677,12 +760,16 @@ def check_paged(dev, tag):
     # ~1000 tokens each, max_len 2048 in 16-token blocks); the verify
     # re-score's grid (16 x 4 rows); the reduced config (hd 16); a block
     # length that is not a divisor of the 64-row tile
+    # a block length that is not a divisor of the 64-row tile; rows whose
+    # live part runs into the second split and past it, 48-row blocks
+    # straddling the splits (2064 positions: the default split is 64)
     cases = [(16, 12, 2, 128, 16, 128, serving.tolist()),
              (64, 12, 2, 128, 16, 128,
               np.repeat(serving, 4).clip(1).tolist()),
              (4, 4, 1, 16, 8, 8, [37, 16, 0, 64]),
              (3, 12, 2, 128, 48, 6, [200, 97, 288]),
-             (3, 32, 32, 80, 16, 8, [5, 128, 77])]
+             (3, 32, 32, 80, 16, 8, [5, 128, 77]),
+             (4, 12, 2, 128, 48, 43, [129, 65, 0, 2064])]
     out = []
     for i, (b, h, kv, hd, bl, mb, lengths) in enumerate(cases):
         q, kp, vp, table, ln, live = paged_case(dev, b, h, kv, hd, bl, mb,
@@ -692,6 +779,16 @@ def check_paged(dev, tag):
         view = [p[table.long()].reshape(b, mb * bl, kv, hd)
                 for p in (kp, vp)]
         o_d = fa.flash_attention_decode(q, *view, ln)
+        # at every split phase 5 times: twice the same bits, and those of
+        # flash_decode on the view
+        splits_ok = all(
+            torch.equal(fa.flash_attention_paged_decode(
+                q, kp, vp, table, ln, split=sp), x)
+            and torch.equal(x, fa.flash_attention_decode(q, *view, ln,
+                                                         split=sp))
+            for sp in DEC_SPLITS
+            for x in [fa.flash_attention_paged_decode(q, kp, vp, table, ln,
+                                                      split=sp)])
         dk, dv = kp.clone(), vp.clone()
         tbl = table.cpu().numpy()
         uses = np.bincount(tbl.ravel(), minlength=kp.shape[0])
@@ -715,14 +812,15 @@ def check_paged(dev, tag):
         d_view = float((o.float() - o_d.float()).abs().max())
         zero_rows = [r for r, n in enumerate(lengths) if n == 0]
         ok = (r_o <= O_TOL and bool(torch.isfinite(o).all())
-              and torch.equal(o, o_d)
+              and torch.equal(o, o_d) and splits_ok
               and all(torch.equal(o, x) for x in poisoned)
               and all(float(o[r].float().abs().max()) == 0.0
                       for r in zero_rows))
         print(f"check flash_paged_decode b={b} h={h} kv={kv} hd={hd} bl={bl} "
               f"mb={mb} lengths in [{min(lengths)},{max(lengths)}]: "
               f"max|dO|={e_o:.3g} rel={r_o:.3g}, vs flash_decode on the "
-              f"gathered view max|d|={d_view:.3g}, poison 1e9/NaN "
+              f"gathered view max|d|={d_view:.3g}, at splits {DEC_SPLITS} "
+              f"bit-equal to it and repeatable {splits_ok}, poison 1e9/NaN "
               f"{[torch.equal(o, x) for x in poisoned]} "
               f"{'ok' if ok else 'MISS'} {tag}")
         if not ok:
@@ -749,7 +847,6 @@ def time_kernels(dev, tag, timer):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     h, kv, hd = 12, 2, 128
-    scale = hd ** -0.5
 
     def fwd_record(b, sq, sk, off, h=h, kv=kv, hd=hd):
         q, k, v = (rnd((b, sq, h, hd)), rnd((b, sk, kv, hd)),
@@ -785,28 +882,7 @@ def time_kernels(dev, tag, timer):
            "flash_fwd (row 1, hd 80, zamba2 microbatch)": fwd_record(
                TRAIN_MICRO, TRAIN_SEQ, TRAIN_SEQ, None, 32, 32, 80)}
 
-    b, s = 16, 2048
-    q, kc, vc = rnd((b, h, hd)), rnd((b, s, kv, hd)), rnd((b, s, kv, hd))
-    ln = np.random.default_rng(0).integers(1, s + 1, size=b)
-    ln[0], ln[-1] = 1, s
-    lengths = torch.tensor(ln, dtype=torch.int32, device=dev)
-    by, fl = decode_work(ln, h, kv, hd, None)
-    bms, bby = bound(by, fl)
-    rec = dict(
-        shape=f"q[{b},{h},{hd}] cache[{b},{s},{kv},{hd}] "
-              f"sum(lengths)={int(ln.sum())}",
-        ms=timer(lambda: fa.flash_attention_decode(q, kc, vc, lengths)),
-        plain_ms=timer(lambda: ref.flash_attention_decode_ref(
-            q, kc, vc, lengths)),
-        bound_ms=bms, bound_by=bby, bytes=by, flops=fl)
-    try:
-        rec["library_ms"] = timer(sdpa_decode(q, kc, vc, lengths, None,
-                                              scale))
-    except (TypeError, RuntimeError) as e:
-        print(f"SDPA yardstick unavailable: {e}")
-        rec["library_ms"] = None
-    out["flash_decode"] = rec
-    out["flash_paged_decode"] = time_paged(dev, timer, ln, h, kv, hd, scale)
+    out.update(time_decode(dev, timer, rnd, h, kv, hd))
     out.update(time_bwd(dev, timer, rnd, TRAIN_BATCH, h, kv, hd))
     out.update({f"{k} (hd 80, zamba2 microbatch)": v for k, v in time_bwd(
         dev, timer, rnd, TRAIN_MICRO, 32, 32, 80).items()})
@@ -823,6 +899,61 @@ def time_kernels(dev, tag, timer):
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, library {lib}{bwd} {tag}")
     return out
+
+
+def time_decode(dev, timer, rnd, h, kv, hd):
+    """Row 3: a 16-slot decode step of serving against 2048-slot caches
+    (lengths drawn from default_rng(0)); row 4: the paged kernel on the
+    same lengths."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    scale = hd ** -0.5
+    b, s = 16, 2048
+    q, kc, vc = rnd((b, h, hd)), rnd((b, s, kv, hd)), rnd((b, s, kv, hd))
+    ln = np.random.default_rng(0).integers(1, s + 1, size=b)
+    ln[0], ln[-1] = 1, s
+    lengths = torch.tensor(ln, dtype=torch.int32, device=dev)
+    by, fl = decode_work(ln, h, kv, hd, None)
+    bms, bby = bound(by, fl)
+    rec = dict(
+        shape=f"q[{b},{h},{hd}] cache[{b},{s},{kv},{hd}] "
+              f"sum(lengths)={int(ln.sum())}",
+        **decode_times("flash_decode", timer,
+                       lambda **kw: fa.flash_attention_decode(
+                           q, kc, vc, lengths, **kw), b, kv, s, bms),
+        plain_ms=timer(lambda: ref.flash_attention_decode_ref(
+            q, kc, vc, lengths)),
+        bound_ms=bms, bound_by=bby, bytes=by, flops=fl)
+    try:
+        rec["library_ms"] = timer(sdpa_decode(q, kc, vc, lengths, None,
+                                              scale))
+    except (TypeError, RuntimeError) as e:
+        print(f"SDPA yardstick unavailable: {e}")
+        rec["library_ms"] = None
+    return {"flash_decode": rec,
+            "flash_paged_decode": time_paged(dev, timer, ln, h, kv, hd,
+                                             scale)}
+
+
+def decode_times(name, timer, fn, b, kv, positions, bms):
+    """A decode kernel's device time at the default split, its
+    enqueue-inclusive time (no hold: the wrapper's host time shows), and
+    its device time at each of DEC_SPLITS; printed."""
+    from repro_torch.kernels import flash_attention as fa
+
+    split = fa.decode_split(positions)
+    rec = dict(ms=timer(fn), enqueue_ms=timer(fn, hold=False), split=split,
+               split_ms={sp: timer(lambda sp=sp: fn(split=sp))
+                         for sp in DEC_SPLITS})
+    rec["bound_share"] = bms / rec["ms"]
+    sweep = ", ".join(f"{sp}: {t:.4f}" for sp, t in rec["split_ms"].items())
+    print(f"time {name} b={b} kv={kv} "
+          f"positions={positions}: default split {split}, device "
+          f"{rec['ms']:.4f} ms, enqueue-inclusive (no hold) "
+          f"{rec['enqueue_ms']:.4f} ms, {100 * rec['bound_share']:.1f}% of "
+          f"its bound; device ms by split {{{sweep}}}")
+    return rec
 
 
 def time_paged(dev, timer, ln, h, kv, hd, scale):
@@ -845,8 +976,10 @@ def time_paged(dev, timer, ln, h, kv, hd, scale):
         shape=f"q[{b},{h},{hd}] pools[{kp.shape[0]},{bl},{kv},{hd}] table "
               f"[{b},{mb}] sum(lengths)={int(ln.sum())}; library = "
               f"index_select gather + SDPA (two calls)",
-        ms=timer(lambda: fa.flash_attention_paged_decode(q, kp, vp, table,
-                                                         lengths)),
+        **decode_times("flash_paged_decode", timer,
+                       lambda **kw: fa.flash_attention_paged_decode(
+                           q, kp, vp, table, lengths, **kw), b, kv, mb * bl,
+                       bms),
         plain_ms=timer(lambda: ref.flash_attention_paged_decode_ref(
             q, kp, vp, table, lengths)),
         bound_ms=bms, bound_by=bby, bytes=by, flops=fl)

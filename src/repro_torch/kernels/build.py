@@ -133,13 +133,13 @@ def load_library() -> ctypes.CDLL:
     # window, scale, stream
     lib.repro_flash_bwd_dkv_f32.argtypes = [vp] * 8 + [i32] * 8 + [f32, vp]
     lib.repro_flash_bwd_dkv_f32.restype = i32
-    lib.repro_flash_decode.argtypes = [vp, vp, vp, vp, vp,
-                                       i32, i32, i32, i32, i32,
-                                       i32, f32, i32, vp]
+    # pointers (q k_cache v_cache o lengths partial arrived), then B S H
+    # KV hd window split, scale, q_is_f32, stream
+    lib.repro_flash_decode.argtypes = [vp] * 7 + [i32] * 7 + [f32, i32, vp]
     lib.repro_flash_decode.restype = i32
-    # pointers (q k_pool v_pool o table lengths), then B MB BL H KV hd,
-    # scale, q_is_f32, stream
-    lib.repro_flash_paged_decode.argtypes = [vp] * 6 + [i32] * 6 + [f32, i32,
+    # pointers (q k_pool v_pool o table lengths partial arrived), then B MB
+    # BL H KV hd split, scale, q_is_f32, stream
+    lib.repro_flash_paged_decode.argtypes = [vp] * 8 + [i32] * 7 + [f32, i32,
                                                                      vp]
     lib.repro_flash_paged_decode.restype = i32
     # pointers (xh a_log bb cc y), then B S H P N chunk, stream

@@ -1,5 +1,5 @@
-// Shared pieces of the attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_bwd_f32.cu, flash_decode.cu, flash_paged_decode.cu).
+// Shared pieces of the attention kernels (flash_fwd.cu, flash_fwd_f32.cu,
+// flash_bwd.cu, flash_bwd_f32.cu, flash_decode.cu, flash_paged_decode.cu).
 //
 // Numerics follow src/repro/kernels/flash_attention.py: f32 arithmetic,
 // the finite sentinel NEG_INF = -1e30 for masked scores (a fully masked
@@ -16,6 +16,7 @@
 namespace repro {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BK = 64;  // keys per K/V tile staged in shared memory
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -32,6 +33,36 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers in shared memory for copies that complete on them (TMA in
+// flash_fwd.cu, bulk row copies in flash_decode.cuh): one arrival a phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// the one arrival of this phase, and the bytes its copies will bring
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(phase)
+        : "memory");
+  } while (!done);
+}
+
 // Whether query row ``row`` sees key ``kpos`` (no offset; the backward's
 // mask): both inside the arrays, causal and window bounds as flagged.
 __device__ __forceinline__ bool visible(int row, int kpos, int Sq, int Sk,
@@ -40,6 +71,12 @@ __device__ __forceinline__ bool visible(int row, int kpos, int Sq, int Sk,
   if (causal) ok = ok && kpos <= row;
   if (window > 0) ok = ok && kpos > row - window;
   return ok;
+}
+
+// two f32 values as a bf16 pair (lo in the low half), rounded to nearest
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 __device__ __forceinline__ float2 bf2_to_f2(uint32_t w) {
@@ -71,38 +108,27 @@ struct Tile {
 };
 
 // Stage rows [k0, k0 + BK) of one KV head into shared memory with 16-byte
-// loads.  Key position pos lives at ``base + row_off(pos)`` (an element
-// offset, 64-bit), so one loader serves a linear cache and a block pool
-// read through a table.  Rows for which valid(pos) is false are zeroed
-// and never read from device memory.
-template <int HD, typename RowOff, typename Valid>
-__device__ __forceinline__ void load_kv_rows(
-    uint32_t* __restrict__ dst, const __nv_bfloat16* __restrict__ base,
-    RowOff row_off, int k0, Valid valid) {
+// loads: key position pos lives at ``src + pos * row_stride``, ``src``
+// the address of row 0 of the head.  Rows for which valid(pos) is false
+// are zeroed and never read from device memory.
+template <int HD, typename Valid>
+__device__ __forceinline__ void load_kv_tile(
+    uint32_t* __restrict__ dst, const __nv_bfloat16* __restrict__ src,
+    long row_stride, int k0, Valid valid) {
   constexpr int KW = Tile<HD>::KW;
   constexpr int VPR = HD / 8;  // uint4 vectors per row
   for (int idx = threadIdx.x; idx < BK * VPR; idx += blockDim.x) {
     const int j = idx / VPR, c = idx % VPR;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (valid(k0 + j))
-      val = __ldg(reinterpret_cast<const uint4*>(base + row_off(k0 + j) +
-                                                 c * 8));
+      val = __ldg(reinterpret_cast<const uint4*>(
+          src + (long)(k0 + j) * row_stride + c * 8));
     uint32_t* d = dst + j * KW + c * 4;
     d[0] = val.x;
     d[1] = val.y;
     d[2] = val.z;
     d[3] = val.w;
   }
-}
-
-// load_kv_rows for rows ``row_stride`` elements apart from ``src``, the
-// address of row 0 of one head.
-template <int HD, typename Valid>
-__device__ __forceinline__ void load_kv_tile(
-    uint32_t* __restrict__ dst, const __nv_bfloat16* __restrict__ src,
-    long row_stride, int k0, Valid valid) {
-  load_kv_rows<HD>(
-      dst, src, [=](int pos) { return (long)pos * row_stride; }, k0, valid);
 }
 
 // One warp's online-softmax update over one staged tile of BK keys, for

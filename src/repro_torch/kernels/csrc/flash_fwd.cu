@@ -73,10 +73,6 @@ constexpr int fwd_smem_bytes() {
   return 5 * tile_bytes<HD>() + 1024;  // Q, K and V twice; 1 KB to align
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Descriptor of a tile in the 128-byte swizzle (layout type 1): rows of
 // 128 B whose 16-byte chunks are XOR-permuted by the row within each
 // 1024 B atom of 8 rows, as TMA writes them.
@@ -95,30 +91,6 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
 // the 64-column halves (LBO) HALF_BYTES apart, atoms (SBO) 1024 B apart
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return desc_sw128(tile + kk * 2048, HALF_BYTES, 1024);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// the one arrival of this phase, and the bytes its copies will bring
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(phase)
-        : "memory");
-  } while (!done);
 }
 
 // One TMA copy of a box of 64 rows x 64 columns of a [B, S, NH, HD] bf16
@@ -404,5 +376,7 @@ extern "C" const char* repro_cuda_error_string(int code) {
   if (code == -1) return "head dimension has no kernel instance";
   if (code == -2) return "no cuTensorMapEncodeTiled in the driver";
   if (code == -3) return "cuTensorMapEncodeTiled refused the array";
+  if (code == -4)
+    return "decode split not a positive multiple of 64, or over 64 splits";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

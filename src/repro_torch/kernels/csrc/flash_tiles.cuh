@@ -13,13 +13,7 @@ namespace repro {
 
 constexpr int BT = 64;           // rows of a tile: q rows or keys
 constexpr int WG_THREADS = 128;  // one warpgroup
-constexpr float LOG2E = 1.4426950408889634f;
 static_assert(BT == BK, "a key tile is one K/V tile");
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // X [64 x 64], an accumulator fragment, as two bf16 register A operands
 // hi = bf16(X), lo = bf16(X - hi), each for the four k-steps of a product

@@ -18,9 +18,9 @@ import torch
 from .ref import check_gqa
 
 HEAD_DIMS = (16, 64, 80, 128)
-MAX_GROUP = 16            # decode: query heads per KV head (8 warps x 2)
-MAX_TABLE = 32768         # paged decode: table entries per row (128 KB)
+MAX_GROUP = 16            # decode: query heads per KV head (16 mma rows)
 TILE = 64                 # q rows / keys per tile (flash_fwd.cu, flash_bwd.cu)
+DEC_MAX_SPLITS = 64       # decode: splits per row (csrc/flash_decode.cuh)
 
 # launches per kernel since the last reset_launches(); a plain integer
 # each, read by chip_smoke.py to show the main path ran the kernels
@@ -35,8 +35,8 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, dtypes, device) -> None:
@@ -129,7 +129,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     lib = load_library()
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     args = [_ptr(t) for t in (q, k, v, o, lse)] + [
-        None if off is None else _ptr(off), off_value, b, sq, sk, h, kv, hd,
+        _ptr(off), off_value, b, sq, sk, h, kv, hd,
         int(causal), _window_arg(window), float(scale)]
     name = "flash_fwd_f32" if q.dtype == torch.float32 else "flash_fwd"
     code = getattr(lib, "repro_" + name)(*args, stream)
@@ -248,8 +248,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, causal: bool = True,
     else:
         name = "flash_bwd_dkv"
         code = lib.repro_flash_bwd_dkv(
-            *ptrs, None if partial is None else _ptr(partial),
-            None if arrived is None else _ptr(arrived), *args[:6], split,
+            *ptrs, _ptr(partial), _ptr(arrived), *args[:6], split,
             *args[6:])
     _raise_on(code, lib, name)
     launches[name] += 1
@@ -270,12 +269,73 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     return dq, dk, dv
 
 
+DEC_SPLIT = 128           # decode: positions per block (PERF.md, the sweep)
+
+
+def decode_split(positions: int) -> int:
+    """Key positions per block of the decode kernels: DEC_SPLIT, doubled
+    until no row has more than DEC_MAX_SPLITS splits.  From the position
+    count alone: the lengths live on the device (reading them would make
+    the host wait for the stream), and a split that followed the batch
+    size would give a row other bits in a 16-row draft step than in a
+    64-row verify re-score, and speculative decoding would accept fewer
+    drafts.  ``positions`` is S for the slot cache and MB x BL for the
+    pools, so the pools and their gathered view get the same split (and
+    the same bits)."""
+    split = DEC_SPLIT
+    while -(-positions // split) > DEC_MAX_SPLITS:
+        split *= 2
+    return split
+
+
+def decode_positions(k: torch.Tensor,
+                     table: Optional[torch.Tensor] = None) -> int:
+    """Key positions a decode launch covers, from which its split is
+    chosen: S of the caches ``k`` [B,S,KV,hd], or MB x BL of the pools
+    ``k`` [NB,BL,KV,hd] read through ``table`` [B,MB]."""
+    return k.shape[1] * (1 if table is None else table.shape[1])
+
+
+# per (device, stream): the decode kernels' arrival counters, one int per
+# (row, KV head), zero between launches (the merging block resets its
+# own).  Launches on one stream run in turn; two streams never share
+# counters, so their launches may overlap.
+_dec_arrived: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _decode_scratch(dev: torch.device, stream: int, b: int, kv: int, g: int,
+                    hd: int, positions: int, split: Optional[int]):
+    """-> (split, f32 partials or None, counters or None) for a decode
+    launch on ``stream`` over ``positions`` key positions.  One split per
+    row needs neither; the counters are allocated (zeroed) once per device
+    and stream and grown, never cleared per call."""
+    if split is None:
+        split = decode_split(positions)
+    nsplit = max(1, -(-positions // split))
+    if split < TILE or split % TILE or nsplit > DEC_MAX_SPLITS:
+        raise ValueError(f"split {split} must be a positive multiple of "
+                         f"{TILE} giving at most {DEC_MAX_SPLITS} splits of "
+                         f"{positions} positions")
+    if nsplit == 1:
+        return split, None, None
+    arrived = _dec_arrived.get((dev, stream))
+    if arrived is None or arrived.numel() < b * kv:
+        arrived = _dec_arrived[dev, stream] = torch.zeros(
+            max(b * kv, 256), dtype=torch.int32, device=dev)
+    rec = -(-g * (hd + 2) // 4) * 4    # csrc/flash_decode.cuh::dec_record
+    part = torch.empty((b * kv * nsplit, rec), dtype=torch.float32,
+                       device=dev)
+    return split, part, arrived
+
+
 def flash_attention_decode(q, k_cache, v_cache, lengths, *,
                            window: Optional[int] = None,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           split: Optional[int] = None):
     """q [B,H,hd] bf16|f32 against caches [B,S,KV,hd] bf16 with per-slot
     ``lengths`` [B] int32 (valid positions, at most S) -> [B,H,hd] like
-    q."""
+    q.  ``split``: key positions per block (a multiple of 64; by default
+    ``decode_split``); the bits depend on it and on nothing else."""
     from .build import load_library
 
     _check_cuda(q)
@@ -301,26 +361,33 @@ def flash_attention_decode(q, k_cache, v_cache, lengths, *,
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
-    lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    split, part, arrived = _decode_scratch(
+        dev, stream, b, kv, h // kv, hd, decode_positions(k_cache), split)
+    lib = load_library()
     code = lib.repro_flash_decode(
         _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(o), _ptr(lengths),
-        b, s, h, kv, hd, _window_arg(window), float(scale),
-        int(q.dtype == torch.float32), ctypes.c_void_p(stream))
+        _ptr(part), _ptr(arrived), b, s, h, kv, hd, _window_arg(window),
+        split, float(scale), int(q.dtype == torch.float32),
+        ctypes.c_void_p(stream))
     _raise_on(code, lib, "flash_decode")
     launches["flash_decode"] += 1
     return o
 
 
 def flash_attention_paged_decode(q, k_pool, v_pool, table, lengths, *,
-                                 scale: Optional[float] = None):
+                                 scale: Optional[float] = None,
+                                 split: Optional[int] = None):
     """q [B,H,hd] bf16|f32 against block pools [NB,BL,KV,hd] bf16 through
     the block ``table`` [B,MB] int32, with per-row ``lengths`` [B] int32
     (valid positions) -> [B,H,hd] like q.  Any block length BL >= 1 is
     taken.  The table's entries must lie in [0, NB) (the host allocator
     hands out nothing else).  A length above MB*BL is clamped to MB*BL in
     the kernel, as ``flash_attention_decode`` clamps to S: checking it
-    here would make the host wait for the stream on every launch."""
+    here would make the host wait for the stream on every launch.
+    ``split`` as for ``flash_attention_decode``, over MB*BL positions:
+    at the same split the result is bit-equal to ``flash_attention_decode``
+    on the gathered view [B, MB*BL, KV, hd]."""
     from .build import load_library
 
     _check_cuda(q)
@@ -345,21 +412,23 @@ def flash_attention_paged_decode(q, k_pool, v_pool, table, lengths, *,
     if h // kv > MAX_GROUP:
         raise ValueError(f"GQA group {h // kv} exceeds the decode kernel's "
                          f"{MAX_GROUP} heads per KV head")
-    if bl < 1:
-        raise ValueError(f"pool blocks of {bl} rows; the kernel takes >= 1")
-    if mb < 1 or mb > MAX_TABLE:
-        raise ValueError(f"table of {mb} blocks per row, the kernel takes "
-                         f"1 to {MAX_TABLE} (one row lives in shared memory)")
+    if bl < 1 or mb < 1:
+        raise ValueError(f"pool blocks of {bl} rows and a table of {mb} "
+                         "blocks per row; the kernel takes >= 1 of each")
     scale = scale if scale is not None else hd ** -0.5
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
-    lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    split, part, arrived = _decode_scratch(
+        dev, stream, b, kv, h // kv, hd, decode_positions(k_pool, table),
+        split)
+    lib = load_library()
     code = lib.repro_flash_paged_decode(
         _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(o), _ptr(table),
-        _ptr(lengths), b, mb, bl, h, kv, hd, float(scale),
-        int(q.dtype == torch.float32), ctypes.c_void_p(stream))
+        _ptr(lengths), _ptr(part), _ptr(arrived), b, mb, bl, h, kv, hd,
+        split, float(scale), int(q.dtype == torch.float32),
+        ctypes.c_void_p(stream))
     _raise_on(code, lib, "flash_paged_decode")
     launches["flash_paged_decode"] += 1
     return o

@@ -152,6 +152,67 @@ def flash_attention_paged_decode_ref(q, k_pool, v_pool, table, lengths, *,
                                       scale=scale)
 
 
+def flash_attention_decode_split_ref(q, k_cache, v_cache, lengths, *,
+                                     split: int,
+                                     window: Optional[int] = None,
+                                     scale: Optional[float] = None):
+    """The decode kernels' split pass in plain PyTorch (only the tests use
+    it): per slot, every range [s split, (s + 1) split) of positions that
+    meets the live range [lo, len) gives f32 partials over its live keys
+    (the max m, the sum l of exp(score - m), the unnormalised acc), and
+    they are merged in split order, as the kernels' last block merges
+    them: an online softmax over the splits.  Split 0 counts as live for
+    an empty slot, which gives zeros.  Shapes as
+    ``flash_attention_decode_ref``."""
+    b, h, hd = q.shape
+    _, s, kv, _ = k_cache.shape
+    check_gqa(h, kv)
+    g = h // kv
+    scale = scale if scale is not None else hd ** -0.5
+    qf = q.reshape(b, kv, g, hd).float() * scale
+    kf, vf = k_cache.float(), v_cache.float()
+    out = torch.zeros((b, kv, g, hd), dtype=torch.float32, device=q.device)
+    for r in range(b):
+        ln = min(int(lengths[r]), s)
+        lo = max(0, ln - window) if window is not None else 0
+        m = torch.full((kv, g), NEG_INF, device=q.device)
+        l = torch.zeros((kv, g), device=q.device)
+        acc = torch.zeros((kv, g, hd), device=q.device)
+        for sp in range(lo // split, max(ln - 1, lo) // split + 1):
+            k0, k1 = max(lo, sp * split), min(ln, (sp + 1) * split)
+            if k1 > k0:
+                sc = torch.einsum("Kgd,cKd->Kgc", qf[r], kf[r, k0:k1])
+                m_s = sc.max(-1).values
+                p = torch.exp(sc - m_s[..., None])
+                l_s = p.sum(-1)
+                a_s = torch.einsum("Kgc,cKd->Kgd", p, vf[r, k0:k1])
+            else:
+                m_s = torch.full_like(m, NEG_INF)
+                l_s, a_s = torch.zeros_like(l), torch.zeros_like(acc)
+            mn = torch.maximum(m, m_s)
+            c_old, c_new = torch.exp(m - mn), torch.exp(m_s - mn)
+            acc = acc * c_old[..., None] + a_s * c_new[..., None]
+            l = l * c_old + l_s * c_new
+            m = mn
+        out[r] = acc / l.clamp(min=1e-30)[..., None]
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
+def flash_attention_paged_decode_split_ref(q, k_pool, v_pool, table,
+                                           lengths, *, split: int,
+                                           scale: Optional[float] = None):
+    """``flash_attention_decode_split_ref`` through a block table: the
+    paged kernel's split pass over MB*BL positions, on the view the table
+    spells (only the tests use it)."""
+    b, mb = table.shape
+    _, bl, kv, hd = k_pool.shape
+    idx = table.long()
+    return flash_attention_decode_split_ref(
+        q, k_pool[idx].reshape(b, mb * bl, kv, hd),
+        v_pool[idx].reshape(b, mb * bl, kv, hd), lengths, split=split,
+        scale=scale)
+
+
 def ssd_ref(xh, a_log, bb, cc):
     """Sequential state-space recurrence (the SSD oracle).  xh [B,S,H,P]
     (dt folded in), a_log [B,S,H] (per-step log decay), bb/cc [B,S,N]

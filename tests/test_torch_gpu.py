@@ -118,21 +118,108 @@ def test_fwd_f32_queries_take_the_f32_kernel(cuda):
         assert float((lse - lse_r).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("window,hd", [(None, 128), (256, 128), (7, 16)])
-def test_decode_kernel_matches_plain(cuda, window, hd):
+# every split phase 5 of chip_smoke.py times; the default at the serving
+# shape (16 slots x 2048 positions) is 128
+SPLITS = (None, 64, 128, 256, 512)
+
+
+@pytest.mark.parametrize("window,hd,lengths", [
+    (None, 128, None), (256, 128, None), (7, 16, None),
+    # lengths at a split edge (128, 256), one past it, 1, the whole cache
+    (None, 128, [128, 129, 1, 256, 257, 2048, 63, 65, 192, 1000, 1, 2047,
+                 384, 511, 512, 513]),
+    # windows that start inside a split and span two
+    (200, 128, [300, 129, 1, 256, 2048, 500, 201, 199, 640, 1000, 1, 2047,
+                384, 511, 512, 513])])
+def test_decode_kernel_matches_plain(cuda, window, hd, lengths):
+    """Within the plain version's band and, at every split, two launches
+    give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(1)
     b, s, h, kv = (16, 2048, 12, 2) if hd == 128 else (4, 64, 4, 1)
     q = torch.randn(b, h, hd, generator=g, device=cuda).bfloat16()
     kc = torch.randn(b, s, kv, hd, generator=g, device=cuda).bfloat16()
     vc = torch.randn(b, s, kv, hd, generator=g, device=cuda).bfloat16()
-    ln = np.random.default_rng(0).integers(1, s + 1, size=b)
-    ln[0], ln[-1] = 1, s
+    if lengths is None:
+        ln = np.random.default_rng(0).integers(1, s + 1, size=b)
+        ln[0], ln[-1] = 1, s
+    else:
+        ln = np.asarray(lengths)
     lengths = torch.tensor(ln, dtype=torch.int32, device=cuda)
     before = fa.launches["flash_decode"]
     o = ops.flash_attention_decode(q, kc, vc, lengths, window=window)
     assert fa.launches["flash_decode"] == before + 1
     o_r = ref.flash_attention_decode_ref(q, kc, vc, lengths, window=window)
     assert _rel_err(o, o_r) <= 1e-2
+    for split in SPLITS:
+        one = fa.flash_attention_decode(q, kc, vc, lengths, window=window,
+                                        split=split)
+        two = fa.flash_attention_decode(q, kc, vc, lengths, window=window,
+                                        split=split)
+        assert torch.equal(one, two), split
+        assert _rel_err(one, o_r) <= 1e-2, split
+
+
+def test_decode_bits_do_not_depend_on_the_batch(cuda):
+    """A row gives the same bits alone in a 16-row batch and among 64 rows
+    (a draft step and a verify re-score of speculative decoding), on both
+    kernels."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, s, h, kv, hd = 64, 2048, 12, 2, 128
+    q = torch.randn(b, h, hd, generator=g, device=cuda).bfloat16()
+    kc = torch.randn(b, s, kv, hd, generator=g, device=cuda).bfloat16()
+    vc = torch.randn(b, s, kv, hd, generator=g, device=cuda).bfloat16()
+    ln = torch.tensor(np.random.default_rng(5).integers(1, s + 1, size=b),
+                      dtype=torch.int32, device=cuda)
+    full = fa.flash_attention_decode(q, kc, vc, ln)
+    part = fa.flash_attention_decode(q[:16].contiguous(),
+                                     kc[:16].contiguous(),
+                                     vc[:16].contiguous(), ln[:16])
+    assert torch.equal(full[:16], part)
+    table = torch.arange(1, b * 128 + 1, dtype=torch.int32,
+                         device=cuda).reshape(b, 128)
+    kp, vp = (torch.cat([torch.zeros_like(c[:1, :16]),      # null block 0
+                         c.reshape(b * 128, 16, kv, hd)]) for c in (kc, vc))
+    full_p = fa.flash_attention_paged_decode(q, kp, vp, table, ln)
+    part_p = fa.flash_attention_paged_decode(q[:16].contiguous(), kp, vp,
+                                             table[:16].contiguous(),
+                                             ln[:16])
+    assert torch.equal(full_p[:16], part_p) and torch.equal(full_p, full)
+
+
+def test_decode_on_two_streams_keeps_its_bits(cuda):
+    """Launches left to overlap on two streams of one device give the bits
+    of launches on one stream: each stream has its own arrival counters
+    (the merging block of a row resets its counter, so two streams that
+    shared one could merge a row before its partials were written)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    b, s, h, kv, hd = 16, 2048, 12, 2, 128
+    q = torch.randn(b, h, hd, generator=g, device=cuda).bfloat16()
+    kc = torch.randn(b, s, kv, hd, generator=g, device=cuda).bfloat16()
+    vc = torch.randn(b, s, kv, hd, generator=g, device=cuda).bfloat16()
+    ln = torch.tensor(np.random.default_rng(9).integers(1, s + 1, size=b),
+                      dtype=torch.int32, device=cuda)
+    table = torch.arange(1, b * 128 + 1, dtype=torch.int32,
+                         device=cuda).reshape(b, 128)
+    kp, vp = (torch.cat([torch.zeros_like(c[:1, :16]),      # null block 0
+                         c.reshape(b * 128, 16, kv, hd)]) for c in (kc, vc))
+    want = fa.flash_attention_decode(q, kc, vc, ln)
+    calls = (lambda: fa.flash_attention_decode(q, kc, vc, ln),
+             lambda: fa.flash_attention_paged_decode(q, kp, vp, table, ln))
+    cur = torch.cuda.current_stream(cuda)
+    streams = [torch.cuda.Stream(cuda) for _ in calls]
+    outs = [[] for _ in calls]
+    for st in streams:
+        st.wait_stream(cur)
+    for _ in range(20):
+        for st, call, out in zip(streams, calls, outs):
+            with torch.cuda.stream(st):
+                out.append(call())
+    for st in streams:
+        cur.wait_stream(st)
+    torch.cuda.synchronize(cuda)
+    assert all(torch.equal(o, want) for out in outs for o in out)
+    for st in streams:
+        assert (cuda, st.cuda_stream) in fa._dec_arrived
 
 
 def _paged_case(dev, b, h, kv, hd, bl, mb, lengths, seed=0):
@@ -155,17 +242,23 @@ def _paged_case(dev, b, h, kv, hd, bl, mb, lengths, seed=0):
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("b,h,kv,hd,bl,mb", [
-    (16, 12, 2, 128, 16, 128), (4, 4, 1, 16, 8, 8), (3, 8, 2, 64, 48, 4)])
-def test_paged_decode_kernel_matches_plain(cuda, b, h, kv, hd, bl, mb):
+@pytest.mark.parametrize("b,h,kv,hd,bl,mb,lengths", [
+    (16, 12, 2, 128, 16, 128, None), (4, 4, 1, 16, 8, 8, None),
+    (3, 8, 2, 64, 48, 4, None),
+    # split edges of the 2048 positions (default split 128), an empty row
+    (8, 12, 2, 128, 16, 128, [0, 128, 129, 1, 256, 257, 2048, 1000])])
+def test_paged_decode_kernel_matches_plain(cuda, b, h, kv, hd, bl, mb,
+                                           lengths):
     """Within one bf16 ulp of the plain version, bit-equal to
-    flash_decode on the gathered view, and blind to poison (1e9, NaN)
-    in every block the rows do not own, block 0 included."""
-    rng = np.random.default_rng(b)
-    lengths = rng.integers(1, mb * bl + 1, size=b)
-    lengths[0], lengths[-1] = 0, mb * bl - 5          # empty and ragged
-    q, kp, vp, table, ln = _paged_case(cuda, b, h, kv, hd, bl, mb,
-                                       lengths.tolist())
+    flash_decode on the gathered view at every split, the same bits over
+    two launches, and blind to poison (1e9, NaN) in every block the rows
+    do not own, block 0 included."""
+    if lengths is None:
+        rng = np.random.default_rng(b)
+        lengths = rng.integers(1, mb * bl + 1, size=b)
+        lengths[0], lengths[-1] = 0, mb * bl - 5      # empty and ragged
+        lengths = lengths.tolist()
+    q, kp, vp, table, ln = _paged_case(cuda, b, h, kv, hd, bl, mb, lengths)
     before = fa.launches["flash_paged_decode"]
     o = ops.flash_attention_paged_decode(q, kp, vp, table, ln)
     assert fa.launches["flash_paged_decode"] == before + 1
@@ -173,7 +266,13 @@ def test_paged_decode_kernel_matches_plain(cuda, b, h, kv, hd, bl, mb):
     assert _rel_err(o, o_r) <= 1e-2
     assert float(o[0].float().abs().max()) == 0.0      # length 0 -> zeros
     view = [p[table.long()].reshape(b, mb * bl, kv, hd) for p in (kp, vp)]
-    assert torch.equal(o, fa.flash_attention_decode(q, *view, ln))
+    for split in SPLITS:
+        one = fa.flash_attention_paged_decode(q, kp, vp, table, ln,
+                                              split=split)
+        assert torch.equal(one, fa.flash_attention_paged_decode(
+            q, kp, vp, table, ln, split=split)), split
+        assert torch.equal(one, fa.flash_attention_decode(q, *view, ln,
+                                                          split=split)), split
     owned = set(table.flatten().tolist()) - {0}
     for poison in (1e9, float("nan")):
         dk, dv = kp.clone(), vp.clone()
@@ -334,6 +433,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     lse = torch.zeros(1, 6, 8, device=cuda)
     with pytest.raises(ValueError, match="split"):
         fa.flash_attention_bwd_dkv(q, k, k, lse, lse, q, split=2)
+    kc = torch.zeros(1, 8192, 2, 16, device=cuda, dtype=torch.bfloat16)
+    ln = torch.ones(1, dtype=torch.int32, device=cuda)
+    for split in (96, 64):     # not a multiple of 64; 128 splits of 8192
+        with pytest.raises(ValueError, match="split"):
+            fa.flash_attention_decode(q[:, 0], kc, kc, ln, split=split)
 
 
 def test_reduced_model_card_matches_cpu(cuda):

@@ -143,6 +143,36 @@ def test_decode_ref_matches_pallas(heads, window):
                                rtol=TOL)
 
 
+# (b, s, h, kv, hd), window, lengths, split: lengths at a split edge, one
+# past it, 1 and the whole cache; a window that starts inside split 1 and
+# spans two; g 6 at hd 128
+SPLIT_CASES = [((4, 48, 4, 2, 16), None, [16, 17, 1, 48], 16),
+               ((4, 48, 4, 1, 16), 20, [40, 30, 45, 20], 16),
+               ((3, 64, 12, 2, 128), None, [64, 33, 16], 16)]
+
+
+@pytest.mark.parametrize("shape,window,lengths,split", SPLIT_CASES)
+def test_decode_split_ref_matches_pallas(shape, window, lengths, split):
+    """The decode kernels' split-and-merge arithmetic (per-split partials
+    merged in split order, ref.flash_attention_decode_split_ref) against
+    repro's Pallas decode."""
+    b, s, h, kv, hd = shape
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    kc, vc = (torch.from_numpy(rng.standard_normal((b, s, kv, hd)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    ln = np.array(lengths, np.int32)
+    o_j = flash_attention_decode(
+        jnp.asarray(q), jnp.asarray(kc.float().numpy(), jnp.bfloat16),
+        jnp.asarray(vc.float().numpy(), jnp.bfloat16), jnp.asarray(ln),
+        window=window, block_k=16, interpret=True)
+    o_t = ref.flash_attention_decode_split_ref(
+        torch.from_numpy(q), kc, vc, torch.from_numpy(ln), split=split,
+        window=window)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=TOL,
+                               rtol=TOL)
+
+
 def test_offset_chunk_matches_full_sequence():
     """A prefill chunk at q_offset equals the matching rows of the whole
     sequence (the counterpart of test_offset_chunk_matches_full)."""
@@ -205,6 +235,38 @@ def test_dkv_split_fills_the_card(b, sk, kv, g, want):
     got = fa.dkv_split(b, sk, kv, g, 132)
     assert got == want and g % got == 0
     assert -(-sk // fa.TILE) * kv * b * got >= 2 * 132 or got == g
+
+
+@pytest.mark.parametrize("positions,want", [
+    (2048, 128),        # the serving decode step: the sweep's best
+    (64, 128),          # one tile, one split
+    (8192, 128),        # 64 splits
+    (8193, 256),        # no row cut into more than 64 splits
+    (65536, 1024)])
+def test_decode_split_follows_the_positions_alone(positions, want):
+    """The decode kernels' positions per block: DEC_SPLIT, doubled until a
+    row has at most 64 splits; nothing else (not the batch: a row keeps
+    its bits in a 16-row draft step and a 64-row verify re-score)."""
+    got = fa.decode_split(positions)
+    assert got == want and got % fa.TILE == 0
+    assert -(-positions // got) <= fa.DEC_MAX_SPLITS
+    assert got == fa.DEC_SPLIT or -(-positions // (got // 2)) > \
+        fa.DEC_MAX_SPLITS
+
+
+@pytest.mark.parametrize("b,kv,bl,mb", [(16, 2, 16, 128), (64, 2, 16, 128),
+                                        (4, 2, 48, 43), (3, 1, 8, 5)])
+def test_decode_split_is_the_same_for_pools_and_their_view(b, kv, bl, mb):
+    """The paged kernel splits its MB x BL positions as flash_decode splits
+    the gathered view [B, MB x BL, KV, hd] (chip_smoke.py's bit-equality
+    check needs the same split on both): both wrappers take their position
+    count from decode_positions, here given their own arguments."""
+    pools = torch.zeros(b * mb + 1, bl, kv, 16, dtype=torch.bfloat16)
+    table = torch.arange(1, b * mb + 1, dtype=torch.int32).reshape(b, mb)
+    view = pools[table.long()].reshape(b, -1, kv, 16)
+    paged = fa.decode_positions(pools, table)
+    assert paged == fa.decode_positions(view) == mb * bl
+    assert fa.decode_split(paged) == fa.decode_split(view.shape[1])
 
 
 def test_cpu_tensors_take_the_plain_path():

@@ -158,6 +158,24 @@ def test_paged_ref_matches_pallas_and_xla_gather(h, kv, bl, mb):
                                rtol=TOL)
 
 
+@pytest.mark.parametrize("lengths,split", [([0, 17, 32, 9], 16),
+                                           ([0, 24, 1, 32], 8)])
+def test_paged_split_ref_matches_pallas(lengths, split):
+    """The paged kernel's split-and-merge arithmetic
+    (ref.flash_attention_paged_decode_split_ref) against repro's Pallas
+    paged decode, g 6; a row of length 0 gives exact zeros on both."""
+    b, h, kv, hd, bl, mb = 4, 6, 1, 32, 8, 4
+    q, kp, vp, table, ln = _paged_inputs(23, b, h, kv, hd, bl, mb, lengths)
+    o_t = ref.flash_attention_paged_decode_split_ref(
+        torch.from_numpy(q), kp, vp, torch.from_numpy(table),
+        torch.from_numpy(ln), split=split)
+    o_p = np.asarray(jax_ops.flash_attention_paged_decode(
+        jnp.asarray(q), _jax(kp), _jax(vp), jnp.asarray(table),
+        jnp.asarray(ln)))
+    np.testing.assert_allclose(o_t.numpy(), o_p, atol=TOL, rtol=TOL)
+    assert not o_t[0].any() and not o_p[0].any()
+
+
 def test_paged_ref_equals_decode_ref_on_the_gathered_view():
     """Bit-equal to the linear decode on the view the table spells: the
     property that makes the paged engine's streams those of the linear
