@@ -10,7 +10,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      with nvcc for sm_90a into build/ (ptxas register / smem lines shown),
      and counts the HGMMA (wgmma) instructions in the SASS of every
      instance of the bf16 forward kernel and of the two backward kernels
-     (one instance per hd): none is a failure;
+     (one instance per hd) and of the SSD scan's state and output
+     kernels: an instance without one is a failure;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, at the serving path's shapes (12 q heads over 2 KV heads,
      hd 128), at zamba2's (32 heads, g 1, hd 80) and at the reduced
@@ -27,6 +28,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      with chunk 64 through the dispatcher's pad; the training shape,
      chunk 128, chunk == S and the pad again for a long-memory head
      (A = 0.01), where every key tile and the carried state show in y;
+     for that head also S = 4096 at chunk 256 (16 chunks carried), H = 3
+     (a lone head in the last pair), chunk 96 (a ragged second query
+     tile), P 6 / N 10 (the wrapper's pad to whole 16-byte rows); every
+     case twice, bit for bit;
      The backward kernels (dq, dk/dv) are held the same way at the edges
      of their 64-row tiles: causal and not, ragged S = 1000 and 1089,
      windows of 128 and 200, GQA groups 1, 2, 4, 6 and 8, hd 16 / 64 / 80
@@ -37,8 +42,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      The decode kernel (DEC_CASES): the serving step (16 slots x 2048),
      windows, hd 16 / 64 / 80 / 128, lengths at the edges of the splits,
      a window straddling two splits, g 16, an S that no split divides,
-     f32 queries; every case at the default split and at each split phase
-     5 times (DEC_SPLITS), twice, bit for bit; 16 rows alone and among 64
+     f32 queries, a slot of length 0 (exact zeros); every case at the
+     default split and at each split phase 5 times (DEC_SPLITS), twice,
+     bit for bit; 16 rows alone and among 64
      (a draft step, a verify re-score) bit for bit, on both kernels;
      The paged decode kernel at the serving shape (16 slots, ~1000 tokens
      each, shuffled blocks, one block shared by two rows), the re-score's
@@ -88,7 +94,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      backward kernels' TFLOP/s and share of their bound, dk/dv at every
      split of the group, both decode kernels at each of DEC_SPLITS; the
      attention kernels also at hd 80 (zamba2's shared block);
-     ssd_chunk_scan at the training shape, with the chunked PyTorch scan
+     ssd_chunk_scan at the training shape (device and enqueue-inclusive
+     time; three CUDA launches a call), with the chunked PyTorch scan
      (kernels/ssd.ssd_scan) as its yardstick, as no single PyTorch call
      computes the scan;
   6. the kernels line and the contract's last line.
@@ -355,14 +362,15 @@ def sdpa_bwd_gap(q, k, v, do, want, tag):
 # phases
 # ---------------------------------------------------------------------------
 
+# the kernels on wgmma: one instance per head dim, or (SSD scan) one
 WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv_kernel")
+                 "flash_bwd_dkv_kernel", "ssd_state_kernel",
+                 "ssd_output_kernel")
 
 
 def hgmma_counts(lib_path) -> dict:
-    """HGMMA (wgmma) instructions in the SASS of each instance of the bf16
-    forward kernel and of the two backward kernels, from cuobjdump beside
-    nvcc."""
+    """HGMMA (wgmma) instructions in the SASS of each instance of the
+    kernels in WGMMA_KERNELS, from cuobjdump beside nvcc."""
     from repro_torch.kernels import build
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib_path)],
@@ -467,7 +475,8 @@ def check_fwd(dev, tag, rnd):
 # at hd 64 and 80; then lengths at the edges of the splits phase 5 times
 # (64 to 512: 128, 129, 1, 256, 257, ...), a window of 200 that starts
 # inside a split and spans two, g 16 (MAX_GROUP), an S that is not a
-# multiple of any split, and f32 queries
+# multiple of any split, f32 queries, and an empty slot (length 0: exact
+# zeros from the kernel and, since its repair, from the plain version)
 DEC_SPLIT_EDGES = [128, 129, 1, 256, 257, 2048, 64, 65, 192, 1000, 1, 2047,
                    384, 511, 512, 513]
 DEC_CASES = [(16, 2048, 12, 2, 128, None, None, "bf16"),
@@ -483,7 +492,8 @@ DEC_CASES = [(16, 2048, 12, 2, 128, None, None, "bf16"),
              (4, 512, 16, 1, 64, None, [512, 1, 129, 300], "bf16"),
              (5, 1000, 12, 2, 128, None, [1000, 999, 1, 513, 640], "bf16"),
              (16, 2048, 12, 2, 128, None, None, "f32"),
-             (3, 200, 8, 8, 64, 37, None, "f32")]
+             (3, 200, 8, 8, 64, 37, None, "f32"),
+             (4, 512, 12, 2, 128, 200, [0, 1, 300, 512], "bf16")]
 # the decode kernels' key positions per block that phase 5 times; phase
 # 3 runs every decode case at each, twice
 DEC_SPLITS = (64, 128, 256, 512)
@@ -506,14 +516,16 @@ def check_decode(dev, tag, rnd, i, b, s, h, kv, hd, window, lengths, dt):
         ln = np.asarray(lengths)
     lengths = torch.tensor(ln, dtype=torch.int32, device=dev)
     o_r = ref.flash_attention_decode_ref(q, kc, vc, lengths, window=window)
-    worst, same = (0.0, 0.0), True
+    empty = torch.tensor(ln == 0, device=dev)
+    worst, same = (0.0, 0.0), not bool(o_r[empty].any())
     for split in (None,) + DEC_SPLITS:
         o = fa.flash_attention_decode(q, kc, vc, lengths, window=window,
                                       split=split)
         o2 = fa.flash_attention_decode(q, kc, vc, lengths, window=window,
                                        split=split)
         torch.cuda.synchronize()
-        same = same and torch.equal(o, o2) and bool(torch.isfinite(o).all())
+        same = (same and torch.equal(o, o2) and bool(torch.isfinite(o).all())
+                and not bool(o[empty].any()))
         worst = max(worst, rel_err(o, o_r), key=lambda x: x[1])
     e_o, r_o = worst
     ok = r_o <= O_TOL and same
@@ -674,7 +686,8 @@ def ssd_inputs(dev, b, s, h, p, n, seed, a=1.0):
 
 
 def check_ssd(dev, tag):
-    """ssd_chunk_scan against the sequential recurrence ref.ssd_ref."""
+    """ssd_chunk_scan against the sequential recurrence ref.ssd_ref, each
+    case launched twice and bit-equal."""
     from repro_torch.kernels import ref, ssd
     from repro_torch.models import mamba
 
@@ -688,14 +701,20 @@ def check_ssd(dev, tag):
              (2, TRAIN_SEQ, 80, 64, 64, 256, False, 0.01),
              (2, TRAIN_SEQ, 16, 64, 64, 128, False, 0.01),
              (2, 512, 16, 64, 64, 512, False, 0.01),
-             (2, 96, 80, 64, 64, 64, True, 0.01)]
+             (2, 96, 80, 64, 64, 64, True, 0.01),
+             (1, 4096, 16, 64, 64, 256, False, 0.01),  # 16 chunks carried
+             (2, TRAIN_SEQ, 3, 64, 64, 256, False, 0.01),  # H = 3
+             (2, 960, 8, 64, 64, 96, False, 0.01),     # chunk 96
+             (2, 192, 5, 6, 10, 64, False, 0.01)]      # P 6, N 10: padded
     out = []
     for i, (b, s, h, p, n, chunk, via, a) in enumerate(cases):
         xh, al, bb, cc = ssd_inputs(dev, b, s, h, p, n, 500 + i, a)
         before = ssd.launches["ssd_chunk_scan"]
         with torch.no_grad():
-            y = (mamba.ssd_dispatch(xh, al, bb, cc, chunk, "kernel") if via
-                 else ssd.ssd_chunk_scan(xh, al, bb, cc, chunk=chunk))
+            y, y2 = ((mamba.ssd_dispatch(xh, al, bb, cc, chunk, "kernel")
+                      if via else ssd.ssd_chunk_scan(xh, al, bb, cc,
+                                                     chunk=chunk))
+                     for _ in range(2))
         y_r, _ = ref.ssd_ref(xh, al, bb, cc)
         q = min(chunk, s)
         cum_min = float(torch.nn.functional.pad(al, (0, 0, 0, -s % q))
@@ -703,19 +722,20 @@ def check_ssd(dev, tag):
         torch.cuda.synchronize()
         err = float((y - y_r).abs().max())
         ref_max = float(y_r.abs().max())
-        ok = (err <= SSD_TOL * max(1.0, ref_max)
+        same = torch.equal(y, y2)
+        ok = (err <= SSD_TOL * max(1.0, ref_max) and same
               and bool(torch.isfinite(y).all())
-              and ssd.launches["ssd_chunk_scan"] == before + 1)
+              and ssd.launches["ssd_chunk_scan"] == before + 2)
         print(f"check ssd_chunk_scan b={b} s={s} h={h} p={p} n={n} "
               f"chunk={chunk} A={a}{' (dispatcher pad)' if via else ''}: "
               f"max|dy|={err:.3g} max|y|={ref_max:.3g} (band {SSD_TOL} x "
               f"max(1, max|y|)), min cum {cum_min:.1f} "
-              f"{'ok' if ok else 'MISS'} {tag}")
+              f"bitwise-repeatable={same} {'ok' if ok else 'MISS'} {tag}")
         if not ok:
             fail(f"ssd_chunk_scan disagrees with its plain version (case {i})")
         out.append(dict(case=i, a=a, max_abs_err=err, max_abs_ref=ref_max,
                         min_cum=cum_min))
-        del xh, al, bb, cc, y, y_r
+        del xh, al, bb, cc, y, y2, y_r
     return out
 
 
@@ -895,6 +915,8 @@ def time_kernels(dev, tag, timer):
         if "tflops" in r:
             bwd += (f", {r['tflops']:.1f} TFLOP/s, {100 * r['bound_share']:.1f}"
                     f"% of its bound")
+        if name == "ssd_chunk_scan":
+            bwd += f", enqueue-inclusive (no hold) {r['enqueue_ms']:.4f} ms"
         print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, library {lib}{bwd} {tag}")
@@ -1007,9 +1029,10 @@ def time_ssd(dev, timer):
     sequential recurrence.  Library: no single PyTorch call computes the
     scan, so the yardstick is the chunked PyTorch scan
     (kernels/ssd.ssd_scan: batched matmuls and a carry over 4 chunks).
-    Also the backward of ops.ssd_chunk_scan_diff (the chunked scan
-    recomputed under autograd, then its backward), which no kernel
-    carries."""
+    The kernel's time also without the stream held (enqueue-inclusive:
+    the wrapper's host time shows if it exceeds the two launches).  Also
+    the backward of ops.ssd_chunk_scan_diff (the chunked scan recomputed
+    under autograd, then its backward), which no kernel carries."""
     from repro_torch.kernels import ops, ref, ssd
 
     b, s, h, p, n, q = TRAIN_MICRO, TRAIN_SEQ, 80, 64, 64, 256
@@ -1023,14 +1046,19 @@ def time_ssd(dev, timer):
                    n=5)
     del ins, y, dy
     with torch.no_grad():
-        return dict(bwd_ms=bwd_ms,
+        def kernel():
+            return ssd.ssd_chunk_scan(xh, al, bb, cc, chunk=q)
+
+        ms = timer(kernel)
+        return dict(
             shape=f"xh[{b},{s},{h},{p}] bb/cc[{b},{s},{n}] chunk {q}; "
                   f"library = the chunked PyTorch scan (kernels/ssd."
                   f"ssd_scan), no single call computes it",
-            ms=timer(lambda: ssd.ssd_chunk_scan(xh, al, bb, cc, chunk=q)),
+            ms=ms, enqueue_ms=timer(kernel, hold=False), bwd_ms=bwd_ms,
             plain_ms=timer(lambda: ref.ssd_ref(xh, al, bb, cc), n=3, warm=1),
             library_ms=timer(lambda: ssd.ssd_scan(xh, al, bb, cc, q), n=5),
-            bound_ms=bms, bound_by=bby, bytes=by, flops=fl)
+            bound_ms=bms, bound_by=bby, bytes=by, flops=fl,
+            tflops=fl / ms * 1e-9, bound_share=bms / ms)
 
 
 def bwd_work(b, s, h, kv, hd, causal, window, which):
@@ -1802,12 +1830,13 @@ def main() -> int:
     hgmma = hgmma_counts(lib)
     for fn, n in sorted(hgmma.items()):
         print(f"  HGMMA {n:3d} {fn}")
-    # one instance per head dim
+    # one instance per head dim (attention), one (the SSD scan)
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     for kern in WGMMA_KERNELS:
         found = [n for fn, n in hgmma.items() if kern in fn]
-        if len(found) != len(HEAD_DIMS) or min(found) == 0:
-            fail(f"{kern}: {len(found)} instances, want {len(HEAD_DIMS)}, "
+        want = 1 if kern.startswith("ssd_") else len(HEAD_DIMS)
+        if len(found) != want or min(found) == 0:
+            fail(f"{kern}: {len(found)} instances, want {want}, "
                  f"each with HGMMA in its SASS ({found})")
 
     # 3. kernel vs plain

@@ -142,8 +142,8 @@ def load_library() -> ctypes.CDLL:
     lib.repro_flash_paged_decode.argtypes = [vp] * 8 + [i32] * 7 + [f32, i32,
                                                                      vp]
     lib.repro_flash_paged_decode.restype = i32
-    # pointers (xh a_log bb cc y), then B S H P N chunk, stream
-    lib.repro_ssd_chunk_scan.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    # pointers (xh a_log bb cc y cum s_local), then B S H P N chunk, stream
+    lib.repro_ssd_chunk_scan.argtypes = [vp] * 7 + [i32] * 6 + [vp]
     lib.repro_ssd_chunk_scan.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p

@@ -13,6 +13,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tma.cuh"  // smem_u32 and the mbarrier helpers
+
 namespace repro {
 
 constexpr float NEG_INF = -1e30f;
@@ -31,36 +33,6 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// mbarriers in shared memory for copies that complete on them (TMA in
-// flash_fwd.cu, bulk row copies in flash_decode.cuh): one arrival a phase.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// the one arrival of this phase, and the bytes its copies will bring
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(phase)
-        : "memory");
-  } while (!done);
 }
 
 // Whether query row ``row`` sees key ``kpos`` (no offset; the backward's

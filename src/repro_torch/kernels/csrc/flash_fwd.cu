@@ -53,16 +53,15 @@
 // No key split: the prefill chunk leaves SMs idle (48 blocks), but
 // splitting each q tile's key range over blocks, with f32 partials
 // combined in a fixed order, measured no gain there (PERF.md).
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached
-                   // through the runtime, so nothing links libcuda
-
 #include "flash_tiles.cuh"
+#include "tma.cuh"
 
 namespace repro {
 
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int HALF = 64;                   // columns of a half-tile: 128 B rows
 constexpr int HALF_BYTES = BT * HALF * 2;  // 8 KB, eight 1024 B swizzle atoms
+static_assert(HALF == TMA_BOX && BT == TMA_BOX, "a half-tile is one box");
 
 template <int HD>
 __host__ __device__ constexpr int tile_bytes() {
@@ -91,20 +90,6 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
 // the 64-column halves (LBO) HALF_BYTES apart, atoms (SBO) 1024 B apart
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return desc_sw128(tile + kk * 2048, HALF_BYTES, 1024);
-}
-
-// One TMA copy of a box of 64 rows x 64 columns of a [B, S, NH, HD] bf16
-// array (map: encode_rows) into the swizzled half-tile at ``dst``;
-// completes on ``bar``.  Rows and columns past the array are zero-filled.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
-                                        int col, int head, int row, int b,
-                                        uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row),
-      "r"(b), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // rows [r0, r0 + 64) of one head as a tile: one box per half-tile
@@ -271,47 +256,6 @@ __global__ void __launch_bounds__(WG_THREADS)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's tensor-map encoder, looked up once through the runtime.
-static EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [B, S, NH, HD] bf16 array as a 4-d tensor (HD, NH, S, B) read in
-// boxes of 64 columns x 1 head x 64 rows x 1 batch, 128-byte swizzle,
-// zeros past every end.  -> 0, or -2 without an encoder, -3 if refused.
-static int encode_rows(CUtensorMap* map, const void* base, int B, int S,
-                       int NH, int HD) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return -2;
-  const cuuint64_t dim[4] = {(cuuint64_t)HD, (cuuint64_t)NH, (cuuint64_t)S,
-                             (cuuint64_t)B};
-  const cuuint64_t stride[3] = {(cuuint64_t)HD * 2, (cuuint64_t)NH * HD * 2,
-                                (cuuint64_t)S * NH * HD * 2};
-  const cuuint32_t box[4] = {HALF, 1, BT, 1}, one[4] = {1, 1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dim,
-      stride, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -3;
-}
-
 struct FwdArgs {
   const void *q, *k, *v;
   void* o;
@@ -325,9 +269,12 @@ struct FwdArgs {
 template <int HD>
 static int launch_fwd(const FwdArgs& a) {
   CUtensorMap tq{}, tk{}, tv{};
-  int err = encode_rows(&tq, a.q, a.B, a.Sq, a.H, HD);
-  if (err == 0 && a.Sk > 0) err = encode_rows(&tk, a.k, a.B, a.Sk, a.KV, HD);
-  if (err == 0 && a.Sk > 0) err = encode_rows(&tv, a.v, a.B, a.Sk, a.KV, HD);
+  constexpr CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  int err = encode_rows(&tq, a.q, a.B, a.Sq, a.H, HD, false, sw);
+  if (err == 0 && a.Sk > 0)
+    err = encode_rows(&tk, a.k, a.B, a.Sk, a.KV, HD, false, sw);
+  if (err == 0 && a.Sk > 0)
+    err = encode_rows(&tv, a.v, a.B, a.Sk, a.KV, HD, false, sw);
   if (err != 0) return err;
   constexpr int smem = fwd_smem_bytes<HD>();
   auto kern = flash_fwd_kernel<HD>;

@@ -8,13 +8,16 @@ finite sentinel ``NEG_INF``.
 ``flash_attention_fwd_ref`` is the counterpart of repro's
 ``kernels/ref.py::attention_ref`` extended with ``q_offset`` and the
 logsumexp; ``flash_attention_bwd_ref`` of repro's Pallas backward (its
-formulas, not autograd); ``flash_attention_decode_ref`` of
-``models/attention.py::attend_cache``; ``flash_attention_paged_decode_ref``
-of ``models/attention.py::attend_paged`` (the table gather, then the
-decode).  A query row that sees no key at all (only possible with
-a window and an offset past the cache end) has no defined output: the
-TPU kernel returns an average that depends on its tile padding.  No
-caller produces such rows."""
+formulas, not autograd); ``flash_attention_decode_ref`` of repro's Pallas
+``flash_attention_decode`` (``models/attention.py::attend_cache`` but for
+an empty slot, see there); ``flash_attention_paged_decode_ref`` of
+``models/attention.py::attend_paged`` (the table gather, then the
+decode); ``ssd_ref`` of repro's ``kernels/ref.py::ssd_ref``, and
+``ssd_chunk_scan_split_ref`` of the CUDA scan's passes (tests only).  A
+query row that sees no key at all (only possible with a window and an
+offset past the cache end) has no defined output: the TPU kernel returns
+an average that depends on its tile padding.  No caller produces such
+rows."""
 from __future__ import annotations
 
 from typing import Optional
@@ -109,7 +112,12 @@ def flash_attention_decode_ref(q, k_cache, v_cache, lengths, *,
                                scale: Optional[float] = None):
     """q [B,H,hd] against caches [B,S,KV,hd] with per-slot valid
     ``lengths`` [B]; an optional ``window`` keeps positions
-    ``[len - window, len)``.  -> [B,H,hd] q.dtype."""
+    ``[len - window, len)``.  -> [B,H,hd] q.dtype.  V rows outside the
+    valid range are zeroed before P·V, as repro's Pallas decode kernel
+    does (``_clean``): a slot with no valid position (length 0) gives
+    exact zeros, where ``attend_cache``'s XLA softmax gives the mean of V
+    over all S positions.  A slot with a valid position gets the same
+    bits either way (P is exactly 0 off the valid range)."""
     b, h, hd = q.shape
     _, s, kv, _ = k_cache.shape
     check_gqa(h, kv)
@@ -125,7 +133,9 @@ def flash_attention_decode_ref(q, k_cache, v_cache, lengths, *,
     sc = torch.where(valid[:, None, None, :], sc,
                      torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(sc, -1)
-    out = torch.einsum("bKgc,bcKd->bKgd", p, v_cache.float())
+    vf = torch.where(valid[:, :, None, None], v_cache.float(),
+                     torch.zeros((), device=q.device))
+    out = torch.einsum("bKgc,bcKd->bKgd", p, vf)
     return out.reshape(b, h, hd).to(q.dtype)
 
 
@@ -232,3 +242,68 @@ def ssd_ref(xh, a_log, bb, cc):
          else torch.zeros((b, 0, h, p), dtype=torch.float32,
                           device=xh.device))
     return y, state
+
+
+def _split(t):
+    """hi = bf16(t) and lo = bf16(t - hi), as f32: the two bf16 operands
+    the CUDA scan makes of an f32 operand."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _split_mm(a, b):
+    """a @ b as the CUDA scan forms it on the tensor cores: hi.hi + hi.lo
+    + lo.hi (lo.lo dropped), each product of bf16 values exact in f32."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def ssd_chunk_scan_split_ref(xh, a_log, bb, cc, chunk: int):
+    """The CUDA chunk scan's passes in plain PyTorch (only the tests use
+    it): xh [B,S,H,P], a_log [B,S,H], bb/cc [B,S,N], S a multiple of the
+    chunk -> y [B,S,H,P] f32.  cum is the in-chunk prefix sum of a_log;
+    per chunk the local end state S_local = (tail o x)^T B; the states
+    carried across chunks as S = d S + S_local in chunk order, d the
+    chunk's clipped decay exp(clip(cum_last)), so the carried decay is a
+    product of per-chunk clipped decays; C.B^T formed once and shared by
+    the heads; y = exp(clip(cum_q)) C.S_prev^T + (C.B^T o L) x with L =
+    exp(clip(cum_q - cum_t)), exactly 0 above the diagonal.  Every
+    product takes its operands split into bf16 hi + lo (``_split_mm``),
+    as the kernel does."""
+    b, s, h, p = xh.shape
+    n = bb.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"S={s} is not a multiple of the chunk {q}")
+    nc = s // q
+
+    def clip_exp(t):
+        return torch.exp(t.clamp(-60.0, 0.0))
+
+    x = xh.float().reshape(b, nc, q, h, p)
+    cum = torch.cumsum(a_log.float().reshape(b, nc, q, h), 2)
+    bq = bb.float().reshape(b, nc, q, n)
+    cq = cc.float().reshape(b, nc, q, n)
+
+    tail = clip_exp(cum[:, :, -1:, :] - cum)                  # [B,nc,Q,H]
+    xt = (x * tail[..., None]).permute(0, 1, 3, 4, 2)          # [B,nc,H,P,Q]
+    s_local = _split_mm(xt, bq[:, :, None])                    # [B,nc,H,P,N]
+    decay = clip_exp(cum[:, :, -1, :])                         # [B,nc,H]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=xh.device)
+    prevs = []
+    for c in range(nc):
+        prevs.append(state)
+        state = decay[:, c, :, None, None] * state + s_local[:, c]
+    s_prev = torch.stack(prevs, 1)                             # [B,nc,H,P,N]
+
+    cb = _split_mm(cq, bq.transpose(-1, -2))                   # [B,nc,Q,T]
+    dec = clip_exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    mask = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
+    w = torch.where(mask[:, :, None], cb[..., None] * dec,
+                    torch.zeros((), device=xh.device))         # [B,nc,Q,T,H]
+    y_intra = _split_mm(w.permute(0, 1, 4, 2, 3),
+                        x.permute(0, 1, 3, 2, 4))              # [B,nc,H,Q,P]
+    din = clip_exp(cum).permute(0, 1, 3, 2)[..., None]         # [B,nc,H,Q,1]
+    y_inter = din * _split_mm(cq[:, :, None], s_prev.transpose(-1, -2))
+    return (y_inter + y_intra).permute(0, 1, 3, 2, 4).reshape(b, s, h, p)

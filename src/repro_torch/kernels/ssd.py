@@ -7,10 +7,18 @@ hybrid model's "chunked" route and the backward of the kernel route
 
 The wrapper checks what the kernel takes (device, f32, contiguity, shapes,
 ``S % chunk == 0``, P and N at most 64) and raises on anything else,
-allocates y with ``torch.empty``, launches on the current stream without
-synchronising, raises if the launch returned an error, and counts the
-launch in ``launches``.  It takes CUDA tensors only:
-``kernels/ops.py`` sends CPU tensors to the plain ``ref.ssd_ref``."""
+allocates y and the kernel's scratch (the in-chunk prefix sums ``cum``
+[B, H, S] and the states of all chunks but the last, [B, S / chunk - 1, H,
+P, N], f32) with ``torch.empty``, launches on the current stream without
+synchronising (three CUDA launches: the chunks' states, their carry, the
+output), raises if a launch returned an error, and counts the call once
+in ``launches``.
+The kernel reads xh, B and C by TMA, in rows of whole 16-byte units from
+16-byte aligned bases (``_check`` refuses a misaligned input): a P or N
+that is not a multiple of 4 is padded with zeros here (and y cut back).
+It takes
+CUDA tensors only: ``kernels/ops.py`` sends CPU tensors to the plain
+``ref.ssd_ref``."""
 from __future__ import annotations
 
 import ctypes
@@ -21,7 +29,7 @@ import torch
 from .flash_attention import _check, _check_cuda, _ptr, _raise_on
 
 MAX_DIM = 64              # largest P (head channels) and N (state)
-MAX_CHUNK = 8192          # cum and its decays live in shared memory
+MAX_CHUNK = 8192          # the largest chunk taken (the model's is 256)
 
 # launches since the last reset_launches(), read by chip_smoke.py
 launches: Dict[str, int] = {"ssd_chunk_scan": 0}
@@ -64,14 +72,28 @@ def ssd_chunk_scan(xh, a_log, bb, cc, *, chunk: int):
                          "it (models/mamba.ssd_dispatch does)")
     if q > MAX_CHUNK:
         raise ValueError(f"chunk {q} above the kernel's {MAX_CHUNK}")
+    pp, pn = -p % 4, -n % 4
+    xk, bk, ck = _pad_last(xh, pp), _pad_last(bb, pn), _pad_last(cc, pn)
+    yk = y if not pp else torch.empty_like(xk)
+    cum = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    s_local = torch.empty((b, s // q - 1, h, p + pp, n + pn),
+                          dtype=torch.float32, device=dev)
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.repro_ssd_chunk_scan(
-        _ptr(xh), _ptr(a_log), _ptr(bb), _ptr(cc), _ptr(y), b, s, h, p, n,
-        q, ctypes.c_void_p(stream))
+        _ptr(xk), _ptr(a_log), _ptr(bk), _ptr(ck), _ptr(yk), _ptr(cum),
+        _ptr(s_local), b, s, h, p + pp, n + pn, q, ctypes.c_void_p(stream))
     _raise_on(code, lib, "ssd_chunk_scan")
     launches["ssd_chunk_scan"] += 1
+    if pp:
+        y.copy_(yk[..., :p])
     return y
+
+
+def _pad_last(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t`` with its last axis zero-padded by ``pad`` (a new tensor), so
+    that its rows are whole 16-byte units for the kernel's tensor maps."""
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
 def pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:

@@ -532,8 +532,16 @@ def _ssd_err(y, y_ref):
     (2, 1024, 80, 64, 64, 256, 0.01),
     (1, 1024, 8, 64, 64, 128, 0.01),
     (1, 512, 8, 64, 64, 512, 0.01),    # every key tile, no carry
-    (2, 64, 16, 8, 8, 8, 0.01)])
+    (2, 64, 16, 8, 8, 8, 0.01),
+    # 16 chunks carried; a lone head in the last pair (H = 3); a ragged
+    # second query tile (chunk 96); P and N padded to whole 16-byte rows
+    (1, 4096, 16, 64, 64, 256, 0.01),
+    (2, 1024, 3, 64, 64, 256, 0.01),
+    (2, 960, 8, 64, 64, 96, 0.01),
+    (2, 192, 5, 6, 10, 64, 0.01)])
 def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, a):
+    """Within the band of the sequential recurrence, and the same bits
+    from a second launch."""
     from repro_torch.kernels import ssd
 
     xh, al, bb, cc = _ssd_inputs(cuda, b, s, h, p, n, seed=s + h, a=a)
@@ -543,6 +551,17 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, a):
     y_ref, _ = ref.ssd_ref(xh, al, bb, cc)
     assert bool(torch.isfinite(y).all())
     assert _ssd_err(y, y_ref) <= SSD_TOL
+    assert torch.equal(y, ops.ssd_chunk_scan(xh, al, bb, cc, chunk=chunk))
+
+
+def test_ssd_wrapper_refuses_a_misaligned_input(cuda):
+    """A contiguous view 4 bytes past a 16-byte boundary: the kernel's
+    tensor maps need 16-byte aligned bases, so the wrapper raises."""
+    xh, al, bb, cc = _ssd_inputs(cuda, 1, 128, 4, 16, 16, seed=9)
+    view = torch.empty(xh.numel() + 1, device=cuda)[1:].view(xh.shape)
+    assert view.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="aligned"):
+        ops.ssd_chunk_scan(view, al, bb, cc, chunk=64)
 
 
 def test_ssd_dispatch_pads_and_grads_on_card(cuda):

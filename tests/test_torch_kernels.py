@@ -143,6 +143,29 @@ def test_decode_ref_matches_pallas(heads, window):
                                rtol=TOL)
 
 
+@pytest.mark.parametrize("window", [None, 5])
+def test_decode_ref_empty_slot_matches_pallas(window):
+    """A slot of length 0 among live ones: repro's Pallas decode zeroes the
+    dead V rows (``_clean``) and returns exact zeros for it; so does the
+    plain version, and the live slots keep the 2e-5 band."""
+    b, s, h, kv, hd = 4, 20, 4, 2, 16
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    kc, vc = (torch.from_numpy(rng.standard_normal((b, s, kv, hd)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    lengths = np.array([0, 7, 13, s], np.int32)
+    o_j = flash_attention_decode(
+        jnp.asarray(q), jnp.asarray(kc.float().numpy(), jnp.bfloat16),
+        jnp.asarray(vc.float().numpy(), jnp.bfloat16), jnp.asarray(lengths),
+        window=window, block_k=8, interpret=True)
+    o_t = ref.flash_attention_decode_ref(
+        torch.from_numpy(q), kc, vc, torch.from_numpy(lengths),
+        window=window)
+    assert not o_t[0].any()
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=TOL,
+                               rtol=TOL)
+
+
 # (b, s, h, kv, hd), window, lengths, split: lengths at a split edge, one
 # past it, 1 and the whole cache; a window that starts inside split 1 and
 # spans two; g 6 at hd 128
@@ -296,9 +319,23 @@ def _imports(path):
             yield node.module or ""
 
 
+def test_ssd_ablation_edits_apply():
+    """ssd_ablation.py times the SSD kernel with parts of its source edited
+    out; every edit must still match the source it edits."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import ssd_ablation
+
+    text = (ROOT / "src/repro_torch/kernels/csrc/ssd_scan.cu").read_text()
+    missing = [(name, old[:60])
+               for name, edits in ssd_ablation.VARIANTS.items()
+               for old, _ in edits if old not in text]
+    assert not missing, missing
+
+
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "ssd_ablation.py"]
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]

@@ -10,7 +10,13 @@ Bands, each with its reason:
   the differentiable dispatch against repro's _ssd_dispatch("pallas"):
       5e-5 on values and grads, repro's TestSSDVjp band;
   one Mamba layer in f32: atol = rtol = 1e-5, the same f32 arithmetic up
-      to summation order.
+      to summation order;
+  ref.ssd_chunk_scan_split_ref (the CUDA scan's passes, every product on
+      operands split into bf16 hi + lo as the kernel splits them) against
+      repro's Pallas kernel and against ssd_ref: |err| <= 2e-4 x max(1,
+      max|y|), the band the card holds the kernel to (SSD_TOL in
+      chip_smoke.py and tests/test_torch_gpu.py), because the emulated
+      rounding is the kernel's.
 """
 import dataclasses
 
@@ -31,6 +37,12 @@ from repro_torch.models import mamba
 SSD_SHAPES = [(1, 64, 2, 8, 16, 16), (2, 128, 3, 8, 16, 32),
               (1, 128, 1, 16, 8, 64), (2, 64, 4, 4, 4, 64)]
 SSD_VJP_SHAPES = [(1, 64, 2, 8, 16, 32), (2, 96, 1, 8, 8, 64)]
+SSD_TOL = 2e-4
+# (b, s, h, p, n, chunk, a): SSD_SHAPES, a long-memory head (a = 0.01:
+# the carried states weigh in y), 8 chunks carried, P = N = 8 at chunk 8
+SPLIT_SHAPES = ([shape + (1.0,) for shape in SSD_SHAPES]
+                + [(2, 128, 3, 8, 16, 32, 0.01), (1, 256, 2, 8, 8, 32, 0.01),
+                   (2, 64, 3, 8, 8, 8, 0.01)])
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -96,6 +108,23 @@ def test_long_memory_head_scans_match_repro():
                                rtol=2e-5)
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=2e-5,
                                rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,a", SPLIT_SHAPES)
+def test_split_ref_matches_pallas_and_recurrence(b, s, h, p, n, chunk, a):
+    """The CUDA scan's arithmetic (chunk-local states, the carry as
+    products of per-chunk clipped decays, C.B^T shared by the heads, hi +
+    lo operands) against repro's Pallas kernel in interpret mode and the
+    sequential recurrence."""
+    ins = _inputs(b, s, h, p, n, seed=3 * s + h, a=a)
+    want = np.asarray(jax_ssd_chunk_scan(*map(jnp.asarray, ins), chunk=chunk,
+                                         interpret=True))
+    tins = tuple(map(torch.from_numpy, ins))
+    got = ref.ssd_chunk_scan_split_ref(*tins, chunk).numpy()
+    seq = ref.ssd_ref(*tins)[0].numpy()
+    for other in (want, seq):
+        band = SSD_TOL * max(1.0, float(np.abs(other).max()))
+        assert float(np.abs(got - other).max()) <= band
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_VJP_SHAPES)
