@@ -67,6 +67,20 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      flash_fwd = 28 x parallel prefill chunks, flash_decode = 0), no plain
      call, no non-finite logit; then the reduced model on the card against
      the same model on the CPU;
+  4e. plan: a world-1 NCCL group (TCP store on 127.0.0.1) and a (1, 1)
+     ("data", "model") DeviceMesh; the port's solver (H100 constants)
+     solves qwen2-1.5b's 16 x 2048 decode shape for the (1, 1), (4, 2)
+     and (2, 4) meshes and prints each plan and its solve time (the last
+     two solved only); phase 4's workload on phase 4's weights under the
+     (1, 1) plan (params and cache as DTensors, attention through
+     local_map): phase 4's streams token for token, flash_fwd and
+     flash_decode launched as often as in phase 4, no plan fallback, no
+     plain call, no non-finite logit; a decode step's host and device ms
+     with and without the plan; then the gathered route (the cache's cut
+     on seq_kv, which has no local-shard rule) on 4 requests: the
+     kernels launched on the gathered cache, every call counted in
+     plan_fallbacks, the streams of the same requests with no plan; the
+     group is torn down after;
   4b. train: qwen2-1.5b at full width, f32 master weights, global batch
      4 x 1024 in 2 microbatches, AdamW lr 3e-4 with 2 warmup steps, 12
      steps through launch.train's runner; every loss finite, the last
@@ -1121,6 +1135,29 @@ def time_bwd(dev, timer, rnd, b, h, kv, hd):
     return out_rec
 
 
+def checked_server():
+    """A Server that counts the non-finite logits of every prefill and
+    decode step."""
+    from repro_torch.runtime.serve import Server
+
+    class CheckedServer(Server):
+        nonfinite = 0
+
+        def _admit(self, req, slot, method="chunked"):
+            ev = super()._admit(req, slot, method)
+            self.nonfinite += int((~np.isfinite(
+                self.prefill_logits[slot])).sum())
+            return ev
+
+        def decode_once(self, forced_tokens=None):
+            ev = super().decode_once(forced_tokens)
+            if ev:
+                self.nonfinite += int((~torch.isfinite(
+                    self.last_logits)).sum())
+            return ev
+    return CheckedServer
+
+
 def serve_full_width(dev, tag, profile=False):
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
@@ -1144,23 +1181,7 @@ def serve_full_width(dev, tag, profile=False):
                             size=int(rng.integers(256, 1537))).tolist()
                for _ in range(32)]
 
-    class CheckedServer(Server):
-        """Counts non-finite logits of every prefill and decode step."""
-        nonfinite = 0
-
-        def _admit(self, req, slot, method="chunked"):
-            ev = super()._admit(req, slot, method)
-            self.nonfinite += int((~np.isfinite(
-                self.prefill_logits[slot])).sum())
-            return ev
-
-        def decode_once(self, forced_tokens=None):
-            ev = super().decode_once(forced_tokens)
-            if ev:
-                self.nonfinite += int((~torch.isfinite(
-                    self.last_logits)).sum())
-            return ev
-
+    CheckedServer = checked_server()
     warm = Server(model, params, scfg)      # first launches, cuBLAS set-up
     warm.admit(prompts[0][:300], 0, max_new_tokens=2)
     warm.run()
@@ -1389,6 +1410,234 @@ def serve_paged(base, lin_decode, dev, tag):
           f"times, P3 re-linked {out['P3']['prompt_cache_hits']} prompt "
           f"tokens {tag}")
     return out, total
+
+
+# 4e: the plan path.  The decode shape the serving harness solves for,
+# and the meshes whose plans are printed (solved only: one card here).
+PLAN_SHAPE = ("serve16x2048", 2048, 16, "decode")
+PLAN_MESHES = ((1, 1), (4, 2), (2, 4))
+PLAN_STEPS = 8          # decode steps timed with and without the plan
+# the gathered route: requests, prompt tokens and tokens generated each
+FALLBACK_REQS, FALLBACK_PROMPT, FALLBACK_GEN = 4, 600, 8
+
+
+def decode_step_times(srv, n, tag, label):
+    """Host and device ms of ``n`` decode steps of a full pool: the host
+    ms is the wall time of the ``LM.decode_step`` call (its enqueue; the
+    step reads nothing back), the wall ms that of ``n`` steps ended by a
+    device sync, and the device ms the kernels' device time per step
+    under torch.profiler (a separate run of ``n`` steps)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+
+    tokens = torch.as_tensor(srv.next_tok, device=srv.device)
+    active = torch.as_tensor(srv.active, device=srv.device)
+
+    def step():
+        srv.model.decode_step(srv.params, srv.cache, tokens, active)
+
+    step()
+    torch.cuda.synchronize()
+    host = []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        t = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3 / n
+    rec = dict(host_ms=float(np.mean(host)), wall_ms=wall_ms,
+               device_ms=dev_ms)
+    print(f"plan: decode step {label}: host {rec['host_ms']:.3f} ms, wall "
+          f"{wall_ms:.3f} ms (n {n}, synced at the end), device "
+          f"{dev_ms:.3f} ms (profiler) {tag}")
+    return rec
+
+
+def serve_plan(base, lin_launches, dev, tag):
+    """Phase 4e: phase 4's workload on phase 4's weights under the solved
+    (1, 1) decode plan, on a world-1 NCCL group and a (1, 1) DeviceMesh.
+    The streams must be phase 4's token for token, flash_fwd and
+    flash_decode must launch as often as in phase 4, no attention may
+    fall back to the plain path, no plain version may run, no logit may
+    be non-finite.  Also prints the (4, 2) and (2, 4) plans (solved
+    only), the solve times, and a decode step's host and device ms with
+    and without the plan.  Tears the group down before it returns."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.compile import plan_from_record, solve_cell_plan
+    from repro_torch.launch.mesh import (free_port, init_distributed,
+                                         make_mesh, solver_axes)
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    lin_model, params, prompts, lin_streams = base
+    cfg = lin_model.cfg
+    L = cfg.n_layers
+    init_distributed("cuda", 0, 1, free_port())
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    print(f"plan: {dist.get_backend()} group of {dist.get_world_size()}, "
+          f"mesh {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}")
+    shape = ShapeConfig(*PLAN_SHAPE)
+    plans, solves = {}, {}
+    for m in PLAN_MESHES:
+        name = f"{m[0]}x{m[1]}"
+        t0 = time.perf_counter()
+        rec = solve_cell_plan(cfg, shape, solver_axes(m), f"mesh{name}",
+                              use_cache=False)
+        solves[name] = dict(solve_s=time.perf_counter() - t0,
+                            total_bytes=rec["total_bytes"],
+                            role_cuts=rec["role_cuts"])
+        plans[m] = plan_from_record(rec)
+        print(f"plan: {cfg.name} {shape.name} on a {name} mesh (data, "
+              f"model), solved in {solves[name]['solve_s']:.3f} s, "
+              f"solver cost {rec['total_bytes']:.6g} (bytes, with the "
+              f"capacity term's)"
+              f"{' (solved only: one card here)' if m != (1, 1) else ''}:")
+        print(plans[m].describe())
+    plan = plans[(1, 1)]
+
+    CheckedServer = checked_server()
+    scfg = ServeConfig(slots=16, max_len=2048, prefill_chunk=256)
+    model = LM(cfg, plan=plan, mesh=mesh)
+    warm = Server(model, params, scfg)      # DTensor's first ops
+    warm.admit(prompts[0][:300], 0, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    srv = CheckedServer(model, params, scfg)
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    rec = run_workload(srv, [(0.0, p) for p in prompts], gen=32)
+    launches = dict(fa.launches)
+    plain, fallbacks = dict(ops.plain_calls), dict(ops.plan_fallbacks)
+    streams = {r: list(t) for r, t in srv.outputs.items()}
+    print(f"plan: {rec['requests']} requests, {srv.prefill_dispatches} "
+          f"prefill dispatches, {srv.decode_dispatches} decode dispatches; "
+          f"launches {launches}, plain calls {plain}, plan fallbacks "
+          f"{fallbacks}")
+    for k in ("flash_fwd", "flash_decode"):
+        if launches[k] != lin_launches[k]:
+            fail(f"plan: {k} launched {launches[k]} times, phase 4 "
+                 f"{lin_launches[k]}")
+    if launches["flash_fwd"] != L * srv.prefill_dispatches:
+        fail(f"plan: flash_fwd {launches['flash_fwd']} != {L} x "
+             f"{srv.prefill_dispatches}")
+    if launches["flash_decode"] != L * srv.decode_dispatches:
+        fail(f"plan: flash_decode {launches['flash_decode']} != {L} x "
+             f"{srv.decode_dispatches}")
+    if any(fallbacks.values()):
+        fail(f"plan: an attention call fell back to the plain path: "
+             f"{fallbacks}")
+    if any(plain.values()):
+        fail(f"plan: a plain version ran on the plan path: {plain}")
+    if srv.nonfinite:
+        fail(f"plan: {srv.nonfinite} non-finite logits")
+    if streams != lin_streams:
+        bad = [r for r in lin_streams if streams.get(r) != lin_streams[r]]
+        fail(f"plan: streams differ from phase 4's for requests {bad}")
+    ms = 1e3
+    print(f"plan metrics: prefill {rec['prefill_tok_per_s']:.1f} tok/s, "
+          f"decode {rec['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{rec['ttft_p50_s'] * ms:.1f} ms, ITL p50 "
+          f"{rec['itl_p50_s'] * ms:.2f} ms, wall {rec['wall_s']:.2f} s "
+          f"{tag}")
+    print(f"plan: the (1, 1) plan's streams equal phase 4's token for "
+          f"token; launches equal phase 4's; 0 fallbacks, 0 plain calls "
+          f"{tag}")
+    slim = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+    slim.update(prefill_dispatches=srv.prefill_dispatches,
+                decode_dispatches=srv.decode_dispatches, launches=launches,
+                plan_fallbacks=fallbacks, solves=solves)
+    del srv
+
+    # a decode step of a full pool (16 slots at up to 1000 cached tokens)
+    # with and without the plan, on the same weights and prompts
+    steps = {}
+    for label, m in (("without the plan", lin_model),
+                     ("with the plan", model)):
+        srv = Server(m, params, scfg)
+        for s in range(scfg.slots):
+            srv.admit(prompts[s][:1000], s, max_new_tokens=1000)
+        torch.cuda.synchronize()
+        steps[label] = decode_step_times(srv, PLAN_STEPS, tag, label)
+        del srv
+    slim["decode_step"] = steps
+    slim["fallback"] = serve_fallback(lin_model, params, prompts, plan,
+                                      mesh, scfg, tag)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return slim, launches
+
+
+def serve_fallback(lin_model, params, prompts, plan, mesh, scfg, tag):
+    """The gathered route of a plan on the card: with the cache's cut
+    moved to ``seq_kv`` (which would split the softmax) no attention call
+    has a local-shard rule, so each gathers the query and the layer's
+    cache and runs the kernel on them.  A few requests, against the
+    server with no plan on the same requests: the same streams, flash_fwd
+    and flash_decode launched once a layer a dispatch as there, every
+    attention call counted in ``plan_fallbacks``, no plain call, no
+    non-finite logit."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+
+    L = lin_model.cfg.n_layers
+    fb_plan = plan.with_override("kv_cache",
+                                 {"data": "batch", "model": "seq_kv"})
+    CheckedServer = checked_server()
+    out = {}
+    for label, m in (("no plan", lin_model),
+                     ("seq_kv cut", LM(lin_model.cfg, plan=fb_plan,
+                                       mesh=mesh))):
+        srv = CheckedServer(m, params, scfg)
+        fa.reset_launches()
+        ops.reset_plain_calls()
+        for p in prompts[:FALLBACK_REQS]:
+            srv.submit(p[:FALLBACK_PROMPT], max_new_tokens=FALLBACK_GEN)
+        streams = srv.run()
+        out[label] = dict(
+            streams={r: list(t) for r, t in streams.items()},
+            launches={k: fa.launches[k]
+                      for k in ("flash_fwd", "flash_decode")},
+            plain=dict(ops.plain_calls), fallbacks=dict(ops.plan_fallbacks),
+            prefill=srv.prefill_dispatches, decode=srv.decode_dispatches,
+            nonfinite=srv.nonfinite)
+        del srv
+    ref, got = out["no plan"], out["seq_kv cut"]
+    print(f"plan fallback: {got['prefill']} prefill and {got['decode']} "
+          f"decode dispatches; launches {got['launches']}, plan fallbacks "
+          f"{got['fallbacks']}, plain calls {got['plain']} {tag}")
+    want = {"prefill_attention": L * got["prefill"],
+            "attend_cache": L * got["decode"]}
+    if got["fallbacks"] != want:
+        fail(f"plan fallback: counted {got['fallbacks']}, want {want}")
+    if got["launches"] != ref["launches"] or got["launches"] != {
+            "flash_fwd": L * got["prefill"],
+            "flash_decode": L * got["decode"]}:
+        fail(f"plan fallback: launches {got['launches']}, without the "
+             f"plan {ref['launches']}")
+    if any(got["plain"].values()) or got["nonfinite"]:
+        fail(f"plan fallback: plain calls {got['plain']}, "
+             f"{got['nonfinite']} non-finite logits")
+    if got["streams"] != ref["streams"]:
+        fail("plan fallback: streams differ from the server with no plan")
+    print(f"plan fallback: the gathered route's streams equal the "
+          f"unplanned server's; every attention call launched its kernel "
+          f"{tag}")
+    return {k: v for k, v in got.items() if k != "streams"}
 
 
 def profile_serve(model, params, scfg, prompts, tag):
@@ -1848,6 +2097,9 @@ def main() -> int:
     # 4c. the paged tier on the same weights, held to phase 4's streams
     paged_rec, paged_launches = serve_paged(
         base, serve_rec["decode_dispatches"], dev, tag)
+    # 4e. the same workload under the solved (1, 1) plan on a DeviceMesh
+    plan_rec, plan_launches = serve_plan(base, serve_launches, dev, tag)
+    print(f"phase 4e done at {time.perf_counter() - t_start:.1f}s")
     del base
     gc.collect()
     torch.cuda.empty_cache()
@@ -1883,7 +2135,8 @@ def main() -> int:
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
 
     # 6. the kernels line: launches are those of the main paths (linear
-    # serving, the four paged runs, training, hybrid training)
+    # serving, the four paged runs, serving under the plan, training,
+    # hybrid training)
     fa_py = "src/repro/kernels/flash_attention.py"
     replaces = {"flash_fwd": f"{fa_py}:146 and {fa_py}:191",
                 "flash_decode": f"{fa_py}:280",
@@ -1905,8 +2158,8 @@ def main() -> int:
             "name": k, "route": "cuda", "source": sources[k],
             "replaces": replaces[k],
             "launches": sum(run.get(k, 0) for run in (
-                serve_launches, paged_launches, train_launches,
-                hybrid_launches)),
+                serve_launches, paged_launches, plan_launches,
+                train_launches, hybrid_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in checks[k]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1916,7 +2169,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(dict(
             device=name, nvidia_smi=smi, torch=torch.__version__,
             build=build.build_info, hgmma=hgmma, checks=checks, times=times,
-            serve=serve_rec, paged=paged_rec,
+            serve=serve_rec, paged=paged_rec, plan=plan_rec,
             reduced_card_vs_cpu=reduced_err,
             train=train_rec, reduced_train_card_vs_cpu=reduced_train,
             hybrid_train=hybrid_rec,

@@ -2,7 +2,9 @@
 
 Every architecture gets a ``configs/<id>.py`` exporting CONFIG with the
 published numbers.  ``reduced()`` derives the CPU-test variant (same
-family, tiny sizes).  The port runs the dense family and trains the
+family, tiny sizes).  ``ShapeConfig`` / ``SHAPES`` name the solver's
+cells (sequence length, global batch, kind), and ``param_count`` is
+repro's approximate count.  The port runs the dense family and trains the
 hybrid one (zamba2); the other families' fields stay so that a config
 reads the same in both packages."""
 from __future__ import annotations
@@ -68,6 +70,47 @@ class ArchConfig:
     def d_inner(self) -> int:
         return (self.ssm.expand * self.d_model) if self.ssm else 0
 
+    def param_count(self) -> float:
+        """Approximate total parameter count (repro's rule)."""
+        d, V = self.d_model, self.vocab
+        n = V * d * (1 if self.tie_embeddings else 2)
+        n += self._layer_params()
+        return n
+
+    def _layer_params(self) -> float:
+        d, L = self.d_model, self.n_layers
+        hd, H, KV = self.hd, self.n_heads, self.n_kv_heads
+        attn = d * (H * hd) + 2 * d * (KV * hd) + (H * hd) * d
+        if self.xlstm is not None:
+            x = self.xlstm
+            per_s = 3 * d * d * x.proj_factor_slstm + d * d  # rough sLSTM
+            per_m = 3 * d * d * x.proj_factor_mlstm + d * d  # rough mLSTM
+            return L / 2 * (per_s + per_m)
+        if self.family in ("ssm", "hybrid") and self.ssm is not None:
+            di = self.d_inner
+            per_ssm = d * (2 * di) + di * d + di * 2 * self.ssm.state_dim
+            n = L * per_ssm
+            if self.attn_every:
+                # one shared block (applied L//attn_every times, params once)
+                n += attn + 3 * d * self.d_ff
+            return n
+        if self.moe is not None:
+            e = self.moe
+            per = attn + d * e.n_experts + e.n_experts * 3 * d * e.d_ff_expert
+            return L * per
+        return L * (attn + 3 * d * self.d_ff)
+
+    def active_param_count(self) -> float:
+        """Activated params per token (MoE: top_k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        hd, H, KV = self.hd, self.n_heads, self.n_kv_heads
+        attn = d * (H * hd) + 2 * d * (KV * hd) + (H * hd) * d
+        e = self.moe
+        per = attn + d * e.n_experts + e.top_k * 3 * d * e.d_ff_expert
+        return 2 * self.vocab * d + L * per
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (same rule as repro)."""
         def shrink_moe(m: Optional[MoECfg]) -> Optional[MoECfg]:
@@ -92,6 +135,26 @@ class ArchConfig:
                        chunk=8) if self.ssm else None,
             attn_every=2 if self.attn_every else 0,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 _REGISTRY: Dict[str, ArchConfig] = {}

@@ -13,7 +13,8 @@ device dispatch.  ``ssd_chunk_scan_diff`` is the counterpart of repro's
 ``models/mamba._ssd_pallas``: the forward through the device dispatch,
 the backward by autograd through the chunked ``ssd.ssd_scan``
 (repro's backward is ``jax.vjp`` of its XLA scan, not a kernel);
-``bwd_recomputes`` counts those backward passes."""
+``bwd_recomputes`` counts those backward passes, ``plan_fallbacks`` the
+attention calls under a sharding plan that could not take the kernel."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -30,10 +31,14 @@ plain_calls: Dict[str, int] = {"flash_attention_fwd_ref": 0,
                                "flash_attention_paged_decode_ref": 0,
                                "ssd_ref": 0}
 bwd_recomputes: Dict[str, int] = {"ssd_chunk_scan": 0}
+# attention calls under a sharding plan whose cut the kernel cannot run
+# on each rank's local shard (models/attention.py), which took the plain
+# attention on the gathered tensors instead
+plan_fallbacks: Dict[str, int] = {"attend_cache": 0, "prefill_attention": 0}
 
 
 def reset_plain_calls() -> None:
-    for counts in (plain_calls, bwd_recomputes):
+    for counts in (plain_calls, bwd_recomputes, plan_fallbacks):
         for name in counts:
             counts[name] = 0
 

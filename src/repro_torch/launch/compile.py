@@ -1,0 +1,64 @@
+"""Plan solve with an on-disk record cache (the port's counterpart of
+``repro.launch.compile``'s ``plan_cache_path`` / ``solve_cell_plan`` /
+``plan_from_record``).
+
+A record holds the solved role cuts and the solver's byte and second
+totals.  It has no ``breakdown`` (repro's as-executed wire-byte
+attribution): that needs the calibration projection of a verify layer the
+port does not have yet."""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Sequence
+
+from ..configs.base import ArchConfig, ShapeConfig
+from ..core.builders import build_graph
+from ..core.plan import ShardingPlan
+from ..core.solver import MeshAxis, solve_mesh
+from ..obs.tracing import span as _span
+
+CACHE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                         ".cache", "plans_torch")
+
+
+def plan_cache_path(arch: str, shape: str, mesh_name: str) -> str:
+    os.makedirs(CACHE_DIR, exist_ok=True)
+    return os.path.join(CACHE_DIR, f"{arch}_{shape}_{mesh_name}.json")
+
+
+def solve_cell_plan(cfg: ArchConfig, shape: ShapeConfig,
+                    axes: Sequence[MeshAxis], mesh_name: str,
+                    use_cache: bool = True) -> Dict[str, Any]:
+    """Solve (or load from cache) the tiling plan record for one cell on
+    explicit solver axes (repro's ``solve_cell_plan`` with its defaults:
+    no capacity escalation, no compute term, the default graph)."""
+    path = plan_cache_path(cfg.name, shape.name, mesh_name)
+    if use_cache and os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    g = build_graph(cfg, shape)
+    t0 = time.time()
+    with _span("compile.solve_plan", arch=cfg.name, shape=shape.name,
+               mesh=mesh_name):
+        sol = solve_mesh(g, axes)
+    plan = ShardingPlan.from_graph_solution(sol, g)
+    rec = {
+        "mesh_axes": list(plan.mesh_axis_names),
+        "role_cuts": plan.role_cuts,
+        "total_bytes": sol.total_bytes,
+        "per_axis_bytes": sol.per_axis_bytes,
+        "total_seconds": sol.total_seconds,
+        "solve_time": time.time() - t0,
+    }
+    tmp = f"{path}.{os.getpid()}.tmp"   # ranks may solve the same cell
+    with open(tmp, "w") as f:
+        json.dump(rec, f, indent=1)
+    os.replace(tmp, path)
+    return rec
+
+
+def plan_from_record(rec: Dict[str, Any]) -> ShardingPlan:
+    return ShardingPlan(tuple(rec["mesh_axes"]),
+                        {r: dict(c) for r, c in rec["role_cuts"].items()})

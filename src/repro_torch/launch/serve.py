@@ -11,14 +11,27 @@ throughput and TTFT / inter-token latency percentiles (counterpart of
   # the paged tier on a small pool, with speculative decoding:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --reduced --device cpu --paged --n-blocks 9 --spec-k 4
+  # under the solved decode plan on a 4x2 mesh of 8 gloo ranks:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+      --reduced --device cpu --mesh 4x2 --plan auto --slots 8
 
 Runs on the card unless ``--device cpu`` is given; without a card and
 without ``--device cpu`` it raises.  Weights are random, from
-``torch.Generator(--seed)``."""
+``torch.Generator(--seed)``.
+
+``--mesh DxM`` serves on a ("data", "model") DeviceMesh of D*M ranks:
+gloo ranks with ``--device cpu``, otherwise NCCL, one rank a card.  Under
+``torchrun --nproc-per-node D*M`` each process is a rank; run directly,
+the module spawns the D*M ranks itself.  ``--plan auto`` solves the
+decode tiling of ``ShapeConfig(f"serve{tag}{slots}x{max_len}")`` for the
+mesh (``launch/compile.solve_cell_plan``, cached under
+``.cache/plans_torch/``) and places params and cache with it; every rank
+runs the same scheduler, and rank 0 prints and writes the record."""
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -62,6 +75,12 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--spec-k", type=int, default=1,
                     help="self-speculative draft length per round "
                          "(1 = plain decode)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="e.g. 4x2: serve on a (data, model) mesh of D*M "
+                         "ranks (gloo with --device cpu, NCCL otherwise)")
+    ap.add_argument("--plan", default=None, choices=[None, "auto"],
+                    help="'auto' solves the decode tiling for the mesh "
+                         "and shards params+cache with it")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--device", default="cuda",
@@ -154,14 +173,68 @@ def run_workload(srv: Server, arrivals: Sequence[Tuple[float, List[int]]],
     }
 
 
+def _rank_main(rank: int, world: int, argv: List[str]) -> None:
+    if build_argparser().parse_args(argv).device == "cpu":
+        # CPU ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    main(argv)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    args = build_argparser().parse_args(argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    ap = build_argparser()
+    args = ap.parse_args(argv)
+    if args.plan and not args.mesh:
+        ap.error("--plan requires --mesh (the plan shards the pool across "
+                 "a mesh)")
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = LM(cfg)
-    params = model.init(args.seed, device=device)
+    plan = mesh = plan_rec = None
+    rank, ours = 0, False
+    if args.mesh:
+        import torch.distributed as dist
+
+        from .mesh import init_distributed, make_mesh, solver_axes, spawn
+        shape = tuple(int(s) for s in args.mesh.lower().split("x"))
+        world = int(np.prod(shape))
+        if not dist.is_initialized() and "RANK" not in os.environ:
+            # no launcher: start the ranks here, each running this main
+            spawn(_rank_main, world, device.type, (argv,))
+            return 0
+        ours = not dist.is_initialized()
+        rank, _ = init_distributed(device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        names = ("data", "model")[:len(shape)]
+        mesh = make_mesh(shape, names, device.type)
+        if args.plan == "auto":
+            from ..configs.base import ShapeConfig
+            from .compile import plan_from_record, solve_cell_plan
+            tag = "r" if args.reduced else ""
+            dshape = ShapeConfig(f"serve{tag}{args.slots}x{args.max_len}",
+                                 args.max_len, args.slots, "decode")
+            t0 = time.time()
+            plan_rec = solve_cell_plan(cfg, dshape,
+                                       solver_axes(shape, names),
+                                       mesh_name=f"mesh{args.mesh}")
+            plan = plan_from_record(plan_rec)
+            if rank == 0:
+                print(f"decode plan ({time.time() - t0:.2f}s, solve "
+                      f"{plan_rec['solve_time']:.2f}s):")
+                print(plan.describe())
+    try:
+        return _serve(args, cfg, device, plan, mesh, plan_rec, rank)
+    finally:
+        if ours:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, device, plan, mesh, plan_rec, rank: int) -> int:
+    model = LM(cfg, plan=plan, mesh=mesh)
+    params = LM(cfg).init(args.seed, device=device)
     scfg = ServeConfig(slots=args.slots, max_len=args.max_len,
                        prefill_chunk=args.chunk,
                        temperature=args.temperature, top_k=args.top_k,
@@ -189,8 +262,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "prompt_len": args.prompt_len, "chunk": args.chunk,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
-        "paged": args.paged, "spec_k": args.spec_k,
+        "paged": args.paged, "spec_k": args.spec_k, "mesh": args.mesh,
     }
+    if plan_rec is not None:
+        rec["plan"] = {k: plan_rec[k] for k in
+                       ("mesh_axes", "role_cuts", "total_bytes",
+                        "solve_time")}
+    if rank:
+        return 0
     if args.paged:
         rec["meta"]["block_len"] = args.block_len
         rec["meta"]["n_blocks"] = srv.n_blocks

@@ -6,12 +6,26 @@ repro's kernel route: a static ``q_offset`` of 0 goes through the
 differentiable ``ops.flash_attention`` (training), anything else through
 the forward-only offset kernel (chunked prefill).  ``impl`` exists for
 signature parity with repro, where it chose between XLA and Pallas; the
-port has one route, so it accepts only ``"auto"``."""
+port has one route, so it accepts only ``"auto"``.
+
+Under a sharding plan (``attend_cache_sharded``, ``prefill_attention_
+sharded``) the arguments are DTensors and the slot cache is updated in
+place, so the K/V write and the kernel run together on each rank's local
+shard through ``local_map`` (repro's ``shard_map`` rule).  The kernel
+takes the local shards when the cache's cut is on ``batch`` and/or
+``kv_heads`` only and each degree divides its dim; any other cut (a
+``seq_kv`` cut would split the softmax) gathers the query and the
+layer's cache whole on every rank and runs the same kernel on them, as
+repro runs its XLA attention on the global arrays there.  Each gather is
+counted in ``ops.plan_fallbacks``."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
+
+import torch
 
 from ..kernels import ops as kops
+from .sharding import global_offset
 
 IMPLS = ("auto",)
 
@@ -67,3 +81,156 @@ def attend_paged(q, k_pool, v_pool, table, length, *,
     _check_impl(impl)
     return kops.flash_attention_paged_decode(q, k_pool, v_pool, table,
                                              length, scale=scale)
+
+
+# -- under a sharding plan ----------------------------------------------------
+# Caches are [L, B, S, KV, hd] DTensors: tensor dims 1 (batch), 2 (seq_kv),
+# 3 (kv_heads).
+
+def kernel_placements(cache_placements: Sequence, mesh, b: int, h: int,
+                      kv: int, batch_dim: Optional[int], head_dim: int
+                      ) -> Optional[Tuple]:
+    """The shard rule: the query's placements for the kernel on local
+    shards, or None when the cache's cut cannot run there.  A mesh dim
+    that cuts the cache's batch cuts the query's ``batch_dim`` (None: a
+    one-row prefill chunk, replicated there, whose row one rank owns);
+    one that cuts ``kv_heads`` cuts its ``head_dim``; any other cut, or a
+    degree that does not divide B, KV or H, has no local rule."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    deg_b = deg_h = 1
+    for j, p in enumerate(cache_placements):
+        if isinstance(p, Replicate):
+            out.append(Replicate())
+        elif isinstance(p, Shard) and p.dim == 1:
+            deg_b *= mesh.size(j)
+            out.append(Replicate() if batch_dim is None else Shard(batch_dim))
+        elif isinstance(p, Shard) and p.dim == 3:
+            deg_h *= mesh.size(j)
+            out.append(Shard(head_dim))
+        else:
+            return None
+    if b % deg_b or kv % deg_h or h % deg_h:
+        return None
+    return tuple(out)
+
+
+def attend_cache_sharded(q, k, v, k_all, v_all, layer: int,
+                         idx: torch.Tensor, keep: torch.Tensor,
+                         length: torch.Tensor):
+    """A decode step's K/V write and attention for one layer under a
+    plan.  q [B,H,hd], the new k/v [B,KV,hd] and the caches ``k_all`` /
+    ``v_all`` [L,B,S,KV,hd] are DTensors; ``idx`` [B] (the write
+    position), ``keep`` [B] bool (write or drop) and ``length`` [B] are
+    plain tensors, the same on every rank.  Each rank writes the rows of
+    its local shard; then the kernel attends its shard, or, where the cut
+    has no local rule, the gathered query and caches.  Returns o
+    [B,H,hd] (DTensor)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k_all.device_mesh
+    b, h, _ = q.shape
+    qpl = kernel_placements(k_all.placements, mesh, b, h, k_all.shape[3],
+                            batch_dim=0, head_dim=1)
+    _, b0, s0, h0, d0 = global_offset(k_all)
+    rep = (Replicate(),) * mesh.ndim
+
+    def region(q_l, k_n, v_n, kc, vc):
+        bl, sl, kvl, hdl = kc.shape[1:]
+        if kc.numel():
+            # rows of this shard; a dropped row rewrites its own local
+            # position 0 with the value already there (rows are distinct,
+            # so no two writes collide)
+            rows = torch.arange(bl, device=kc.device)
+            lpos = idx[b0:b0 + bl].long() - s0
+            ok = keep[b0:b0 + bl] & (lpos >= 0) & (lpos < sl)
+            wpos = torch.where(ok, lpos, torch.zeros_like(lpos))
+            keep3 = ok[:, None, None]
+            for c, n in ((kc[layer], k_n), (vc[layer], v_n)):
+                new = n[b0:b0 + bl, h0:h0 + kvl, d0:d0 + hdl].to(c.dtype)
+                c[rows, wpos] = torch.where(keep3, new, c[rows, wpos])
+        if qpl is None:
+            return None
+        return kops.flash_attention_decode(q_l, kc[layer], vc[layer],
+                                           length[b0:b0 + bl])
+
+    # one output: its placements go as a list (a tuple would name several);
+    # None for the fallback's region, which returns None
+    o = local_map(region,
+                  out_placements=None if qpl is None else list(qpl),
+                  in_placements=(qpl if qpl is not None else q.placements,
+                                 rep, rep, k_all.placements,
+                                 v_all.placements),
+                  device_mesh=mesh, redistribute_inputs=True)(
+                      q, k, v, k_all, v_all)
+    if qpl is not None:
+        return o
+    kops.plan_fallbacks["attend_cache"] += 1
+    out = attend_cache(q.full_tensor(), k_all[layer].full_tensor(),
+                       v_all[layer].full_tensor(), length)
+    return DTensor.from_local(out, mesh, rep, run_check=False)
+
+
+def prefill_attention_sharded(q, k, v, k_all, v_all, layer: int, slot: int,
+                              pos0: torch.Tensor):
+    """A prefill chunk's K/V write and offset attention for one layer
+    under a plan.  q [1,C,H,hd] and the chunk's k/v [1,C,KV,hd] are
+    DTensors (one row, replicated over the cache's batch cut); the caches
+    [L,B,S,KV,hd] are DTensors; ``pos0`` [1] is the slot's position (a
+    plain tensor, the same on every rank).  The slot's row lives on the
+    ranks whose shard holds batch row ``slot``: only they write and
+    attend, the others give zeros, and the batch mesh dims sum the
+    result (one term is not zero).  Every rank joins the collectives
+    around the call.  Causal, no window (the parallel prefill's rule).
+    Returns o [1,C,H,hd] (DTensor)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k_all.device_mesh
+    _, c, h, _ = q.shape
+    qpl = kernel_placements(k_all.placements, mesh, k_all.shape[1], h,
+                            k_all.shape[3], batch_dim=None, head_dim=2)
+    _, b0, s0, h0, d0 = global_offset(k_all)
+    rep = (Replicate(),) * mesh.ndim
+
+    def region(q_l, k_n, v_n, kc, vc):
+        bl, sl, kvl, hdl = kc.shape[1:]
+        own = kc.numel() > 0 and b0 <= slot < b0 + bl
+        if own:
+            # the chunk lands on positions [pos0, pos0 + C) of the row;
+            # rebuild this shard's positions [s0, s0 + sl) of it
+            src = (torch.arange(s0, s0 + sl, device=kc.device)
+                   - pos0.long())
+            ok = ((src >= 0) & (src < c))[:, None, None]
+            src = src.clamp(0, c - 1)
+            for cc, n in ((kc[layer], k_n), (vc[layer], v_n)):
+                row = cc[slot - b0]                         # [sl,kvl,hdl]
+                new = n[0, src, h0:h0 + kvl, d0:d0 + hdl].to(cc.dtype)
+                row.copy_(torch.where(ok, new, row))
+        if qpl is None:
+            return None
+        if not own:
+            return torch.zeros_like(q_l)
+        r = slot - b0
+        o, _ = kops.flash_attention_fwd(
+            q_l, kc[layer][r:r + 1], vc[layer][r:r + 1], causal=True,
+            q_offset=pos0)
+        return o
+
+    # the batch mesh dims sum the owner's rows with the others' zeros
+    opl = None if qpl is None else [
+        Partial() if isinstance(p, Shard) and p.dim == 1 else
+        Shard(2) if isinstance(p, Shard) else Replicate()
+        for p in k_all.placements]
+    o = local_map(region, out_placements=opl,
+                  in_placements=(qpl if qpl is not None else q.placements,
+                                 rep, rep, k_all.placements,
+                                 v_all.placements),
+                  device_mesh=mesh, redistribute_inputs=True)(
+                      q, k, v, k_all, v_all)
+    if qpl is not None:
+        return o.redistribute(mesh, qpl)      # x + 0 + ... + 0: exact
+    kops.plan_fallbacks["prefill_attention"] += 1
+    kf = k_all[layer].full_tensor()[slot:slot + 1]
+    vf = v_all[layer].full_tensor()[slot:slot + 1]
+    out = attention(q.full_tensor(), kf, vf, causal=True, q_offset=pos0)
+    return DTensor.from_local(out, mesh, rep, run_check=False)

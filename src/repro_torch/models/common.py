@@ -1,7 +1,7 @@
 """Shared model components (counterpart of ``repro.models.common``).
 
 Params are plain dicts of tensors in JAX's ``[in, out]`` layout, used as
-``x @ w``.  ``shard`` waits for the mesh slice."""
+``x @ w``."""
 from __future__ import annotations
 
 import math
@@ -27,6 +27,34 @@ def device_sync(device: torch.device) -> Callable[[], None]:
     if device.type == "cuda":
         return lambda: torch.cuda.synchronize(device)
     return lambda: None
+
+
+def shard(x, plan, role: str, phys_dims: Sequence[str]):
+    """Redistribute DTensor ``x`` to the placements the plan gives
+    ``role`` (repro's ``with_sharding_constraint``).  A no-op without a
+    plan, for a role the plan does not know (replicating would be a
+    constraint too), and for a plain tensor.  A cut whose degree does not
+    divide its dim is left out (``sharding.even_placements``)."""
+    if plan is None or not plan.has_role(role):
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from .sharding import even_placements, spec_placements
+    mesh = x.device_mesh
+    pl = even_placements(spec_placements(plan.pspec(role, phys_dims),
+                                         mesh.mesh_dim_names),
+                         x.shape, mesh)
+    if tuple(pl) == tuple(x.placements):
+        return x
+    return x.redistribute(mesh, pl)
+
+
+def local(t):
+    """The local tensor of a DTensor (all of it when it is replicated),
+    or ``t`` itself."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,

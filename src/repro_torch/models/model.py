@@ -25,20 +25,31 @@ are given and return the same dict.  The writes repro drops with
 ``mode="drop"`` (inactive slots, a prefill chunk's tail past max_len) are
 masked here without ever indexing out of range or wrapping a negative
 index; in the paged pool they go to block 0, the null sink that the host
-allocator (runtime/paged.py) never hands out."""
+allocator (runtime/paged.py) never hands out.
+
+Under a sharding plan (``LM.plan`` with ``LM.mesh``; the linear tier's
+serving entry points only) params, cache and activations are DTensors:
+``shard`` redistributes the activations where repro constrains them, and
+each layer's K/V write and attention run on the local shards
+(``attention.attend_cache_sharded`` / ``prefill_attention_sharded``).
+Plain tensors (positions, lengths) join the DTensor ops as replicated
+(``implicit_replication``).  Without a plan every path runs as before."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from .attention import attend_cache, attend_paged, attention
-from .common import (dense_init, embed_init, resolve_device, rms_norm, rope,
-                     softmax_cross_entropy)
+from .attention import (attend_cache, attend_cache_sharded, attend_paged,
+                        attention, prefill_attention_sharded)
+from .common import (dense_init, embed_init, local, resolve_device, rms_norm,
+                     rope, shard, softmax_cross_entropy)
+from .sharding import global_offset
 from .mamba import SSD_IMPLS, mamba_forward, mamba_shapes
 
 Params = Dict[str, Any]
@@ -116,6 +127,11 @@ class LM:
     # CPU), "chunked" (repro's "xla"), or "auto" (the kernel on a CUDA
     # tensor, the chunked scan elsewhere)
     ssd_impl: str = "auto"
+    # a solved ShardingPlan and the DeviceMesh its axes name (repro's
+    # LM.plan / LM.mesh); runtime/serve.Server sets them for the linear
+    # tier's entry points, with the params and cache placed under it
+    plan: Any = None
+    mesh: Any = None
     # per-layer views of the last params["layers"] seen (built once, not
     # on every step); holds the dict itself so identity stays meaningful
     _views: Tuple[Any, List[Params]] = dataclasses.field(
@@ -140,6 +156,24 @@ class LM:
             raise NotImplementedError(
                 f"{self.cfg.name}: {what} of the hybrid family waits for the "
                 "hybrid serving slice (mamba_step, the shared ring cache)")
+
+    def _unplanned(self, what: str) -> None:
+        if self.plan is not None:
+            raise NotImplementedError(
+                f"{what} under a sharding plan waits for the paged and "
+                "speculative tiers' plan slice (ROADMAP A.1)")
+
+    def _shard(self, x, role: str, dims: Sequence[str]):
+        return shard(x, self.plan, role, dims)
+
+    def _dist(self):
+        """What a planned step runs in: plain tensors join DTensor ops as
+        replicated.  Nothing without a plan."""
+        if self.plan is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
 
     # -- params ------------------------------------------------------------
     def param_shapes(self) -> Params:
@@ -220,7 +254,9 @@ class LM:
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         w = (params["embed"].T if self.cfg.tie_embeddings
              else params["lm_head"])
-        return x @ w
+        dims = {1: ("vocab",), 2: ("batch", "vocab"),
+                3: ("batch", "seq", "vocab")}[x.ndim]
+        return self._shard(x @ w, "logits", dims)
 
     def _qkv(self, p: Params, x: torch.Tensor):
         q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
@@ -288,19 +324,26 @@ class LM:
         return ce + 0.01 * aux
 
     # -- the linear slot cache --------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, device="cuda") -> Cache:
-        """{"pos": [B] int32, "kv": {"k", "v": [L, B, S, KV, hd] bf16}}.
-        The cache is bf16 whatever the model dtype, as in repro."""
+    def cache_shapes(self, batch: int, max_len: int) -> Cache:
+        """The linear cache's tree of (shape, dtype): {"pos": [B] int32,
+        "kv": {"k", "v": [L, B, S, KV, hd] bf16}}.  The cache is bf16
+        whatever the model dtype, as in repro."""
         self._dense_only("init_cache")
         cfg = self.cfg
-        dev = resolve_device(device)
         s = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
         shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.hd)
-        return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-                "kv": {"k": torch.zeros(shape, dtype=torch.bfloat16,
-                                        device=dev),
-                       "v": torch.zeros(shape, dtype=torch.bfloat16,
-                                        device=dev)}}
+        return {"pos": ((batch,), torch.int32),
+                "kv": {"k": (shape, torch.bfloat16),
+                       "v": (shape, torch.bfloat16)}}
+
+    def init_cache(self, batch: int, max_len: int, device="cuda") -> Cache:
+        """The linear cache of ``cache_shapes``, zeroed."""
+        sh = self.cache_shapes(batch, max_len)
+        dev = resolve_device(device)
+        return {"pos": torch.zeros(sh["pos"][0], dtype=torch.int32,
+                                   device=dev),
+                "kv": {k: torch.zeros(shape, dtype=dt, device=dev)
+                       for k, (shape, dt) in sh["kv"].items()}}
 
     def init_cache_paged(self, batch: int, max_len: int, n_blocks: int,
                          block_len: int, device="cuda") -> Cache:
@@ -338,6 +381,14 @@ class LM:
         blocks are recycled by the host allocator, and a zeroed table row
         points at the null block."""
         self._dense_only("reset_slot")
+        if self.plan is not None and "kv" in cache:
+            # each rank zeroes the slot's row where its shard holds it
+            for t in (cache["kv"]["k"], cache["kv"]["v"]):
+                lt, b0 = local(t), global_offset(t)[1]
+                if lt.numel() and b0 <= slot < b0 + lt.shape[1]:
+                    lt[:, slot - b0].zero_()
+            local(cache["pos"])[slot] = 0
+            return cache
         if "pages" in cache:
             cache["pos"][slot] = 0
             cache["block_table"][slot].zero_()
@@ -365,27 +416,36 @@ class LM:
         ``active`` [B] bool: inactive rows keep their cache row and
         position (repro drops their write with an out-of-range index)."""
         self._dense_only("decode_step")
+        with self._dist():
+            return self._decode_step(params, cache, tokens, active)
+
+    def _decode_step(self, params: Params, cache: Cache,
+                     tokens: torch.Tensor, active: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Cache]:
         cfg = self.cfg
         hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-        pos = cache["pos"]
-        x = params["embed"][tokens]
+        bd = ("batch", "d_model")
+        pos = local(cache["pos"])
+        x = self._shard(params["embed"][tokens], "x", bd)
         b = x.shape[0]
         if "pages" in cache:
+            self._unplanned("the paged decode step")
             attend = self._paged_writer(cache, pos, active, b)
         else:
             attend = self._linear_writer(cache, pos, active, b)
         rpos = pos[:, None]
         for li, p in enumerate(self._layers(params)):
             pa = p["attn"]
-            xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+            xn = self._shard(rms_norm(x, p["ln1"], cfg.norm_eps), "x", bd)
             q, k, v = self._qkv(pa, xn)
+            q = self._shard(q, "wq.out", ("batch", "heads"))
             q = rope(q.reshape(b, 1, h, hd), rpos, cfg.rope_theta)[:, 0]
             k = rope(k.reshape(b, 1, kvh, hd), rpos, cfg.rope_theta)[:, 0]
             v = v.reshape(b, kvh, hd)
             o = attend(li, q, k, v)
-            x = x + o.reshape(b, h * hd) @ pa["wo"]
-            x = x + _mlp_forward(p["mlp"], rms_norm(x, p["ln2"],
-                                                    cfg.norm_eps))
+            x = self._shard(x + o.reshape(b, h * hd) @ pa["wo"], "x", bd)
+            xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bd)
+            x = self._shard(x + _mlp_forward(p["mlp"], xn), "x", bd)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         if active is None:
             pos += 1
@@ -405,10 +465,18 @@ class LM:
             ok = ok & active
         # a dropped row rewrites its own position 0 with the value already
         # there, so every index stays in range and no two rows collide
+        length = torch.clamp(pos + 1, max=S).to(torch.int32)
+        if self.plan is not None:
+            # the write's drop rule (slot < S) is applied shard by shard
+            keep = (torch.ones_like(ok) if active is None else active)
+
+            def attend_sharded(li, q, k, v):
+                return attend_cache_sharded(q, k, v, kc_all, vc_all, li,
+                                            slot, keep, length)
+            return attend_sharded
         idx = torch.where(ok, slot, torch.zeros_like(slot)).long()
         rows = torch.arange(b, device=pos.device)
         keep = ok[:, None, None]
-        length = torch.clamp(pos + 1, max=S).to(torch.int32)
 
         def attend(li, q, k, v):
             kc, vc = kc_all[li], vc_all[li]
@@ -463,6 +531,13 @@ class LM:
         steps decode_step over it; "scan" forces the stepwise path;
         "parallel" forces the parallel one."""
         self._dense_only("prefill_chunk")
+        with self._dist():
+            return self._prefill_chunk(params, cache, tokens, slot, n_valid,
+                                       impl)
+
+    def _prefill_chunk(self, params: Params, cache: Cache,
+                       tokens: torch.Tensor, slot: int, n_valid: int,
+                       impl: str) -> Tuple[torch.Tensor, Cache]:
         if impl not in PREFILL_IMPLS:
             raise ValueError(f"prefill impl must be one of {PREFILL_IMPLS}, "
                              f"got {impl!r}")
@@ -470,6 +545,7 @@ class LM:
             raise ValueError(f"n_valid={n_valid} outside [1, "
                              f"{tokens.shape[0]}]")
         if "pages" in cache:
+            self._unplanned("the paged prefill")
             # the pool has no slot axis: writes go through the slot's
             # table row instead of a batch-1 view
             if impl == "scan":
@@ -484,11 +560,13 @@ class LM:
             raise ValueError(
                 f"parallel prefill unsupported for {self.cfg.name} "
                 "(ring-buffer SWA cache)")
-        sub = self._slot_view(cache, slot)
         if parallel_ok and impl != "scan":
-            logits = self._prefill_chunk_attn(params, sub, tokens, n_valid)
+            logits = self._prefill_chunk_attn(params, cache, tokens, slot,
+                                              n_valid)
         else:
-            logits = self._prefill_chunk_scan(params, sub, tokens, n_valid)
+            self._unplanned("the scan prefill")
+            logits = self._prefill_chunk_scan(
+                params, self._slot_view(cache, slot), tokens, n_valid)
         return logits, cache
 
     def _prefill_chunk_scan(self, params: Params, sub: Cache,
@@ -500,44 +578,59 @@ class LM:
             logits, _ = self.decode_step(params, sub, tokens[i:i + 1])
         return logits[0].float()
 
-    def _prefill_chunk_attn(self, params: Params, sub: Cache,
-                            tokens: torch.Tensor, n_valid: int):
+    def _prefill_chunk_attn(self, params: Params, cache: Cache,
+                            tokens: torch.Tensor, slot: int, n_valid: int):
         """Parallel chunk prefill: write the chunk's K/V at its absolute
         positions and attend its queries against the slot's whole cache
         with the causal offset ``pos``, read on the device."""
         cfg = self.cfg
         hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-        pos0 = sub["pos"]                                   # [1] int32
-        kc_all, vc_all = sub["kv"]["k"], sub["kv"]["v"]     # [L,1,S,KV,hd]
-        S = kc_all.shape[2]
+        bsd = ("batch", "seq", "d_model")
         c = tokens.shape[0]
-        x = params["embed"][tokens][None]                   # [1, C, D]
+        if self.plan is not None:
+            pos0 = local(cache["pos"])[slot:slot + 1]       # [1] int32
+        else:
+            sub = self._slot_view(cache, slot)
+            pos0 = sub["pos"]                               # [1] int32
+        x = self._shard(params["embed"][tokens][None], "x", bsd)  # [1,C,D]
         positions = (pos0.long() + torch.arange(c, device=x.device))[None]
-        # rows at or past S are dropped, as repro's mode="drop".  Only the
-        # first min(C, S) rows can land; each dropped one rewrites, with
-        # its own old value, position idx - S, which lies below pos0 and
-        # so collides with no kept row.
-        cw = min(c, S)
-        idx = positions[0, :cw]
-        ok = idx < S
-        widx = torch.where(ok, idx, idx - S)
-        keep = ok[:, None, None]
+        if self.plan is not None:
+            def attend(li, q, k, v):
+                return prefill_attention_sharded(
+                    q, k, v, cache["kv"]["k"], cache["kv"]["v"], li, slot,
+                    pos0)
+        else:
+            kc_all, vc_all = sub["kv"]["k"], sub["kv"]["v"]  # [L,1,S,KV,hd]
+            S = kc_all.shape[2]
+            # rows at or past S are dropped, as repro's mode="drop".  Only
+            # the first min(C, S) rows can land; each dropped one rewrites,
+            # with its own old value, position idx - S, which lies below
+            # pos0 and so collides with no kept row.
+            cw = min(c, S)
+            idx = positions[0, :cw]
+            ok = idx < S
+            widx = torch.where(ok, idx, idx - S)
+            keep = ok[:, None, None]
+
+            def attend(li, q, k, v):
+                kc, vc = kc_all[li], vc_all[li]             # [1,S,KV,hd]
+                kc[0, widx] = torch.where(
+                    keep, k[0, :cw].to(torch.bfloat16), kc[0, widx])
+                vc[0, widx] = torch.where(
+                    keep, v[0, :cw].to(torch.bfloat16), vc[0, widx])
+                return attention(q, kc, vc, causal=True, q_offset=pos0)
         for li, p in enumerate(self._layers(params)):
             pa = p["attn"]
-            xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+            xn = self._shard(rms_norm(x, p["ln1"], cfg.norm_eps), "x", bsd)
             q, k, v = self._qkv(pa, xn)
+            q = self._shard(q, "wq.out", ("batch", "seq", "heads"))
             q = rope(q.reshape(1, c, h, hd), positions, cfg.rope_theta)
             k = rope(k.reshape(1, c, kvh, hd), positions, cfg.rope_theta)
             v = v.reshape(1, c, kvh, hd)
-            kc, vc = kc_all[li], vc_all[li]                 # [1,S,KV,hd]
-            kc[0, widx] = torch.where(keep, k[0, :cw].to(torch.bfloat16),
-                                      kc[0, widx])
-            vc[0, widx] = torch.where(keep, v[0, :cw].to(torch.bfloat16),
-                                      vc[0, widx])
-            o = attention(q, kc, vc, causal=True, q_offset=pos0)
-            x = x + o.reshape(1, c, h * hd) @ pa["wo"]
-            x = x + _mlp_forward(p["mlp"], rms_norm(x, p["ln2"],
-                                                    cfg.norm_eps))
+            o = attend(li, q, k, v)
+            x = self._shard(x + o.reshape(1, c, h * hd) @ pa["wo"], "x", bsd)
+            xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bsd)
+            x = self._shard(x + _mlp_forward(p["mlp"], xn), "x", bsd)
         # only the last valid row's logits are returned, so only that row
         # goes through the final norm and the head
         last = rms_norm(x[0, n_valid - 1], params["ln_f"], cfg.norm_eps)
@@ -619,6 +712,7 @@ class LM:
         ``positions + 1`` (the reference's gather, then attend_cache, with
         no [N, MB*BL, KV, hd] view built); on a linear cache the rows'
         caches are gathered and attended, as the reference does."""
+        self._unplanned("the speculative re-score")
         cfg = self.cfg
         hd, h = cfg.hd, cfg.n_heads
         n = tokens.shape[0]

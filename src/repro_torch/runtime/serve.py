@@ -38,8 +38,17 @@ Paged tier (``ServeConfig.paged``):
   tokens always come from the draft, so the stream equals sequential
   decoding while tokens arrive up to ``spec_k`` per round.
 
-Plan sharding and the obs wiring are not ported yet: ``Server`` takes no
-mesh, plan, registry or monitor."""
+Plan sharding (the linear tier): a model with ``LM.plan`` and
+``LM.mesh`` serves under ``plan.for_pool(slots, axis sizes)``: the params
+(full tensors, the same on every rank, or DTensors placed already) are
+placed as DTensors by ``models/sharding.py``'s rules, and each rank
+allocates only its own shard of the linear cache.  Every rank runs this
+same host scheduler from the same seed (SPMD) and joins every step's
+collectives; the logits that sampling reads are gathered whole on every
+rank, so every rank takes the same decisions.  The paged tier,
+speculative decoding and the hybrid family under a plan raise
+``NotImplementedError`` (ROADMAP A.1).  The obs wiring is not ported
+yet: ``Server`` takes no registry or monitor."""
 from __future__ import annotations
 
 import collections
@@ -50,7 +59,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.model import LM, paged_ok
+from ..models.common import local
+from ..models.model import LM, is_hybrid, paged_ok
 from .paged import BlockPool, NoFreeBlocks, PrefixTrie
 
 # budget sentinel for "generate until EOS / cache full"
@@ -142,9 +152,30 @@ class Server:
     def __init__(self, model: LM, params: Dict[str, Any], scfg: ServeConfig):
         self.scfg = scfg
         self.device = params["embed"].device
+        n = scfg.slots
+        self.mesh, self.plan = model.mesh, model.plan
+        self.sharded = self.plan is not None
+        if self.sharded:
+            if self.mesh is None:
+                raise ValueError("a sharding plan needs LM.mesh to place on")
+            for what, unported in (("the paged tier", scfg.paged),
+                                   ("speculative decoding", scfg.spec_k > 1),
+                                   ("the hybrid family",
+                                    is_hybrid(model.cfg))):
+                if unported:
+                    raise NotImplementedError(
+                        f"{what} under a sharding plan is not ported yet "
+                        "(ROADMAP A.1: the block_table role, the plan "
+                        "slices of the paged tier and of hybrid serving)")
+            sizes = dict(zip(self.mesh.mesh_dim_names,
+                             self.mesh.mesh.shape))
+            self.plan = self.plan.for_pool(n, sizes)
+            model = dataclasses.replace(model, plan=self.plan,
+                                        mesh=self.mesh)
+            from ..models.sharding import place_tree
+            params = place_tree(params, self.mesh, self.plan)
         self.model = model
         self.params = params
-        n = scfg.slots
         self.active = np.zeros((n,), bool)
         self.next_tok = np.zeros((n,), np.int64)
         self.pos = np.zeros((n,), np.int64)          # mirror of cache pos
@@ -194,6 +225,12 @@ class Server:
             self.n_slot_blocks = np.zeros((n,), np.int64)
             self.cache = self.model.init_cache_paged(
                 n, scfg.max_len, nb, self.bl, device=self.device)
+        elif self.sharded:
+            # each rank allocates only its shard of the cache
+            from ..models.sharding import CACHE_RULES, zeros_tree
+            self.cache = zeros_tree(
+                self.model.cache_shapes(n, scfg.max_len), self.mesh,
+                self.plan, CACHE_RULES, device=self.device)
         else:
             self.cache = self.model.init_cache(n, scfg.max_len,
                                                device=self.device)
@@ -217,7 +254,7 @@ class Server:
             self.cache["block_table"].copy_(torch.from_numpy(self.table))
             self._table_dirty = False
         if self._pos_dirty:
-            self.cache["pos"].copy_(
+            local(self.cache["pos"]).copy_(
                 torch.from_numpy(self.pos.astype(np.int32)))
             self._pos_dirty = False
 
@@ -226,6 +263,13 @@ class Server:
         return [torch.Generator(device=self.device).manual_seed(
             stream_seed(self.scfg.seed, int(r), int(c)))
             for r, c in zip(rids, counts)]
+
+    @staticmethod
+    def _whole(logits) -> torch.Tensor:
+        """The logits as one plain tensor, the same on every rank (a
+        sharded DTensor is gathered)."""
+        full = getattr(logits, "full_tensor", None)
+        return full() if full is not None else logits
 
     def _sample(self, logits: torch.Tensor, rids, counts) -> np.ndarray:
         gens = (None if self.scfg.temperature <= 0.0
@@ -272,7 +316,7 @@ class Server:
             logits = self._prefill_paged(prompt, slot, method,
                                          resume_tail=req.prior_out)
         else:
-            logits = self._prefill_linear(prompt, slot, method)
+            logits = self._whole(self._prefill_linear(prompt, slot, method))
         tok = int(self._sample(logits[None], [req.rid], [req.prior_out])[0])
         self.prefill_logits[slot] = logits.cpu().numpy()
         self.active[slot] = True
@@ -589,7 +633,7 @@ class Server:
         logits, self.cache = self.model.decode_step(
             self.params, self.cache, torch.as_tensor(feed, device=self.device),
             active=torch.as_tensor(act, device=self.device))
-        logits = logits.float()
+        logits = self._whole(logits).float()
         toks = self._sample(logits, self.slot_rid, self.n_out)
         self.last_logits = logits
         self.decode_dispatches += 1
