@@ -11,11 +11,17 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      and counts the HGMMA (wgmma) instructions in the SASS of every
      instance of the bf16 forward kernel and of the two backward kernels
      (one instance per hd) and of the SSD scan's state and output
-     kernels: an instance without one is a failure;
+     kernels: an instance without one is a failure; the hd-120 instances'
+     HGMMA counts and ptxas lines are printed apart;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, at the serving path's shapes (12 q heads over 2 KV heads,
-     hd 128), at zamba2's (32 heads, g 1, hd 80) and at the reduced
-     configs' hd 16;
+     hd 128), at zamba2's (32 heads, g 1, hd 80), at h2o-danube-3-4b's
+     (32 q heads over 8 KV heads, hd 120: its training microbatch under
+     the 4096 window, a binding window of 200, ragged S, an offset chunk
+     under a window, f32 queries; the backward at windows 128 and 200 and
+     every split of the group of 4; decode at its 8 x 2048 serving step,
+     a full 4096 ring, split edges with an empty slot, a window, f32
+     queries; one paged case) and at the reduced configs' hd 16;
      The forward (FWD_CASES): the prefill chunk at offsets 0 to 1900
      (past the cache end), the training shapes (the dense step's
      microbatch and phase 5's row among them), ragged S = 1000 / 1089,
@@ -88,6 +94,15 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      remat recompute) and flash_bwd_dq / flash_bwd_dkv 56 each, no plain
      call; then the reduced model's loss and grads on the card against the
      CPU, and 3 compressed-sync engine steps on both;
+  4f. danube serve: h2o-danube-3-4b at full width (24 layers, d 3840,
+     32 heads of hd 120 on 8 KV heads, window 4096, untied vocab 32000,
+     bf16, random weights from torch.Generator(0)), 8 slots x 2048 (a ring
+     of 2048 positions), 8 requests of 128-512 prompt tokens, 32 greedy
+     tokens each, through launch.serve.run_workload; every prompt token is
+     a batch-1 scan step, so flash_decode launches exactly 24 x (decode
+     dispatches + prompt tokens), flash_fwd and the paged kernel never,
+     no plain call, no non-finite logit; then the reduced danube (window
+     16) on the card against the CPU, 40 decode steps past the window;
   4d. hybrid train: zamba2-2.7b at full width (54 Mamba2 layers, d 2560,
      80 SSM heads of P 64 / N 64, chunk 256; the shared attention+MLP
      block, 32 heads of hd 80, after every 6 layers), f32 master weights,
@@ -98,6 +113,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      36, flash_bwd_dq / flash_bwd_dkv 18 each, no decode kernel, 108 SSD
      backward recomputes, no plain call; then the reduced zamba2's loss
      and grads on the card against the CPU;
+  4g. danube train: h2o-danube-3-4b at full width cut to 12 of its 24
+     layers (full depth does not fit one card's 80 GB with f32 master
+     weights and moments), the 4d batch and optimizer, 8 steps through
+     launch.train's runner; losses finite and falling, launches per step
+     exactly flash_fwd 48, flash_bwd_dq / flash_bwd_dkv 24 each, no f32
+     or decode kernel, no plain call; then the reduced danube's loss and
+     grads on the card against the CPU;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch, the stream held by a spin kernel so the interval is device
      time; the forward and both decode kernels also without the hold,
@@ -111,8 +133,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      ssd_chunk_scan at the training shape (device and enqueue-inclusive
      time; three CUDA launches a call), with the chunked PyTorch scan
      (kernels/ssd.ssd_scan) as its yardstick, as no single PyTorch call
-     computes the scan;
-  6. the kernels line and the contract's last line.
+     computes the scan; the forward, backward and decode at danube's
+     shapes (hd 120);
+  6. the kernels line (the hd-120 instances as entries of their own) and
+     the contract's last line.
 With --profile, also torch.profiler over one admission and 8 decode
 steps on each tier, and 2 full-width training steps of each model.
 Imports nothing of JAX and nothing of the repro (JAX) package.
@@ -170,6 +194,17 @@ TRAIN_LOSS_ATOL = 0.08
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 12, 4, 1024, 2
 # the hybrid (zamba2-2.7b) run: 8 steps of the same batch, 2 of them warmup
 HYBRID_ARCH, HYBRID_STEPS = "zamba2-2.7b", 8
+# h2o-danube-3-4b (hd 120, window 4096): served at full width, 8 slots x
+# 2048 (a ring of min(2048, 4096) positions), 8 requests of 128-512
+# prompt tokens (each a batch-1 scan step), 32 greedy tokens each; trained
+# at full width cut to 12 of its 24 layers (full depth holds ~71 GB of
+# params, master weights, moments and grads before activations), 8 steps
+# of the dense run's batch, 2 of them warmup
+DANUBE = "h2o-danube-3-4b"
+DANUBE_SLOTS, DANUBE_MAX_LEN, DANUBE_REQUESTS = 8, 2048, 8
+DANUBE_PROMPT, DANUBE_GEN = (128, 512), 32
+DANUBE_TRAIN_LAYERS, DANUBE_STEPS = 12, 8
+HD120 = "(hd 120, danube)"     # the suffix of its rows in phase 5 and 6
 # SSD kernel vs its plain version: y is f32 on both sides, the sequential
 # recurrence against the chunked form, so the same terms summed in another
 # order (up to a chunk of 256 in one sum): |err| <= 2e-4 x max(1, max|ref|).
@@ -439,6 +474,15 @@ FWD_CASES = [
     (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, TRAIN_SEQ, 12, 2, 128, 0, True,
      None, "bf16"),
     (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 12, 2, 128, 0, True, None, "bf16"),
+    # hd 120 (danube, 32 q heads on 8): its training microbatch under the
+    # 4096 window, a window that binds and starts inside a tile, ragged S,
+    # an offset chunk under a window, f32 queries
+    (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 120, 0, True,
+     4096, "bf16"),
+    (1, 600, 600, 32, 8, 120, 0, True, 200, "bf16"),
+    (1, 1089, 1089, 32, 8, 120, 0, True, None, "bf16"),
+    (1, 256, 2048, 32, 8, 120, 1300, True, 512, "bf16"),
+    (1, 300, 300, 32, 8, 120, 0, True, 200, "f32"),
 ]
 
 
@@ -480,7 +524,7 @@ def check_fwd(dev, tag, rnd):
             fail(f"flash_fwd disagrees with its plain version or is not "
                  f"deterministic (case {i})")
         rows["flash_fwd_f32" if dt == "f32" else "flash_fwd"].append(dict(
-            case=i, max_abs_err=e_o, rel_err=r_o, lse_err=e_l))
+            case=i, hd=hd, max_abs_err=e_o, rel_err=r_o, lse_err=e_l))
     return rows
 
 
@@ -507,7 +551,17 @@ DEC_CASES = [(16, 2048, 12, 2, 128, None, None, "bf16"),
              (5, 1000, 12, 2, 128, None, [1000, 999, 1, 513, 640], "bf16"),
              (16, 2048, 12, 2, 128, None, None, "f32"),
              (3, 200, 8, 8, 64, 37, None, "f32"),
-             (4, 512, 12, 2, 128, 200, [0, 1, 300, 512], "bf16")]
+             (4, 512, 12, 2, 128, 200, [0, 1, 300, 512], "bf16"),
+             # hd 120 (danube): the serving step (8 slots x 2048) under the
+             # 4096 window, a full 4096-position ring, the split edges with
+             # an empty slot, a window of 200, f32 queries
+             (DANUBE_SLOTS, DANUBE_MAX_LEN, 32, 8, 120, 4096, None, "bf16"),
+             (4, 4096, 32, 8, 120, 4096, [4096, 4095, 1, 2049], "bf16"),
+             (8, 2048, 32, 8, 120, None,
+              [128, 129, 1, 256, 257, 2048, 0, 1000], "bf16"),
+             (8, 2048, 32, 8, 120, 200,
+              [300, 129, 1, 256, 2048, 500, 201, 199], "bf16"),
+             (DANUBE_SLOTS, DANUBE_MAX_LEN, 32, 8, 120, 4096, None, "f32")]
 # the decode kernels' key positions per block that phase 5 times; phase
 # 3 runs every decode case at each, twice
 DEC_SPLITS = (64, 128, 256, 512)
@@ -551,7 +605,7 @@ def check_decode(dev, tag, rnd, i, b, s, h, kv, hd, window, lengths, dt):
     if not ok:
         fail(f"flash_decode disagrees with its plain version or is not "
              f"deterministic (case {i})")
-    return dict(case=i, max_abs_err=e_o, rel_err=r_o)
+    return dict(case=i, hd=hd, max_abs_err=e_o, rel_err=r_o)
 
 
 def check_decode_batch(dev, tag, rnd):
@@ -621,6 +675,13 @@ def check_kernels(dev, tag):
         (2, 1024, 32, 32, 80, True, None, bf),               # zamba2's block
         (1, 300, 12, 2, 128, True, None, f32),               # f32 kernels
         (2, 77, 8, 2, 80, False, 30, f32),
+        # hd 120 (danube, g 4): the training microbatch under the 4096
+        # window, windows of 128 and 200, ragged S, f32 queries
+        (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 32, 8, 120, True, 4096, bf),
+        (1, 600, 32, 8, 120, True, 128, bf),
+        (1, 600, 32, 8, 120, True, 200, bf),
+        (1, 1089, 32, 8, 120, False, None, bf),
+        (1, 300, 32, 8, 120, True, 200, f32),
     ]
     for i, (b, s, h, kv, hd, causal, window, dt) in enumerate(bwd_cases):
         q, do = (rnd((b, s, h, hd), 200 + 4 * i, dt),
@@ -665,9 +726,9 @@ def check_kernels(dev, tag):
                  f"deterministic (case {i})")
         sfx = "_f32" if dt == f32 else ""
         rows["flash_bwd_dq" + sfx].append(dict(
-            case=i, max_abs_err=errs["dq"][0], rel_err=errs["dq"][1]))
+            case=i, hd=hd, max_abs_err=errs["dq"][0], rel_err=errs["dq"][1]))
         rows["flash_bwd_dkv" + sfx].append(dict(
-            case=i, max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+            case=i, hd=hd, max_abs_err=max(errs["dk"][0], errs["dv"][0]),
             rel_err=max(errs["dk"][1], errs["dv"][1]),
             splits=split_errs))
         if i == 0:
@@ -803,7 +864,8 @@ def check_paged(dev, tag):
              (4, 4, 1, 16, 8, 8, [37, 16, 0, 64]),
              (3, 12, 2, 128, 48, 6, [200, 97, 288]),
              (3, 32, 32, 80, 16, 8, [5, 128, 77]),
-             (4, 12, 2, 128, 48, 43, [129, 65, 0, 2064])]
+             (4, 12, 2, 128, 48, 43, [129, 65, 0, 2064]),
+             (4, 32, 8, 120, 16, 8, [5, 128, 0, 77])]     # hd 120
     out = []
     for i, (b, h, kv, hd, bl, mb, lengths) in enumerate(cases):
         q, kp, vp, table, ln, live = paged_case(dev, b, h, kv, hd, bl, mb,
@@ -859,7 +921,7 @@ def check_paged(dev, tag):
               f"{'ok' if ok else 'MISS'} {tag}")
         if not ok:
             fail(f"flash_paged_decode check failed (case {i})")
-        out.append(dict(case=i, max_abs_err=e_o, rel_err=r_o,
+        out.append(dict(case=i, hd=hd, max_abs_err=e_o, rel_err=r_o,
                         vs_flash_decode=d_view))
     return out
 
@@ -871,7 +933,9 @@ def time_kernels(dev, tag, timer):
     backward kernels (rows 5, 6) at the training shape, q [4,1024,12,128]
     against kv [4,1024,2,128], causal, and at zamba2's microbatch through
     its shared block, [2,1024,32,80] (g 1); the SSD scan (row 7) at the
-    hybrid training shape."""
+    hybrid training shape; the forward and backward at danube's training
+    microbatch, q [2,1024,32,120] against kv [2,1024,8,120], and its decode
+    step, q [8,32,120] against [8,2048,8,120] (hd 120)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -920,6 +984,18 @@ def time_kernels(dev, tag, timer):
     out.update(time_bwd(dev, timer, rnd, TRAIN_BATCH, h, kv, hd))
     out.update({f"{k} (hd 80, zamba2 microbatch)": v for k, v in time_bwd(
         dev, timer, rnd, TRAIN_MICRO, 32, 32, 80).items()})
+    # hd 120: danube's training microbatch (its 4096 window does not bind
+    # at 1024) and its serving decode step, 8 slots x 2048
+    out[f"flash_fwd {HD120}"] = fwd_record(TRAIN_MICRO, TRAIN_SEQ, TRAIN_SEQ,
+                                           None, 32, 8, 120)
+    out.update({f"{k} {HD120}": v for k, v in time_bwd(
+        dev, timer, rnd, TRAIN_MICRO, 32, 8, 120).items()})
+    out.update({f"{k} {HD120}": v for k, v in time_decode(
+        dev, timer, rnd, 32, 8, 120, b=DANUBE_SLOTS, paged=False).items()})
+    # the control of the hd-120 backward rows: the hd-128 instances at
+    # danube's batch and heads (the instance's own cost against the shape's)
+    out.update({f"{k} (hd 128 at danube's heads)": v for k, v in time_bwd(
+        dev, timer, rnd, TRAIN_MICRO, 32, 8, 128).items()})
     out["ssd_chunk_scan"] = time_ssd(dev, timer)
     for name, r in out.items():
         lib = ("n/a" if r["library_ms"] is None
@@ -937,15 +1013,15 @@ def time_kernels(dev, tag, timer):
     return out
 
 
-def time_decode(dev, timer, rnd, h, kv, hd):
-    """Row 3: a 16-slot decode step of serving against 2048-slot caches
-    (lengths drawn from default_rng(0)); row 4: the paged kernel on the
-    same lengths."""
+def time_decode(dev, timer, rnd, h, kv, hd, b=16, paged=True):
+    """Row 3: a ``b``-slot decode step of serving against 2048-slot caches
+    (lengths drawn from default_rng(0)); row 4 (``paged``): the paged
+    kernel on the same lengths."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     scale = hd ** -0.5
-    b, s = 16, 2048
+    s = 2048
     q, kc, vc = rnd((b, h, hd)), rnd((b, s, kv, hd)), rnd((b, s, kv, hd))
     ln = np.random.default_rng(0).integers(1, s + 1, size=b)
     ln[0], ln[-1] = 1, s
@@ -967,6 +1043,8 @@ def time_decode(dev, timer, rnd, h, kv, hd):
     except (TypeError, RuntimeError) as e:
         print(f"SDPA yardstick unavailable: {e}")
         rec["library_ms"] = None
+    if not paged:
+        return {"flash_decode": rec}
     return {"flash_decode": rec,
             "flash_paged_decode": time_paged(dev, timer, ln, h, kv, hd,
                                              scale)}
@@ -1640,26 +1718,28 @@ def serve_fallback(lin_model, params, prompts, plan, mesh, scfg, tag):
     return {k: v for k, v in got.items() if k != "streams"}
 
 
-def profile_serve(model, params, scfg, prompts, tag):
+def profile_serve(model, params, scfg, prompts, tag, fill=1000, admit=768,
+                  tiers=("", "paged ")):
     """Where the time goes: torch.profiler over one admission (the
-    first 768 tokens of the last prompt, at most 3 prefill chunks) and 8
-    decode steps of a full 16-slot pool at up to ~1000 cached tokens per
-    slot, on the linear tier and then on the paged tier (default pool, no
-    other request sharing a prefix).  Prints the kernels with the most
-    device time and the device's busy share of the wall time."""
+    first ``admit`` tokens of the last prompt: at most 3 prefill chunks
+    of 256, or that many batch-1 scan steps) and 8 decode steps of a full
+    pool at up to ``fill`` cached tokens per slot, on the linear tier and
+    then on the paged tier (default pool, no other request sharing a
+    prefix).  Prints the kernels with the most device time and the
+    device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime.serve import Server
 
     out = {}
-    for tier, tcfg in (("", scfg),
-                       ("paged ", dataclasses.replace(scfg, paged=True))):
+    for tier in tiers:
+        tcfg = dataclasses.replace(scfg, paged=tier == "paged ")
         srv = Server(model, params, tcfg)
         for s in range(tcfg.slots - 1):
-            srv.admit(prompts[s % len(prompts)][:1000], s,
+            srv.admit(prompts[s % len(prompts)][:fill], s,
                       max_new_tokens=1000)
         torch.cuda.synchronize()
-        phases = (("prefill", lambda: srv.admit(prompts[-1][:768],
+        phases = (("prefill", lambda: srv.admit(prompts[-1][:admit],
                                                 tcfg.slots - 1,
                                                 max_new_tokens=1000)),
                   ("decode", lambda: [srv.decode_once() for _ in range(8)]))
@@ -1773,7 +1853,9 @@ def reduced_card_vs_cpu(dev, tag):
 def train_flops(cfg, b, s):
     """Model FLOPs of one training step (forward + backward = 3 x the
     forward's matmul and attention FLOPs; the remat recompute is not
-    counted): every weight matmul, the tied head, and causal attention."""
+    counted): every weight matmul, the head (tied or not: one matmul),
+    and causal attention (danube's window of 4096 does not bind at the
+    1024-token sequences it is given here)."""
     d, hd, h, kv, f = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     per_layer = d * (h + 2 * kv) * hd + h * hd * d + 3 * d * f
     mm = 2.0 * b * s * (cfg.n_layers * per_layer + d * cfg.vocab)
@@ -1819,34 +1901,38 @@ def train_argv(arch="qwen2-1.5b", steps=TRAIN_STEPS):
             "4", "--lr", "3e-4", "--log-every", "5", "--seed", "0"]
 
 
-def train_full_width(dev, tag):
-    """The training main path: launch.train's runner at full width."""
+def train_full_width(dev, tag, arch="qwen2-1.5b", steps=TRAIN_STEPS,
+                     n_layers=None):
+    """The training main path: launch.train's runner at full width, cut
+    to ``n_layers`` if given (danube's depth cut, phase 4g)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
 
-    cfg = get_arch("qwen2-1.5b")
-    args = launch_train.build_argparser().parse_args(train_argv())
+    cfg = get_arch(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+    args = launch_train.build_argparser().parse_args(train_argv(arch, steps))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     fa.reset_launches()
     ops.reset_plain_calls()
-    rec = launch_train.run(args)
+    rec = launch_train.run(args, cfg=cfg)
     launches = dict(fa.launches)
     plain = dict(ops.plain_calls)
     peak = torch.cuda.max_memory_allocated(dev)
 
-    L, n = cfg.n_layers, TRAIN_STEPS
+    L, n = cfg.n_layers, steps
     want = {"flash_fwd": 2 * L * TRAIN_MICRO * n, "flash_fwd_f32": 0,
             "flash_decode": 0,
             "flash_paged_decode": 0, "flash_bwd_dq": L * TRAIN_MICRO * n,
             "flash_bwd_dkv": L * TRAIN_MICRO * n, "flash_bwd_dq_f32": 0,
             "flash_bwd_dkv_f32": 0}
     losses = rec["losses"]
-    print(f"train: {cfg.name} full width, {n} steps of {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches, losses "
-          f"{[round(x, 4) for x in losses]}")
+    print(f"train: {cfg.name} full width, {L} layers "
+          f"({cfg.param_count() / 1e9:.3f} B params), {n} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches, "
+          f"losses {[round(x, 4) for x in losses]}")
     print(f"train: launches {launches} (want {want}), plain calls {plain}")
     if len(losses) != n or not np.isfinite(losses).all():
         fail(f"training losses not all finite: {losses}")
@@ -1865,7 +1951,7 @@ def train_full_width(dev, tag):
           f"peak memory {peak / 2**30:.2f} GiB, breakdown "
           f"{rec['breakdown_s']} {tag}")
     rec.update(launches=launches, peak_memory_bytes=peak,
-               model_flops_per_step=flops, mfu=mfu)
+               model_flops_per_step=flops, mfu=mfu, n_layers=L)
     return rec, launches
 
 
@@ -1929,9 +2015,152 @@ def train_hybrid_full_width(dev, tag):
     return rec, launches
 
 
-def profile_train(dev, tag, arch="qwen2-1.5b"):
+def serve_danube(dev, tag, profile=False):
+    """Phase 4f: h2o-danube-3-4b served at full width through
+    launch.serve.run_workload.  Its 4096 window gives the linear tier a
+    ring cache of min(max_len, 4096) positions and no parallel prefill:
+    every prompt token is a batch-1 decode step (the scan prefill), so
+    flash_decode launches n_layers x (decode dispatches + prompt tokens)
+    times and flash_fwd never."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = get_arch(DANUBE)
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serve danube: {cfg.name} full width, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads of hd {cfg.hd} on "
+          f"{cfg.n_kv_heads} KV heads, window {cfg.swa_window}, vocab "
+          f"{cfg.vocab}, {n_params / 1e9:.3f} B params bf16, init "
+          f"{time.perf_counter() - t0:.1f}s {tag}")
+    scfg = ServeConfig(slots=DANUBE_SLOTS, max_len=DANUBE_MAX_LEN,
+                       prefill_chunk=256)
+    rng = np.random.default_rng(0)
+    lo, hi = DANUBE_PROMPT
+    prompts = [rng.integers(0, cfg.vocab,
+                            size=int(rng.integers(lo, hi + 1))).tolist()
+               for _ in range(DANUBE_REQUESTS)]
+
+    warm = Server(model, params, scfg)      # first launches, cuBLAS set-up
+    warm.admit(prompts[0][:8], 0, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    srv = checked_server()(model, params, scfg)
+    ring = srv.cache["kv"]["k"].shape[2]
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    t0 = time.perf_counter()
+    rec = run_workload(srv, [(0.0, p) for p in prompts], gen=DANUBE_GEN)
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    plain = dict(ops.plain_calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    L, n = cfg.n_layers, DANUBE_REQUESTS
+    scan_steps = sum(len(p) for p in prompts)
+    reasons = set(srv.finished.values())
+    print(f"serve danube: {rec['requests']} requests, "
+          f"{rec['prompt_tokens']} prompt tokens ({scan_steps} batch-1 scan "
+          f"steps), {rec['generated_tokens']} generated, "
+          f"{srv.prefill_dispatches} prefill chunks, {srv.decode_dispatches} "
+          f"decode dispatches, ring of {ring} positions, retire reasons "
+          f"{sorted(reasons)}")
+    want = dict.fromkeys(launches, 0)
+    want["flash_decode"] = L * (srv.decode_dispatches + scan_steps)
+    print(f"serve danube: launches {launches} (want {want}), plain calls "
+          f"{plain}")
+    if ring != min(DANUBE_MAX_LEN, cfg.swa_window):
+        fail(f"danube's ring holds {ring} positions, expected "
+             f"{min(DANUBE_MAX_LEN, cfg.swa_window)}")
+    if rec["requests"] != n or len(srv.finished) != n or reasons != {
+            "length"}:
+        fail(f"not every danube request retired by length: {srv.finished}")
+    if any(len(srv.outputs[r]) != DANUBE_GEN for r in srv.finished):
+        fail(f"a danube request did not produce {DANUBE_GEN} tokens")
+    if launches != want:
+        fail(f"danube serving launches {launches}, expected {want}")
+    if any(plain.values()):
+        fail(f"a plain version ran on danube's serving path: {plain}")
+    if srv.nonfinite:
+        fail(f"{srv.nonfinite} non-finite danube logits")
+    ms = 1e3
+    print(f"serve danube metrics: prefill {rec['prefill_tok_per_s']:.1f} "
+          f"tok/s, decode {rec['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{rec['ttft_p50_s'] * ms:.1f} ms p95 {rec['ttft_p95_s'] * ms:.1f} "
+          f"ms, ITL p50 {rec['itl_p50_s'] * ms:.2f} ms p95 "
+          f"{rec['itl_p95_s'] * ms:.2f} ms, scan step "
+          f"{rec['prefill_s'] / scan_steps * ms:.2f} ms, wall {wall:.2f} s, "
+          f"peak memory {peak / 2**30:.2f} GiB {tag}")
+    slim = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+    slim.update(prefill_dispatches=srv.prefill_dispatches,
+                decode_dispatches=srv.decode_dispatches,
+                scan_steps=scan_steps, ring=ring, wall_s=wall,
+                peak_memory_bytes=peak, params=n_params)
+    del srv
+    if profile:
+        # 7 slots of 64 tokens, an admission of 32 (32 scan steps), then 8
+        # decode steps of the 8 slots
+        slim["profile"] = profile_serve(model, params, scfg, prompts, tag,
+                                        fill=64, admit=32, tiers=("",))
+    del params, model
+    return slim, launches
+
+
+def reduced_danube_card_vs_cpu(dev, tag):
+    """The reduced h2o-danube-3-4b (window 16, hd 16) on the card against
+    the same bf16 weights on the CPU: a scan prefill of 20 tokens into
+    slot 0 (its ring of 16 wraps) and of 10 into slot 1, then 40 decode
+    steps of both rows, so that slot 0 runs 44 positions past the
+    window."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LM
+
+    cfg = get_arch(DANUBE).reduced()
+    model = LM(cfg)
+    p_cpu = model.init(0, device="cpu")
+    params = {"cpu": p_cpu, dev: _to(p_cpu, dev)}
+    caches = {d: model.init_cache(2, 64, device=d) for d in ("cpu", dev)}
+    rng = np.random.default_rng(2)
+    worst = 0.0
+    for slot, n in ((0, 20), (1, 10)):
+        pr = rng.integers(0, cfg.vocab, size=n)
+        lg = {d: model.prefill_chunk(params[d], caches[d],
+                                     torch.as_tensor(pr, device=d), slot,
+                                     n)[0] for d in ("cpu", dev)}
+        worst = max(worst, float((lg["cpu"] - lg[dev].cpu()).abs().max()))
+    for _ in range(40):
+        toks = rng.integers(0, cfg.vocab, size=2)
+        lg = {d: model.decode_step(params[d], caches[d],
+                                   torch.as_tensor(toks, device=d))[0]
+              for d in ("cpu", dev)}
+        worst = max(worst, float((lg["cpu"].float()
+                                  - lg[dev].float().cpu()).abs().max()))
+    ring = caches[dev]["kv"]["k"].shape[2]
+    pos = caches[dev]["pos"].tolist()
+    print(f"reduced danube, card vs CPU, ring of {ring} positions, rows at "
+          f"positions {pos}: max|dlogits|={worst:.4g} (band {LOGITS_ATOL}) "
+          f"{tag}")
+    if ring != cfg.swa_window or pos != [60, 50]:
+        fail(f"reduced danube's ring {ring} / positions {pos}")
+    if not worst <= LOGITS_ATOL:
+        fail("reduced danube on the card disagrees with the CPU")
+    return worst
+
+
+def profile_train(dev, tag, arch="qwen2-1.5b", cfg=None):
     """torch.profiler over 2 full-width training steps (after one warm
-    step), fed by BatchFeed as the training loop feeds them."""
+    step), fed by BatchFeed as the training loop feeds them; ``cfg``, if
+    given, in place of ``arch``'s config (danube's depth cut)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
@@ -1942,7 +2171,7 @@ def profile_train(dev, tag, arch="qwen2-1.5b"):
     from repro_torch.runtime.train_loop import TrainConfig, make_engine
 
     args = launch_train.build_argparser().parse_args(train_argv(arch))
-    cfg = get_arch(args.arch)
+    cfg = cfg or get_arch(args.arch)
     tcfg = TrainConfig(microbatches=args.microbatches, buckets=args.buckets,
                        optim=AdamWConfig(lr=args.lr, warmup_steps=2,
                                          total_steps=args.steps))
@@ -2087,6 +2316,18 @@ def main() -> int:
         if len(found) != want or min(found) == 0:
             fail(f"{kern}: {len(found)} instances, want {want}, "
                  f"each with HGMMA in its SASS ({found})")
+    # the hd-120 instances (danube): HGMMA in the three on wgmma, and
+    # ptxas's lines (registers, spills) of every one
+    for kern in WGMMA_KERNELS[:3]:
+        n120 = [n for fn, n in hgmma.items() if f"{kern}ILi120E" in fn]
+        if n120 != [n120[0]] or n120[0] == 0:
+            fail(f"{kern}'s hd-120 instance has no HGMMA ({n120})")
+        print(f"hd 120: {kern} {n120[0]} HGMMA")
+    ptxas = build.build_info.get("ptxas", [])
+    for i, ln in enumerate(ptxas):
+        if "Compiling" in ln and "ILi120E" in ln:
+            print(f"hd 120 ptxas: {ln.split(chr(39))[1]}: "
+                  + " | ".join(ptxas[i + 1:i + 3]))
 
     # 3. kernel vs plain
     timer = Timer(dev)
@@ -2104,6 +2345,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     reduced_err = reduced_card_vs_cpu(dev, tag)
+
+    # 4f. h2o-danube-3-4b (hd 120, the ring cache, the scan prefill) served
+    # at full width, then the reduced danube against the CPU past its window
+    danube_rec, danube_launches = serve_danube(dev, tag, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    danube_reduced = reduced_danube_card_vs_cpu(dev, tag)
+    print(f"phase 4f done at {time.perf_counter() - t_start:.1f}s")
 
     # 4b. train at full width, then the reduced model against the CPU
     train_rec, train_launches = train_full_width(dev, tag)
@@ -2130,6 +2379,22 @@ def main() -> int:
     hybrid_reduced = reduced_grads_card_vs_cpu(dev, tag, HYBRID_ARCH)[:3]
     print(f"phase 4d done at {time.perf_counter() - t_start:.1f}s")
 
+    # 4g. danube trained at full width, cut in depth, then the reduced
+    # danube's loss and grads against the CPU
+    danube_train, danube_train_launches = train_full_width(
+        dev, tag, DANUBE, DANUBE_STEPS, DANUBE_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if args.profile:
+        from repro_torch.configs import get_arch
+        danube_train["profile"] = profile_train(
+            dev, tag, DANUBE, dataclasses.replace(
+                get_arch(DANUBE), n_layers=DANUBE_TRAIN_LAYERS))
+        gc.collect()
+        torch.cuda.empty_cache()
+    danube_train_reduced = reduced_grads_card_vs_cpu(dev, tag, DANUBE)[:3]
+    print(f"phase 4g done at {time.perf_counter() - t_start:.1f}s")
+
     # 5. times
     times = time_kernels(dev, tag, timer)
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
@@ -2151,16 +2416,24 @@ def main() -> int:
                "flash_bwd_dq": f"{csrc}/flash_bwd.cu",
                "flash_bwd_dkv": f"{csrc}/flash_bwd.cu",
                "ssd_chunk_scan": f"{csrc}/ssd_scan.cu"}
+    # the hd-120 instances (danube's) have entries of their own: launches
+    # from phases 4f and 4g, errors from phase 3's hd-120 cases, times from
+    # phase 5's hd-120 rows; the other entries keep the other runs and hd
+    runs = (serve_launches, paged_launches, plan_launches, train_launches,
+            hybrid_launches)
+    runs120 = (danube_launches, danube_train_launches)
     kernels = []
-    for k in replaces:
-        t = times[k]
+    for k, hd120 in [(k, False) for k in replaces] + [
+            (k, True) for k in ("flash_fwd", "flash_decode", "flash_bwd_dq",
+                                "flash_bwd_dkv")]:
+        t = times[f"{k} {HD120}" if hd120 else k]
         kernels.append({
-            "name": k, "route": "cuda", "source": sources[k],
-            "replaces": replaces[k],
-            "launches": sum(run.get(k, 0) for run in (
-                serve_launches, paged_launches, plan_launches,
-                train_launches, hybrid_launches)),
-            "max_abs_err": max(r["max_abs_err"] for r in checks[k]),
+            "name": f"{k} {HD120}" if hd120 else k, "route": "cuda",
+            "source": sources[k], "replaces": replaces[k],
+            "launches": sum(run.get(k, 0)
+                            for run in (runs120 if hd120 else runs)),
+            "max_abs_err": max(r["max_abs_err"] for r in checks[k]
+                               if (r.get("hd") == 120) == hd120),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
@@ -2174,6 +2447,9 @@ def main() -> int:
             train=train_rec, reduced_train_card_vs_cpu=reduced_train,
             hybrid_train=hybrid_rec,
             reduced_hybrid_card_vs_cpu=hybrid_reduced,
+            danube_serve=danube_rec, reduced_danube_card_vs_cpu=danube_reduced,
+            danube_train=danube_train,
+            reduced_danube_train_card_vs_cpu=danube_train_reduced,
             kernels=kernels), indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))

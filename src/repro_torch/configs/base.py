@@ -179,5 +179,6 @@ def all_archs() -> List[str]:
 
 def load_all() -> None:
     import importlib
-    for mod in ("zamba2_2p7b", "qwen2_1p5b", "llama3p2_3b"):
+    for mod in ("zamba2_2p7b", "qwen2_1p5b", "llama3p2_3b",
+                "h2o_danube3_4b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

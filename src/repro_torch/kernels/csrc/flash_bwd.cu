@@ -16,13 +16,17 @@
 // Design.  One warpgroup (128 threads) per block; every tile is 64 rows
 // (q rows or keys) by the head dim, bf16, in shared memory in wgmma's
 // no-swizzle layout (8 x 16-byte core matrices of 128 contiguous bytes,
-// wgmma.cuh): any head dim that is a multiple of 8 fits it without
-// padding (hd 80 is 10 core matrices a row), wgmma reads it without bank
-// conflicts, and one copy of a tile serves as a K-major operand and, with
-// the transpose bit, as an MN-major one.  Tiles are staged with 16-byte
-// cp.async (rows past the array zero-filled), the streamed operand
-// double-buffered so the loads of step i + 1 overlap the products of step
-// i.  P and dS, f32 in registers, enter their products as two bf16
+// wgmma.cuh): hd 80 is 10 core matrices a row, wgmma reads it without
+// bank conflicts, and one copy of a tile serves as a K-major operand and,
+// with the transpose bit, as an MN-major one.  wgmma steps K by 16
+// columns, so a head dim that is a multiple of 8 but not of 16 (hd 120)
+// is staged at the next multiple of 16 (128), its last 8 columns
+// zero-filled by the copies: S = Q K^T and dP = dO V^T take one more
+// k-step over zeros, and the products whose N is the head dim (dq, dk,
+// dv) read only the first hd columns (m64n120k16).  Tiles are staged with
+// 16-byte cp.async (rows past the array zero-filled), the streamed
+// operand double-buffered so the loads of step i + 1 overlap the products
+// of step i.  P and dS, f32 in registers, enter their products as two bf16
 // operands, hi = bf16(x) and lo = bf16(x - hi) (to_operands,
 // flash_tiles.cuh, shared with flash_fwd.cu): rounding them to one bf16
 // moved dv by up to two bf16 ulps from the plain version, past its 1e-2
@@ -50,12 +54,12 @@
 //          int counter) sums the partials in split order, so the result
 //          does not depend on which block finishes last.  No float
 //          atomics: two launches give the same bits.
-// Tile shapes: 64 x hd bf16, six of them per block (96 KB at hd 128,
-// 60 KB at hd 80), plus lse/delta rows; two blocks share an SM.  Masked
-// scores give P = 0 exactly; only tiles that cross the diagonal, the
-// window edge or the end of the arrays evaluate the mask, per element of
-// the accumulator fragment.  Rows and keys outside the arrays are zeroed
-// when staged (the TPU's _clean), and so are their lse and delta.
+// Tile shapes: 64 x hd bf16, six of them per block (96 KB at hd 128 and at hd
+// 120, staged at 128 columns; 60 KB at hd 80), plus lse/delta rows; two blocks
+// share an SM.  Masked scores give P = 0 exactly; only tiles that cross the
+// diagonal, the window edge or the end of the arrays evaluate the mask, per
+// element of the accumulator fragment.  Rows and keys outside the arrays are
+// zeroed when staged (the TPU's _clean), and so are their lse and delta.
 #include "flash_tiles.cuh"
 
 namespace repro {
@@ -63,9 +67,15 @@ namespace repro {
 constexpr int BWD_THREADS = WG_THREADS;
 static_assert(BWD_THREADS == 2 * BT, "one thread per staged lse/delta row");
 
+// staged columns of a tile: the head dim rounded up to a 16-column k-step
+template <int HD>
+__host__ __device__ constexpr int staged_cols() {
+  return (HD + 15) / 16 * 16;
+}
+
 template <int HD>
 constexpr int bwd_smem_bytes() {
-  return 6 * BT * HD * 2 + 4 * BT * 4;
+  return 6 * BT * staged_cols<HD>() * 2 + 4 * BT * 4;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -96,44 +106,48 @@ __device__ __forceinline__ void cp_wait_all_but_newest() {
 }
 
 // Stage rows [r0, r0 + BT) of one head (row r at src + r * stride) as a
-// no-swizzle tile; rows at or past ``limit`` are zero-filled.  Eight
-// neighbouring threads fill one core matrix (128 contiguous bytes).
+// no-swizzle tile of staged_cols<HD>() columns; rows at or past ``limit``
+// and the columns past HD are zero-filled.  Eight neighbouring threads
+// fill one core matrix (128 contiguous bytes).
 template <int HD>
 __device__ __forceinline__ void stage(__nv_bfloat16* __restrict__ dst,
                                       const __nv_bfloat16* __restrict__ src,
                                       long stride, int r0, int limit) {
-  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+  constexpr int HP = staged_cols<HD>();
+  constexpr int CPR = HP / 8;  // 16-byte chunks per staged row
   for (int idx = threadIdx.x; idx < BT * CPR; idx += BWD_THREADS) {
     const int rest = idx >> 3, c = rest % CPR;
     const int r = (rest / CPR) * 8 + (idx & 7);
-    const bool ok = r0 + r < limit;
-    cp_async16(dst + wg::tile_off<HD>(r, c * 8),
-               src + (ok ? (long)(r0 + r) * stride : 0) + c * 8, ok);
+    const bool ok = r0 + r < limit && (HP == HD || c < HD / 8);
+    cp_async16(dst + wg::tile_off<HP>(r, c * 8),
+               src + (ok ? (long)(r0 + r) * stride + c * 8 : 0), ok);
   }
 }
 
-// wgmma descriptors of a staged tile, for k-step kk (16 along K).  As a
-// K-major operand the tile's columns (hd) are K: core matrices 128 bytes
-// apart along K, 16 hd bytes apart along rows.  As an MN-major operand its
-// rows are K: core matrices 16 hd bytes apart along K (LBO) and 128 bytes
-// apart along hd (SBO).
+// wgmma descriptors of a staged tile of HP = staged_cols<HD>() columns,
+// for k-step kk (16 along K).  As a K-major operand the tile's columns
+// are K: core matrices 128 bytes apart along K, 16 HP bytes apart along
+// rows.  As an MN-major operand its rows are K: core matrices 16 HP bytes
+// apart along K (LBO) and 128 bytes apart along the columns (SBO).
 template <int HD>
 __device__ __forceinline__ uint64_t desc_kmajor(const __nv_bfloat16* t,
                                                 int kk) {
-  return wg::make_desc(t + kk * 128, 128, 16 * HD);
+  return wg::make_desc(t + kk * 128, 128, 16 * staged_cols<HD>());
 }
 template <int HD>
 __device__ __forceinline__ uint64_t desc_mnmajor(const __nv_bfloat16* t,
                                                  int kk) {
-  return wg::make_desc(t + kk * 16 * HD, 16 * HD, 128);
+  constexpr int HP = staged_cols<HD>();
+  return wg::make_desc(t + kk * 16 * HP, 16 * HP, 128);
 }
 
-// acc (+)= A B^T over the head dim, A and B staged tiles (64 x 64 out)
+// acc (+)= A B^T over the staged columns, A and B staged tiles (64 x 64
+// out; the zero columns past HD add nothing)
 template <int HD>
 __device__ __forceinline__ void tile_product(
     float (&acc)[32], const __nv_bfloat16* a, const __nv_bfloat16* b) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
+  for (int kk = 0; kk < staged_cols<HD>() / 16; ++kk)
     wg::ss_n64(acc, desc_kmajor<HD>(a, kk), desc_kmajor<HD>(b, kk), kk > 0);
 }
 
@@ -161,7 +175,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
                         __nv_bfloat16* __restrict__ dq,
                         int B, int Sq, int Sk, int H, int KV, int causal,
                         int window, float scale) {
-  constexpr int T = BT * HD;
+  constexpr int T = BT * staged_cols<HD>();
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* do_s = q_s + T;
@@ -194,20 +208,25 @@ __global__ void __launch_bounds__(BWD_THREADS)
   cp_commit();
 
   // delta = rowsum(O * dO) in f32 from the arrays, and lse, per row: two
-  // threads a row, each over half of it in 16-byte loads, all in flight
-  static_assert(HD % 16 == 0, "two threads a row, 8 elements a load");
+  // threads a row, the first over chunks [0, NC) of its HD / 8 16-byte
+  // chunks and the second over the rest (7 of hd 120's 15), all in flight
+  static_assert(HD % 8 == 0, "a row is whole 16-byte chunks");
   const long rows = ((long)b * H + h) * Sq;
   {
-    constexpr int NC = HD / 16;  // 16-byte chunks per thread
-    const int r = tid >> 1, row = q0 + r;
+    constexpr int NR = HD / 8, NC = (NR + 1) / 2;  // chunks a row, a thread
+    const int r = tid >> 1, row = q0 + r, c0 = (tid & 1) * NC;
     float acc = 0.f;
     if (row < Sq) {
-      const long off = qhead + (long)row * qstride + (tid & 1) * (HD / 2);
+      const uint4* op = reinterpret_cast<const uint4*>(
+          o + qhead + (long)row * qstride) + c0;
+      const uint4* dp = reinterpret_cast<const uint4*>(
+          dO + qhead + (long)row * qstride) + c0;
       uint4 ov[NC], dv[NC];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        ov[c] = __ldg(reinterpret_cast<const uint4*>(o + off) + c);
-        dv[c] = __ldg(reinterpret_cast<const uint4*>(dO + off) + c);
+        const bool in = NR % 2 == 0 || c0 + c < NR;
+        ov[c] = in ? __ldg(op + c) : make_uint4(0u, 0u, 0u, 0u);
+        dv[c] = in ? __ldg(dp + c) : make_uint4(0u, 0u, 0u, 0u);
       }
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
@@ -317,7 +336,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
                          float* __restrict__ partial, int* __restrict__ arrived,
                          int B, int Sq, int Sk, int H, int KV, int nsplit,
                          int causal, int window, float scale) {
-  constexpr int T = BT * HD;
+  constexpr int T = BT * staged_cols<HD>();
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* v_s = k_s + T;
@@ -538,6 +557,8 @@ static int dispatch_hd(int hd, const BwdArgs& a) {
       return launch<DKV, 64>(a);
     case 80:
       return launch<DKV, 80>(a);
+    case 120:
+      return launch<DKV, 120>(a);
     case 128:
       return launch<DKV, 128>(a);
     default:

@@ -404,6 +404,9 @@ static int dispatch_hd(int hd, const BwdArgs& a) {
       return DKV ? launch_dkv<64, float>(a) : launch_dq<64, float>(a);
     case 80:
       return DKV ? launch_dkv<80, float>(a) : launch_dq<80, float>(a);
+    case 120:
+      return DKV ? launch_dkv<120, float>(a)
+                 : launch_dq<120, float>(a);
     case 128:
       return DKV ? launch_dkv<128, float>(a) : launch_dq<128, float>(a);
     default:

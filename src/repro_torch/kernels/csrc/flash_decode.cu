@@ -105,6 +105,7 @@ extern "C" int repro_flash_decode(const void* q, const void* kc,
     REPRO_HD(16);
     REPRO_HD(64);
     REPRO_HD(80);
+    REPRO_HD(120);
     REPRO_HD(128);
 #undef REPRO_HD
     default:

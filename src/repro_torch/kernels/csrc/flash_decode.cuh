@@ -58,8 +58,9 @@
 // Head dims are multiples of 8 (a row is whole 16-byte units), not of 16
 // nor powers of two: a staged row holds hd rounded up to the 16 columns
 // of S's k-steps, and each block zeroes those pad columns once (no copy
-// writes them), so the last k-step of S and the last n-tile pair of P V
-// read zeros there.  hd 120 is one more instance.
+// writes them), so the last k-step of S reads zeros there.  P V keeps
+// hd / 8 n-tiles: where hd is an odd number of them (hd 120: 15), the
+// last pair is one n-tile, its V fragment from an x2 ldmatrix.
 #pragma once
 
 #include "flash_common.cuh"
@@ -81,7 +82,9 @@ struct DecTile {
   // staged row stride: an odd number of 16-byte units
   static constexpr int RS = PROW / 16 % 2 ? PROW : PROW + 16;
   static constexpr int TILE = BK * RS;  // bytes of a staged K or V tile
-  static constexpr int NK = HDP / 16;   // k-steps of S, n-tile pairs of P V
+  static constexpr int NK = HDP / 16;   // k-steps of S
+  static constexpr int NT = HD / 8;     // n-tiles of P V, in pairs but the
+                                        // last where NT is odd
 };
 
 // Shared memory of decode_split: the ring of K/V stages (reused for the
@@ -117,6 +120,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+// matrices 0 and 1 of ldsm_x4_t (addresses from lanes 0-15)
+__device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(addr)
       : "memory");
 }
@@ -259,9 +270,9 @@ __device__ __forceinline__ void decode_split(
 
   // per warp: O [16 heads x hd] as n-tiles of 8 columns, the running max
   // (log2 units) and sum of rows gid and gid + 8
-  float oacc[2 * L::NK][4];
+  float oacc[L::NT][4];
 #pragma unroll
-  for (int n = 0; n < 2 * L::NK; ++n)
+  for (int n = 0; n < L::NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -338,7 +349,7 @@ __device__ __forceinline__ void decode_split(
       l[h] = l[h] * corr[h] + rs[h];
     }
 #pragma unroll
-    for (int n = 0; n < 2 * L::NK; ++n) {
+    for (int n = 0; n < L::NT; ++n) {
       oacc[n][0] *= corr[0];
       oacc[n][1] *= corr[0];
       oacc[n][2] *= corr[1];
@@ -352,7 +363,7 @@ __device__ __forceinline__ void decode_split(
     split_bf16(s[1][0], s[1][1], pa[0][2], pa[1][2]);
     split_bf16(s[1][2], s[1][3], pa[0][3], pa[1][3]);
 #pragma unroll
-    for (int nn = 0; nn < L::NK; ++nn) {
+    for (int nn = 0; nn < L::NT / 2; ++nn) {
       uint32_t vb[4];
       ldsm_x4_t(vs + v_off + nn * 32, vb);
 #pragma unroll
@@ -360,6 +371,13 @@ __device__ __forceinline__ void decode_split(
         mma_bf16(oacc[2 * nn], pa[x], vb[0], vb[1]);
         mma_bf16(oacc[2 * nn + 1], pa[x], vb[2], vb[3]);
       }
+    }
+    if constexpr (L::NT % 2) {  // the last pair's one n-tile
+      uint32_t vb[2];
+      ldsm_x2_t(vs + v_off + (L::NT / 2) * 32, vb);
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+        mma_bf16(oacc[L::NT - 1], pa[x], vb[0], vb[1]);
     }
     __syncthreads();  // every warp is done with this stage
     if (warp == 0 && i + DEC_STAGES < ntiles) issue(i + DEC_STAGES);
@@ -382,8 +400,7 @@ __device__ __forceinline__ void decode_split(
       }
       float* d = wa + (warp * DEC_ROWS + row) * HD + 2 * tig;
 #pragma unroll
-      for (int n = 0; n < 2 * L::NK; ++n) {
-        if (8 * n >= HD) break;  // the pad's n-tile
+      for (int n = 0; n < L::NT; ++n) {
         d[8 * n] = oacc[n][2 * h];
         d[8 * n + 1] = oacc[n][2 * h + 1];
       }

@@ -22,18 +22,19 @@
 // takes 81 KB of shared memory, so two blocks share an SM and one block's
 // softmax overlaps the other's products, as two consumer warpgroups of a
 // 128-row block would.  Tiles are 64 rows x hd bf16, each 64-column half
-// in 128-byte rows swizzled in 1024 B atoms (hd 80 takes two halves, hd
-// 16 one, zero past the head dim), written by TMA: one thread issues a
-// bulk tensor copy per half-tile (rows and columns past the arrays
+// in 128-byte rows swizzled in 1024 B atoms (hd 80 and 120 take two
+// halves, hd 16 one, zero past the head dim), written by TMA: one thread
+// issues a bulk tensor copy per half-tile (rows and columns past the arrays
 // zero-filled, the TPU's _clean) and the block waits on an mbarrier.  Q
 // is loaded once; K/V tiles of 64 keys are double-buffered so the copies
 // of tile i + 1 overlap the products of tile i.  TMA, not the backward's
 // 16-byte cp.async by every thread (flash_bwd.cu::stage): staged that
 // way, this kernel's time followed the number of those instructions
 // (PERF.md).  S = Q K^T is m64n64k16 with both operands K-major in shared
-// memory (hd / 16 steps); O += P V takes P from registers in the
-// accumulator-fragment layout rounded to bf16, V read MN-major with the
-// transpose bit (m64n<hd>k16, 4 k-steps a tile).  P enters as two
+// memory (hd / 16 steps, rounded up: at hd 120 the eighth multiplies the
+// zeros TMA wrote past column 120); O += P V takes P from registers in
+// the accumulator-fragment layout rounded to bf16, V read MN-major with
+// the transpose bit (m64n<hd>k16, 4 k-steps a tile).  P enters as two
 // operands hi = bf16(P) and lo = bf16(P - hi) (to_operands), as in the
 // backward: rounded once to bf16, P moved O by up to 7.81e-3 on the
 // card, over half of the 1e-2 band (PERF.md).  The Pallas kernel
@@ -176,7 +177,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     wg::fence_regs(s);
     wg::fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < (HD + 15) / 16; ++kk)
       wg::ss_n64(s, desc_k(q_s, kk), desc_k(kb, kk), kk > 0);
     wg::commit();
     wg::wait<0>();
@@ -312,6 +313,8 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
       return repro::launch_fwd<64>(a);
     case 80:
       return repro::launch_fwd<80>(a);
+    case 120:
+      return repro::launch_fwd<120>(a);
     case 128:
       return repro::launch_fwd<128>(a);
     default:

@@ -164,6 +164,10 @@ extern "C" int repro_flash_fwd_f32(const void* q, const void* k,
       return repro::launch_fwd_f32<80>(q, k, v, o, lse, q_off, q_off_value,
                                        B, Sq, Sk, H, KV, causal, window,
                                        scale, st);
+    case 120:
+      return repro::launch_fwd_f32<120>(q, k, v, o, lse, q_off,
+                                        q_off_value, B, Sq, Sk, H, KV,
+                                        causal, window, scale, st);
     case 128:
       return repro::launch_fwd_f32<128>(q, k, v, o, lse, q_off, q_off_value,
                                         B, Sq, Sk, H, KV, causal, window,

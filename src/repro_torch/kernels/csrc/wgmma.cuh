@@ -6,10 +6,11 @@
 // an 8 x 16-byte core matrix is 128 contiguous bytes (tile_off).
 //
 //   ss_n64:  D[64 x 64] (+)= A B^T, A and B K-major in shared memory;
-//   rs_n<N>: D[64 x N] (+)= A B, A [64 x 16] from registers (the layout
-//            of an accumulator fragment, rounded to bf16 pairs), B
-//            [16 x N] in shared memory MN-major (N contiguous), read
-//            with the transpose bit.
+//   rs_n<N>: D[64 x N] (+)= A B for N = 16, 64, 80, 120, 128 (N / 2
+//            accumulator floats a thread), A [64 x 16] from registers
+//            (the layout of an accumulator fragment, rounded to bf16
+//            pairs), B [16 x N] in shared memory MN-major (N
+//            contiguous), read with the transpose bit.
 // Accumulator fragment of thread t (warp w = t / 32 of the warpgroup,
 // lane l): d[4j + e] holds row 16w + l/4 + 8 (e / 2), column
 // 8j + 2 (l % 4) + (e % 2).
@@ -130,6 +131,29 @@ __device__ __forceinline__ void rs_n80(float (&d)[40], const uint32_t (&a)[4],
         "r"(accumulate));
 }
 
+__device__ __forceinline__ void rs_n120(float (&d)[60], const uint32_t (&a)[4],
+                                        uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59"
+      "}, {%60, %61, %62, %63}, %64, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 __device__ __forceinline__ void rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                         uint64_t db, int accumulate) {
   asm volatile(
@@ -160,7 +184,10 @@ __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4],
   if constexpr (N == 16) rs_n16(d, a, db, accumulate);
   else if constexpr (N == 64) rs_n64(d, a, db, accumulate);
   else if constexpr (N == 80) rs_n80(d, a, db, accumulate);
-  else rs_n128(d, a, db, accumulate);
+  else if constexpr (N == 120) rs_n120(d, a, db, accumulate);
+  else if constexpr (N == 128) rs_n128(d, a, db, accumulate);
+  else static_assert(N == 16 || N == 64 || N == 80 || N == 120 || N == 128,
+                     "no rs_n<N> wrapper for this N");
 }
 
 }  // namespace wg

@@ -17,7 +17,7 @@ import torch
 
 from .ref import check_gqa
 
-HEAD_DIMS = (16, 64, 80, 128)
+HEAD_DIMS = (16, 64, 80, 120, 128)
 MAX_GROUP = 16            # decode: query heads per KV head (16 mma rows)
 TILE = 64                 # q rows / keys per tile (flash_fwd.cu, flash_bwd.cu)
 DEC_MAX_SPLITS = 64       # decode: splits per row (csrc/flash_decode.cuh)

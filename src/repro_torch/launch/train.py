@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from ..configs.base import get_arch
+from ..configs.base import ArchConfig, get_arch
 from ..data.pipeline import DataConfig
 from ..models.common import resolve_device
 from ..models.model import LM
@@ -62,13 +62,16 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args: argparse.Namespace) -> Dict[str, Any]:
+def run(args: argparse.Namespace,
+        cfg: Optional[ArchConfig] = None) -> Dict[str, Any]:
     """Train as ``args`` say and return the record (the fields of repro's
-    launch record that a single card has)."""
+    launch record that a single card has).  ``cfg``, if given, is trained
+    in place of ``--arch``'s config (a depth cut of it, say)."""
     device = resolve_device(args.device)
-    cfg = get_arch(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_arch(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     master_fp32 = not args.no_master_fp32
     model = LM(cfg)
     tcfg = TrainConfig(

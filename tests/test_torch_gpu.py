@@ -650,3 +650,143 @@ def test_hybrid_train_steps_on_card_use_only_the_kernels(cuda):
         == 4 * 2 * apps
     assert not any(ops.plain_calls.values())
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+# -- hd 120 (h2o-danube-3-4b: 32 q heads on 8 KV heads, window 4096) ------
+
+def _rnd120(dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+    return rnd
+
+
+@pytest.mark.parametrize("b,sq,sk,q_offset,window,f32", [
+    (2, 1024, 1024, 0, 4096, False),    # the danube training microbatch
+    (1, 600, 600, 0, 200, False),       # a window that binds, inside a tile
+    (1, 1089, 1089, 0, None, False),    # ragged S
+    (1, 256, 2048, 1300, 512, False),   # an offset chunk under a window
+    (1, 300, 300, 0, 200, True)])       # f32 queries: the f32 kernel
+def test_hd120_fwd_kernel_matches_plain(cuda, b, sq, sk, q_offset, window,
+                                        f32):
+    """The hd-120 forward (S over 8 k-steps, the eighth on the zeros past
+    column 120; P V on m64n120k16) within the plain version's bands, and
+    two launches give the same bits."""
+    rnd = _rnd120(cuda, sq + q_offset)
+    q = rnd(b, sq, 32, 120, dtype=torch.float32 if f32 else torch.bfloat16)
+    k, v = rnd(b, sk, 8, 120), rnd(b, sk, 8, 120)
+    off = torch.tensor([q_offset], dtype=torch.int32, device=cuda)
+    name = "flash_fwd_f32" if f32 else "flash_fwd"
+    before = fa.launches[name]
+    one = fa.flash_attention_fwd(q, k, v, window=window, q_offset=off)
+    two = fa.flash_attention_fwd(q, k, v, window=window, q_offset=off)
+    assert fa.launches[name] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+    o_r, lse_r = ref.flash_attention_fwd_ref(q, k, v, window=window,
+                                             q_offset=q_offset)
+    assert _rel_err(one[0], o_r) <= 1e-2
+    assert float((one[1] - lse_r).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("b,s,window,f32", [
+    (2, 1024, 4096, False), (1, 600, 128, False), (1, 1089, 200, False),
+    (1, 300, 200, True)])
+def test_hd120_bwd_kernels_match_plain(cuda, b, s, window, f32):
+    """The hd-120 backward (tiles staged at 128 columns, the last 8 zero;
+    the row sums over 15 16-byte chunks a row) within 1e-2 x max(1, |ref|)
+    of the plain version, at every split of the group of 4, each launch
+    twice bit-equal."""
+    rnd = _rnd120(cuda, s + 120)
+    dt = torch.float32 if f32 else torch.bfloat16
+    q, do = rnd(b, s, 32, 120, dtype=dt), rnd(b, s, 32, 120, dtype=dt)
+    k, v = rnd(b, s, 8, 120), rnd(b, s, 8, 120)
+    kw = dict(causal=True, window=window)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    one = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    two = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for a, w in zip(one, want):
+        assert a.dtype == w.dtype and _rel_err(a, w) <= 1e-2
+    if f32:
+        return
+    delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)[1]
+    for sp in (1, 2, 4):
+        a = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, split=sp,
+                                       **kw)
+        c = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, split=sp,
+                                       **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, c)), sp
+        assert _rel_err(a[0], want[1]) <= 1e-2, sp
+        assert _rel_err(a[1], want[2]) <= 1e-2, sp
+
+
+@pytest.mark.parametrize("b,s,window,lengths,f32", [
+    (8, 2048, 4096, None, False),       # the serving step: 8 slots x 2048
+    (4, 4096, 4096, [4096, 4095, 1, 2049], False),   # a full ring
+    (8, 2048, None, [128, 129, 1, 256, 257, 2048, 0, 1000], False),
+    (8, 2048, 200, [300, 129, 1, 256, 2048, 500, 201, 199], False),
+    (8, 2048, 4096, None, True)])       # f32 queries
+def test_hd120_decode_kernel_matches_plain(cuda, b, s, window, lengths, f32):
+    """The hd-120 decode (S over 8 k-steps on rows padded to 128 columns,
+    P V on 15 n-tiles, the last from an x2 ldmatrix): within the plain
+    version's band at the default split and at each of SPLITS, twice
+    bit-equal, and exact zeros for a slot of length 0."""
+    rnd = _rnd120(cuda, s + b)
+    q = rnd(b, 32, 120, dtype=torch.float32 if f32 else torch.bfloat16)
+    kc, vc = rnd(b, s, 8, 120), rnd(b, s, 8, 120)
+    if lengths is None:
+        lengths = np.random.default_rng(b).integers(1, s + 1, size=b)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o_r = ref.flash_attention_decode_ref(q, kc, vc, ln, window=window)
+    empty = ln == 0
+    for split in SPLITS:
+        one = fa.flash_attention_decode(q, kc, vc, ln, window=window,
+                                        split=split)
+        two = fa.flash_attention_decode(q, kc, vc, ln, window=window,
+                                        split=split)
+        assert torch.equal(one, two), split
+        assert _rel_err(one, o_r) <= 1e-2, split
+        assert not one[empty].any(), split
+
+
+def test_hd120_paged_decode_matches_plain(cuda):
+    """The paged decode's hd-120 instance (off the danube path: paged_ok
+    excludes sliding-window configs) within the plain version's band and
+    bit-equal to flash_decode on the gathered view."""
+    b, mb, bl = 4, 8, 16
+    q, kp, vp, table, ln = _paged_case(cuda, b, 32, 8, 120, bl, mb,
+                                       [5, 128, 0, 77], seed=120)
+    o = fa.flash_attention_paged_decode(q, kp, vp, table, ln)
+    assert _rel_err(o, ref.flash_attention_paged_decode_ref(
+        q, kp, vp, table, ln)) <= 1e-2
+    view = [p[table.long()].reshape(b, mb * bl, 8, 120) for p in (kp, vp)]
+    assert torch.equal(o, fa.flash_attention_decode(q, *view, ln))
+    assert not o[2].any()
+
+
+def test_danube_reduced_card_matches_cpu_past_the_window(cuda):
+    """The reduced h2o-danube-3-4b (window 16) on the card against the CPU,
+    bf16 weights: a scan prefill, then 40 decode steps, so that the ring
+    of 16 wraps on the card; logits within LOGITS_ATOL."""
+    cfg = get_arch("h2o-danube-3-4b").reduced()
+    model = LM(cfg)
+    p_cpu = model.init(0, device="cpu")
+    p_gpu = _tree_to(p_cpu, cuda)
+    rng = np.random.default_rng(20)
+    toks = rng.integers(0, cfg.vocab, 10)
+    caches = [model.init_cache(2, 64, device=d) for d in ("cpu", cuda)]
+    worst = 0.0
+    for p, c in zip((p_cpu, p_gpu), caches):
+        dev = c["pos"].device
+        model.prefill_chunk(p, c, torch.as_tensor(toks, device=dev), 1, 10)
+    for _ in range(40):
+        step = torch.as_tensor(rng.integers(0, cfg.vocab, 2))
+        lg = [model.decode_step(p, c, step.to(c["pos"].device))[0]
+              for p, c in zip((p_cpu, p_gpu), caches)]
+        worst = max(worst, float((lg[0].float() - lg[1].float().cpu())
+                                 .abs().max()))
+    assert caches[1]["kv"]["k"].shape[2] == 16
+    assert caches[1]["pos"].tolist() == [40, 50]
+    assert worst <= LOGITS_ATOL

@@ -32,7 +32,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models.common import rms_norm, rope
 from repro_torch.models.model import LM
 
-ARCHS = ["qwen2-1.5b", "llama3.2-3b"]
+ARCHS = ["qwen2-1.5b", "llama3.2-3b", "h2o-danube-3-4b"]
 DTYPES = ["float32", "bfloat16"]
 BAND = {"float32": 1e-3, "bfloat16": LOGITS_ATOL}
 
@@ -152,10 +152,20 @@ def test_decode_steps_with_active_mask(pair):
 @pytest.mark.parametrize("impl", ["parallel", "scan"])
 def test_prefill_chunk(pair, impl):
     """Two chunks into slot 1 of a 12-slot cache; the second chunk's
-    padded tail reaches past max_len (positions 12..15 are dropped)."""
+    padded tail reaches past max_len (positions 12..15 are dropped).  A
+    sliding-window config (a ring cache) has no parallel prefill: both
+    packages refuse it."""
     jm, jp, tm, tp, band = pair
     jc, tc = jm.init_cache(2, 12), tm.init_cache(2, 12, device="cpu")
     rng = np.random.default_rng(2)
+    if impl == "parallel" and jm.cfg.swa_window:
+        chunk = rng.integers(0, jm.cfg.vocab, 8)
+        with pytest.raises(ValueError, match="parallel prefill"):
+            jm.prefill_chunk(jp, jc, jnp.asarray(chunk), 1, 8, impl=impl)
+        with pytest.raises(ValueError, match="parallel prefill"):
+            tm.prefill_chunk(tp, tc, torch.from_numpy(chunk), 1, 8,
+                             impl=impl)
+        return
     for n_valid in (8, 3):
         chunk = rng.integers(0, jm.cfg.vocab, 8)
         lj, jc = jm.prefill_chunk(jp, jc, jnp.asarray(chunk), 1, n_valid,

@@ -150,7 +150,8 @@ def _placements_of(spec, ndim):
 
 
 @pytest.mark.parametrize("name", sorted(PLANS))
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3.2-3b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3.2-3b",
+                                  "h2o-danube-3-4b"])
 def test_leaf_placements_agree_with_pspec(name, arch):
     """Every param leaf (RULES) and linear-cache leaf (CACHE_RULES) of
     the reduced model: Shard(i) on exactly the mesh dims repro's

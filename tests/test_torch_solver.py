@@ -34,7 +34,7 @@ from repro_torch.core.solver import (MeshAxis, solve_mesh, solve_one_cut,
 from repro_torch.launch import mesh as tmesh
 
 REL = 1e-9
-ARCHS = ["qwen2-1.5b", "llama3.2-3b", "zamba2-2.7b"]
+ARCHS = ["qwen2-1.5b", "llama3.2-3b", "zamba2-2.7b", "h2o-danube-3-4b"]
 SERVE = ("serve16x2048", 2048, 16, "decode")
 CASES = ([(a, s, m) for a in ARCHS for s in ("decode_32k", SERVE)
           for m in ((4, 2), (2, 4), (16, 16))]

@@ -84,7 +84,8 @@ def _batch(cfg, b=4, s=12, seed=0):
 # loss and grads
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3.2-3b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3.2-3b",
+                                  "h2o-danube-3-4b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_loss_and_grads_match_repro(arch, dtype):
     jcfg = dataclasses.replace(jax_arch(arch).reduced(), dtype=dtype)
