@@ -94,6 +94,18 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      remat recompute) and flash_bwd_dq / flash_bwd_dkv 56 each, no plain
      call; then the reduced model's loss and grads on the card against the
      CPU, and 3 compressed-sync engine steps on both;
+  4h. train under a plan: a world-1 NCCL group and a (1, 1) ("data",
+     "model") DeviceMesh; the port's solver solves the qwen2-1.5b train
+     cell (4 x 1024, f32 master state in the graph) for it, and for the
+     (4, 2) and (2, 4) meshes (solved only, printed: which roles cut the
+     moments, the master and the weights); phase 4b's run with --mesh 1x1
+     --plan auto through launch.train's runner (params, moments and
+     master as DTensors, the attention's kernels inside local_map): phase
+     4b's launches exactly, no plan fallback, no plain call, finite losses
+     falling, each within 1e-3 relative of phase 4b's (bit-equality
+     printed); tok/s, step ms, host and device ms a step with and without
+     the plan, peak memory and the model-FLOPs share; the group is torn
+     down after;
   4f. danube serve: h2o-danube-3-4b at full width (24 layers, d 3840,
      32 heads of hd 120 on 8 KV heads, window 4096, untied vocab 32000,
      bf16, random weights from torch.Generator(0)), 8 slots x 2048 (a ring
@@ -192,6 +204,17 @@ PARAM_GRAD_REL = 0.1
 TRAIN_LOSS_ATOL = 0.08
 # the full-width training run: 12 steps, 2 of them warmup
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 12, 4, 1024, 2
+# 4h: phase 4b's run under the solved (1, 1) train plan, all 12 steps (the
+# same cosine schedule, so its losses are comparable step by step), each
+# loss within 1e-3 relative of phase 4b's; the train cell the solver is
+# given for (1, 1), and the meshes whose plans are printed
+TRAIN_PLAN_LOSS_REL = 1e-3
+TRAIN_PLAN_SHAPE = ("train4x1024", 1024, 4, "train")
+TRAIN_PLAN_MESHES = ((4, 2), (2, 4))      # solved only, printed
+# host and device ms a step, with and without the plan: steps timed after
+# one warm step (host: each step()'s enqueue; wall: the steps ended by a
+# sync), and steps under torch.profiler (device: its kernels' time)
+STEP_TIMED, STEP_PROFILED = 3, 2
 # the hybrid (zamba2-2.7b) run: 8 steps of the same batch, 2 of them warmup
 HYBRID_ARCH, HYBRID_STEPS = "zamba2-2.7b", 8
 # h2o-danube-3-4b (hd 120, window 4096): served at full width, 8 slots x
@@ -1699,7 +1722,7 @@ def serve_fallback(lin_model, params, prompts, plan, mesh, scfg, tag):
           f"decode dispatches; launches {got['launches']}, plan fallbacks "
           f"{got['fallbacks']}, plain calls {got['plain']} {tag}")
     want = {"prefill_attention": L * got["prefill"],
-            "attend_cache": L * got["decode"]}
+            "attend_cache": L * got["decode"], "attention": 0}
     if got["fallbacks"] != want:
         fail(f"plan fallback: counted {got['fallbacks']}, want {want}")
     if got["launches"] != ref["launches"] or got["launches"] != {
@@ -1952,6 +1975,204 @@ def train_full_width(dev, tag, arch="qwen2-1.5b", steps=TRAIN_STEPS,
           f"{rec['breakdown_s']} {tag}")
     rec.update(launches=launches, peak_memory_bytes=peak,
                model_flops_per_step=flops, mfu=mfu, n_layers=L)
+    return rec, launches
+
+
+def train_step_times(dev, cfg, plan, mesh, tag, label, profile=False):
+    """Host, wall and device ms of a full-width training step of phase
+    4b's engine (``plan``/``mesh`` None: unplanned), fed by BatchFeed as
+    the training loop feeds it: one warm step, STEP_TIMED steps whose
+    ``step()`` calls are timed on the host (the step reads nothing back)
+    and ended by one sync, then STEP_PROFILED steps under torch.profiler
+    for the kernels' device time.  With ``profile``, the profiler's report
+    too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.data.pipeline import BatchFeed, DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainConfig, make_engine
+
+    args = launch_train.build_argparser().parse_args(train_argv())
+    tcfg = TrainConfig(microbatches=args.microbatches, buckets=args.buckets,
+                       optim=AdamWConfig(lr=args.lr, warmup_steps=2,
+                                         total_steps=args.steps))
+    engine = make_engine(LM(cfg), tcfg, device=dev, mesh=mesh, plan=plan)
+    state = engine.init_state(0)
+    dcfg = DataConfig(seed=0, vocab=cfg.vocab, seq_len=args.seq,
+                      global_batch=args.batch)
+    feed_at = ({} if plan is None else
+               dict(mesh=mesh, placements=engine.batch_placements()))
+    with BatchFeed(dcfg, device=dev, **feed_at) as feed:
+        state, _ = engine.step(state, feed.get())
+        torch.cuda.synchronize()
+        host = []
+        t0 = time.perf_counter()
+        for _ in range(STEP_TIMED):
+            batch = feed.get()
+            t = time.perf_counter()
+            state, _ = engine.step(state, batch)
+            host.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / STEP_TIMED
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(STEP_PROFILED):
+                state, _ = engine.step(state, feed.get())
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3 / STEP_PROFILED
+    rec = dict(host_ms=float(np.mean(host)), wall_ms=wall_ms,
+               device_ms=dev_ms)
+    print(f"train plan: step {label}: host {rec['host_ms']:.2f} ms "
+          f"(enqueue), wall {wall_ms:.2f} ms (n {STEP_TIMED}, synced at the "
+          f"end), device {dev_ms:.2f} ms (profiler, {STEP_PROFILED} steps) "
+          f"{tag}")
+    if profile:
+        rec["profile"] = report_profile(
+            prof, f"train {cfg.name} {label} ({STEP_PROFILED} steps)",
+            prof_ms, tag)
+    del state, engine
+    return rec
+
+
+def train_plan(dev, tag, ref_rec, profile=False):
+    """Phase 4h: phase 4b's training run under the solved (1, 1) train
+    plan, on a world-1 NCCL group and a (1, 1) DeviceMesh, through
+    launch.train's runner with --mesh 1x1 --plan auto.  Launches must be
+    phase 4b's exactly, with no plan fallback and no plain call; every
+    loss finite, the last below the first, each within
+    TRAIN_PLAN_LOSS_REL of phase 4b's.  Also solves and prints the (4, 2)
+    and (2, 4) train plans (solved only), and a step's host and device ms
+    with and without the plan.  Tears the group down before it
+    returns."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.builders import build_graph
+    from repro_torch.core.plan import ShardingPlan
+    from repro_torch.core.solver import solve_mesh
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.compile import plan_from_record, solve_cell_plan
+    from repro_torch.launch.mesh import (free_port, init_distributed,
+                                         make_mesh, solver_axes)
+
+    cfg = get_arch("qwen2-1.5b")
+    L, n = cfg.n_layers, TRAIN_STEPS
+    init_distributed("cuda", 0, 1, free_port())
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    print(f"train plan: {dist.get_backend()} group of "
+          f"{dist.get_world_size()}, mesh {tuple(mesh.mesh.shape)} "
+          f"{mesh.mesh_dim_names}")
+    shape = ShapeConfig(*TRAIN_PLAN_SHAPE)
+    graph_kwargs = {"master_fp32": True, "error_feedback": False}
+    t0 = time.perf_counter()
+    plan_rec = solve_cell_plan(cfg, shape, solver_axes((1, 1)), "gpu1x1_mp",
+                               use_cache=False, graph_kwargs=graph_kwargs)
+    solves = {"1x1": dict(solve_s=time.perf_counter() - t0,
+                          total_bytes=plan_rec["total_bytes"],
+                          role_cuts=plan_rec["role_cuts"])}
+    # the (4, 2) and (2, 4) plans, solved only (one card here), in two
+    # processes side by side (~1 min each on the card's host), started
+    # fresh: this process has CUDA's and NCCL's threads, so no fork
+    g = build_graph(cfg, shape, **graph_kwargs)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(TRAIN_PLAN_MESHES),
+                             mp_context=mp.get_context("spawn")) as ex:
+        futures = [ex.submit(solve_mesh, g, solver_axes(m))
+                   for m in TRAIN_PLAN_MESHES]
+        sols = [f.result() for f in futures]
+    many_s = time.perf_counter() - t0
+    for m, sol in zip(TRAIN_PLAN_MESHES, sols):
+        name = f"{m[0]}x{m[1]}"
+        cuts = ShardingPlan.from_graph_solution(sol, g).role_cuts
+        solves[name] = dict(solve_s=many_s, total_bytes=sol.total_bytes,
+                            role_cuts=cuts)
+        state = {r: {a: d for a, d in c.items() if d}
+                 for r, c in cuts.items()
+                 if r.endswith((".opt", ".master")) or r.startswith("w")}
+        print(f"train plan: {cfg.name} {shape.name} on a {name} mesh "
+              f"(solved only: one card here), solver cost "
+              f"{sol.total_bytes:.6g}; cuts of the moments, master and "
+              f"weights: { {r: c for r, c in sorted(state.items()) if c} }")
+    cut = sorted(r for r, c in plan_rec["role_cuts"].items()
+                 if any(c.values()))
+    print(f"train plan: the (1, 1) plan solved in "
+          f"{solves['1x1']['solve_s']:.3f} s (solver cost "
+          f"{plan_rec['total_bytes']:.6g}, roles cut: {cut or 'none'}); "
+          f"the other two side by side in {many_s:.1f} s")
+    plan = plan_from_record(plan_rec)
+
+    args = launch_train.build_argparser().parse_args(
+        train_argv() + ["--mesh", "1x1", "--plan", "auto"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    rec = launch_train.run(args, cfg=cfg)
+    launches = dict(fa.launches)
+    plain, fallbacks = dict(ops.plain_calls), dict(ops.plan_fallbacks)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"flash_fwd": 2 * L * TRAIN_MICRO * n, "flash_fwd_f32": 0,
+            "flash_decode": 0,
+            "flash_paged_decode": 0, "flash_bwd_dq": L * TRAIN_MICRO * n,
+            "flash_bwd_dkv": L * TRAIN_MICRO * n, "flash_bwd_dq_f32": 0,
+            "flash_bwd_dkv_f32": 0}
+    losses, ref = rec["losses"], ref_rec["losses"][:n]
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, ref))
+    print(f"train plan: {cfg.name} full width under the (1, 1) plan, {n} "
+          f"steps, losses {[round(x, 4) for x in losses]}")
+    print(f"train plan: launches {launches} (want {want}), plan fallbacks "
+          f"{fallbacks}, plain calls {plain}")
+    print(f"train plan: losses against phase 4b's: bit-equal "
+          f"{losses == ref}, max relative gap {rel:.3g} (band "
+          f"{TRAIN_PLAN_LOSS_REL})")
+    if len(losses) != n or not np.isfinite(losses).all():
+        fail(f"train plan: losses not all finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train plan: last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    if launches != want:
+        fail(f"train plan: launches {launches}, expected {want}")
+    if any(fallbacks.values()):
+        fail(f"train plan: an attention call gathered: {fallbacks}")
+    if any(plain.values()):
+        fail(f"train plan: a plain version ran: {plain}")
+    if len(ref) != n or not rel <= TRAIN_PLAN_LOSS_REL:
+        fail(f"train plan: losses {losses} against phase 4b's {ref}")
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    mfu = flops / rec["mean_step_s"] / BF16_FLOPS_PER_S
+    print(f"train plan metrics: {rec['tokens_per_s']:.1f} tok/s (phase 4b "
+          f"{ref_rec['tokens_per_s']:.1f}), mean step "
+          f"{rec['mean_step_s'] * 1e3:.2f} ms (phase 4b "
+          f"{ref_rec['mean_step_s'] * 1e3:.2f}) over "
+          f"{rec['meta']['measured_steps']} steps, {100 * mfu:.2f}% of 989 "
+          f"TFLOP/s, peak memory {peak / 2**30:.2f} GiB (phase 4b "
+          f"{ref_rec['peak_memory_bytes'] / 2**30:.2f}) {tag}")
+    rec.update(launches=launches, plan_fallbacks=fallbacks,
+               peak_memory_bytes=peak, model_flops_per_step=flops, mfu=mfu,
+               bit_equal=losses == ref, max_rel_gap=rel, solves=solves)
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = {}
+    for label, p, m in (("without the plan", None, None),
+                        ("with the plan", plan, mesh)):
+        steps[label] = train_step_times(dev, cfg, p, m, tag, label,
+                                        profile and p is not None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["step"] = steps
+    dist.destroy_process_group()
     return rec, launches
 
 
@@ -2367,6 +2588,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phases 1-4b done at {time.perf_counter() - t_start:.1f}s")
 
+    # 4h. phase 4b's run under the solved (1, 1) train plan
+    train_plan_rec, train_plan_launches = train_plan(dev, tag, train_rec,
+                                                     args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4h done at {time.perf_counter() - t_start:.1f}s")
+
     # 4d. the hybrid family: zamba2-2.7b training at full width, then the
     # reduced zamba2 against the CPU
     hybrid_rec, hybrid_launches = train_hybrid_full_width(dev, tag)
@@ -2401,7 +2629,7 @@ def main() -> int:
 
     # 6. the kernels line: launches are those of the main paths (linear
     # serving, the four paged runs, serving under the plan, training,
-    # hybrid training)
+    # training under the plan, hybrid training)
     fa_py = "src/repro/kernels/flash_attention.py"
     replaces = {"flash_fwd": f"{fa_py}:146 and {fa_py}:191",
                 "flash_decode": f"{fa_py}:280",
@@ -2420,7 +2648,7 @@ def main() -> int:
     # from phases 4f and 4g, errors from phase 3's hd-120 cases, times from
     # phase 5's hd-120 rows; the other entries keep the other runs and hd
     runs = (serve_launches, paged_launches, plan_launches, train_launches,
-            hybrid_launches)
+            train_plan_launches, hybrid_launches)
     runs120 = (danube_launches, danube_train_launches)
     kernels = []
     for k, hd120 in [(k, False) for k in replaces] + [
@@ -2445,6 +2673,7 @@ def main() -> int:
             serve=serve_rec, paged=paged_rec, plan=plan_rec,
             reduced_card_vs_cpu=reduced_err,
             train=train_rec, reduced_train_card_vs_cpu=reduced_train,
+            train_plan=train_plan_rec,
             hybrid_train=hybrid_rec,
             reduced_hybrid_card_vs_cpu=hybrid_reduced,
             danube_serve=danube_rec, reduced_danube_card_vs_cpu=danube_reduced,

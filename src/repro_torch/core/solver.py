@@ -650,8 +650,19 @@ def solve_mesh_capacity(g: Graph, axes: Sequence[MeshAxis],
     ``workers`` > 1 evaluates the candidate λ scales concurrently with
     concurrent.futures and keeps the smallest feasible one — identical
     result to the sequential escalation, lower wall time when escalation
-    is needed."""
+    is needed.
+
+    The penalty is priced against the same ``hbm`` as the budget (a
+    ``CapacityTerm(scale, hbm)``; ``mem_scale`` would read
+    ``HBM_PER_DEV``), so a solve at another card's memory size is that
+    card's solve throughout."""
     from .cost import _PERSISTENT_ROLES
+    from .costterms import CapacityTerm
+
+    def penalty(sc: float) -> dict:
+        return {"mem_scale": 0.0,
+                "terms": (CapacityTerm(scale=sc, hbm=hbm),)}
+
     scales = [8.0 ** k for k in range(max_rounds)]
     cost_cache: dict = {}   # λ only rescales penalties; tables are shared
 
@@ -669,7 +680,7 @@ def solve_mesh_capacity(g: Graph, axes: Sequence[MeshAxis],
         # ones (shutdown(wait=False, cancel_futures=True) — their
         # results are discarded)
         payloads = [(g, axes,
-                     {"beam": beam, "mem_scale": sc, "compute": compute})
+                     {"beam": beam, "compute": compute, **penalty(sc)})
                     for sc in scales]
         try:
             from concurrent.futures import ProcessPoolExecutor
@@ -691,8 +702,8 @@ def solve_mesh_capacity(g: Graph, axes: Sequence[MeshAxis],
             raw_ok = False
     if not parallel_ok:
         for i, sc in enumerate(scales):
-            sol = solve_mesh(g, axes, beam=beam, mem_scale=sc,
-                             cost_cache=cost_cache, compute=compute)
+            sol = solve_mesh(g, axes, beam=beam, cost_cache=cost_cache,
+                             compute=compute, **penalty(sc))
             if feasible(sol):
                 raw_ok = i == 0
                 break

@@ -1,5 +1,5 @@
 """Deterministic synthetic data and the device batch feed (counterpart of
-``repro.data.pipeline``, single device).
+``repro.data.pipeline``).
 
 ``host_batch`` is a numpy copy of repro's: the generator is seeded by
 (seed, step, host), so the arrays are identical to repro's and a resumed
@@ -9,7 +9,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -62,12 +62,18 @@ class BatchFeed:
     A producer thread makes the host batch for the next steps and copies
     it to ``device`` (pinned host memory, ``non_blocking=True``) while the
     engine still runs the current step; ``get()`` returns dicts of int32
-    tensors.  An exception in the producer is re-raised by ``get()``.
-    Use as a context manager or call :meth:`close`."""
+    tensors.  With ``mesh`` and ``placements`` (key -> DTensor placements,
+    the engine's ``batch_placements()``) each tensor is placed under its
+    placements, every rank keeping its slice of the host batch (the same
+    on every rank), so nothing moves between ranks.  An exception in the
+    producer is re-raised by ``get()``.  Use as a context manager or call
+    :meth:`close`."""
 
     def __init__(self, cfg: DataConfig, start_step: int = 0,
-                 device: Optional[torch.device] = None, depth: int = 2):
+                 device: Optional[torch.device] = None, depth: int = 2,
+                 mesh=None, placements: Optional[Dict[str, Any]] = None):
         self.cfg = cfg
+        self.mesh, self.placements = mesh, placements
         self.device = torch.device(device) if device is not None else None
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
@@ -78,9 +84,13 @@ class BatchFeed:
 
     def _place(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out = {k: torch.from_numpy(v) for k, v in batch.items()}
-        if self.device is None or self.device.type == "cpu":
+        if self.device is not None and self.device.type != "cpu":
+            out = {k: v.pin_memory().to(self.device, non_blocking=True)
+                   for k, v in out.items()}
+        if self.placements is None:
             return out
-        return {k: v.pin_memory().to(self.device, non_blocking=True)
+        from ..models.sharding import place
+        return {k: place(v, self.mesh, self.placements[k])
                 for k, v in out.items()}
 
     def _produce(self) -> None:

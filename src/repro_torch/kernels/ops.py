@@ -34,7 +34,8 @@ bwd_recomputes: Dict[str, int] = {"ssd_chunk_scan": 0}
 # attention calls under a sharding plan whose cut the kernel cannot run
 # on each rank's local shard (models/attention.py), which took the plain
 # attention on the gathered tensors instead
-plan_fallbacks: Dict[str, int] = {"attend_cache": 0, "prefill_attention": 0}
+plan_fallbacks: Dict[str, int] = {"attend_cache": 0, "prefill_attention": 0,
+                                  "attention": 0}
 
 
 def reset_plain_calls() -> None:

@@ -8,10 +8,13 @@ the forward-only offset kernel (chunked prefill).  ``impl`` exists for
 signature parity with repro, where it chose between XLA and Pallas; the
 port has one route, so it accepts only ``"auto"``.
 
-Under a sharding plan (``attend_cache_sharded``, ``prefill_attention_
-sharded``) the arguments are DTensors and the slot cache is updated in
-place, so the K/V write and the kernel run together on each rank's local
-shard through ``local_map`` (repro's ``shard_map`` rule).  The kernel
+Under a sharding plan the arguments are DTensors.  Training
+(``attention_sharded``) runs the differentiable kernel op on each rank's
+local (batch, heads) shards through ``local_map``, where repro trains on
+its XLA attention.  Serving (``attend_cache_sharded``,
+``prefill_attention_sharded``) updates the slot cache in place, so the
+K/V write and the kernel run together on each rank's local shard
+through ``local_map`` (repro's ``shard_map`` rule).  The kernel
 takes the local shards when the cache's cut is on ``batch`` and/or
 ``kv_heads`` only and each degree divides its dim; any other cut (a
 ``seq_kv`` cut would split the softmax) gathers the query and the
@@ -113,6 +116,42 @@ def kernel_placements(cache_placements: Sequence, mesh, b: int, h: int,
     if b % deg_b or kv % deg_h or h % deg_h:
         return None
     return tuple(out)
+
+
+def attention_sharded(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None,
+                      scale: Optional[float] = None):
+    """Training attention under a plan: q [B,S,H,hd] and k/v [B,S,KV,hd]
+    are DTensors.  The differentiable ``ops.flash_attention`` (the
+    forward kernel, and the dq and dk/dv kernels in the backward) runs on
+    each rank's local shards in one ``local_map`` region when q's cut is
+    on batch and/or heads and each degree divides B, H and KV
+    (``kernel_placements``: a [B,S,H,hd] tensor is a cache leaf without
+    its layer axis, so its dim d is the cache's d + 1).  A contiguous
+    heads cut keeps each rank's query heads with the KV heads of their
+    group only because both H and KV divide.  Any other cut (seq, hd, a
+    degree that does not divide) gathers q, k and v whole on every rank
+    and runs the same op on them, counted in
+    ``ops.plan_fallbacks["attention"]``.  Returns o [B,S,H,hd]
+    (DTensor)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    b, _, h, _ = q.shape
+    as_cache = [Replicate() if isinstance(p, (Replicate, Partial))
+                else Shard(p.dim + 1) for p in q.placements]
+    qpl = kernel_placements(as_cache, mesh, b, h, k.shape[2],
+                            batch_dim=0, head_dim=2)
+    if qpl is None:
+        kops.plan_fallbacks["attention"] += 1
+        qpl = (Replicate(),) * mesh.ndim
+
+    def region(q_l, k_l, v_l):
+        return kops.flash_attention(q_l, k_l, v_l, causal, window, scale)
+
+    return local_map(region, out_placements=list(qpl),
+                     in_placements=(qpl, qpl, qpl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def attend_cache_sharded(q, k, v, k_all, v_all, layer: int,

@@ -27,13 +27,16 @@ masked here without ever indexing out of range or wrapping a negative
 index; in the paged pool they go to block 0, the null sink that the host
 allocator (runtime/paged.py) never hands out.
 
-Under a sharding plan (``LM.plan`` with ``LM.mesh``; the linear tier's
-serving entry points only) params, cache and activations are DTensors:
-``shard`` redistributes the activations where repro constrains them, and
-each layer's K/V write and attention run on the local shards
-(``attention.attend_cache_sharded`` / ``prefill_attention_sharded``).
-Plain tensors (positions, lengths) join the DTensor ops as replicated
-(``implicit_replication``).  Without a plan every path runs as before."""
+Under a sharding plan (``LM.plan`` with ``LM.mesh``: the training
+forward and loss and the linear tier's serving entry points of the dense
+family) params, cache and activations are DTensors: ``shard``
+redistributes the activations where repro constrains them, and the
+attention runs on the local shards (``attention.attention_sharded``
+around the training kernels, ``attend_cache_sharded`` /
+``prefill_attention_sharded`` with each layer's K/V write when serving).
+Plain tensors (lengths, the rotary tables) join the DTensor ops as
+replicated (``dist_scope``).  The hybrid family refuses a plan.  Without
+a plan every path runs as before."""
 from __future__ import annotations
 
 import contextlib
@@ -46,7 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from .attention import (attend_cache, attend_cache_sharded, attend_paged,
-                        attention, prefill_attention_sharded)
+                        attention, attention_sharded,
+                        prefill_attention_sharded)
 from .common import (dense_init, embed_init, local, resolve_device, rms_norm,
                      rope, shard, softmax_cross_entropy)
 from .sharding import global_offset
@@ -95,6 +99,17 @@ def _unsupported_family(cfg: ArchConfig) -> Optional[str]:
     return None
 
 
+def refuse_plan(cfg: ArchConfig) -> None:
+    """Raise for a config whose family does not run under a sharding plan
+    yet: the hybrid family (repro shards its SSD scan through
+    ``shard_map``)."""
+    if is_hybrid(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid family under a sharding plan is not "
+            "ported yet (ROADMAP A.1: hybrid training and serving under a "
+            "plan; repro shards its SSD scan through shard_map)")
+
+
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -114,6 +129,30 @@ def _unbind(tree: Params) -> List[Params]:
     return [{k: v[i] for k, v in flat.items()} for i in range(n)]
 
 
+def _whole_along(t, dim: int):
+    """DTensor ``t`` with no mesh dim cutting tensor dim ``dim`` (the
+    loss's vocab: DTensor's masked gather of a label from vocab-cut
+    logits fails in its reduction, so a vocab cut is gathered first)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+          for p in t.placements]
+    if pl == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, pl)
+
+
+@contextlib.contextmanager
+def _replicating():
+    from torch.distributed.tensor import DTensor
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
 def _mlp_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu((x @ p["wg"]).float()).to(x.dtype)
     return (g * (x @ p["wu"])) @ p["wd"]
@@ -128,8 +167,8 @@ class LM:
     # tensor, the chunked scan elsewhere)
     ssd_impl: str = "auto"
     # a solved ShardingPlan and the DeviceMesh its axes name (repro's
-    # LM.plan / LM.mesh); runtime/serve.Server sets them for the linear
-    # tier's entry points, with the params and cache placed under it
+    # LM.plan / LM.mesh): the trainer (train/engine.py) and the linear
+    # tier's Server place the params (and cache) under it
     plan: Any = None
     mesh: Any = None
     # per-layer views of the last params["layers"] seen (built once, not
@@ -146,6 +185,8 @@ class LM:
         if self.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"ssd_impl must be one of {SSD_IMPLS}, got "
                              f"{self.ssd_impl!r}")
+        if self.plan is not None:
+            refuse_plan(self.cfg)
         if is_hybrid(self.cfg) and self.cfg.n_layers % self.cfg.attn_every:
             raise ValueError(
                 f"{self.cfg.name}: {self.cfg.n_layers} layers are not a "
@@ -166,14 +207,14 @@ class LM:
     def _shard(self, x, role: str, dims: Sequence[str]):
         return shard(x, self.plan, role, dims)
 
-    def _dist(self):
+    def dist_scope(self):
         """What a planned step runs in: plain tensors join DTensor ops as
-        replicated.  Nothing without a plan."""
+        replicated (``implicit_replication``, restoring the setting it
+        found on exit, so scopes nest: a layer's own scope inside the
+        forward's).  Nothing without a plan."""
         if self.plan is None:
             return contextlib.nullcontext()
-        from torch.distributed.tensor.experimental import \
-            implicit_replication
-        return implicit_replication()
+        return _replicating()
 
     # -- params ------------------------------------------------------------
     def param_shapes(self) -> Params:
@@ -267,18 +308,31 @@ class LM:
     # -- forward (train) -----------------------------------------------------
     def _layer(self, p: Params, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
+        """One dense layer of the training forward.  Under a plan it runs
+        in ``dist_scope()`` itself (the remat calls it again in the backward)
+        and constrains the activations at repro's sites: the post-norm
+        activations, q on ``wq.out`` and ``x`` after each residual add."""
+        with self.dist_scope():
+            return self._layer_body(p, x, positions)
+
+    def _layer_body(self, p: Params, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         b, s, _ = x.shape
-        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+        bsd = ("batch", "seq", "d_model")
+        xn = self._shard(rms_norm(x, p["ln1"], cfg.norm_eps), "x", bsd)
         q, k, v = self._qkv(p["attn"], xn)
+        q = self._shard(q, "wq.out", ("batch", "seq", "heads"))
         q = rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
         k = rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
         v = v.reshape(b, s, kvh, hd)
-        o = attention(q, k, v, causal=True, window=cfg.swa_window)
-        x = x + o.reshape(b, s, h * hd) @ p["attn"]["wo"]
-        return x + _mlp_forward(p["mlp"], rms_norm(x, p["ln2"],
-                                                   cfg.norm_eps))
+        attend = attention if self.plan is None else attention_sharded
+        o = attend(q, k, v, causal=True, window=cfg.swa_window)
+        x = self._shard(x + o.reshape(b, s, h * hd) @ p["attn"]["wo"], "x",
+                        bsd)
+        xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bsd)
+        return self._shard(x + _mlp_forward(p["mlp"], xn), "x", bsd)
 
     def _mamba_layer(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         return x + mamba_forward(p, rms_norm(x, p["ln"], self.cfg.norm_eps),
@@ -288,10 +342,25 @@ class LM:
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens [B, S] -> (logits [B, S, V], aux_loss 0).  Under autograd
         each layer (each Mamba layer and each application of the hybrid
-        family's shared block) is rematerialised in the backward."""
-        x = params["embed"][tokens]
+        family's shared block) is rematerialised in the backward.  Under
+        a plan (dense family) params and tokens are DTensors and so are
+        the logits."""
+        with self.dist_scope():
+            return self._forward(params, tokens)
+
+    def _forward(self, params: Params, tokens: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self._shard(params["embed"][tokens], "x",
+                        ("batch", "seq", "d_model"))
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        if self.plan is not None:
+            # a DTensor, so the rotary tables saved for the backward are
+            # DTensors too and the backward mixes no plain tensor in
+            from torch.distributed.tensor import DTensor, Replicate
+            positions = DTensor.from_local(
+                positions, self.mesh, [Replicate()] * self.mesh.ndim,
+                run_check=False)
         remat = torch.is_grad_enabled()
 
         def run(fn, *args):
@@ -320,8 +389,12 @@ class LM:
         """Token-mean CE (f32) of ``batch["tokens"]`` against
         ``batch["labels"]``, plus 0.01 x the aux loss, as repro."""
         logits, aux = self.forward(params, batch["tokens"])
-        ce = softmax_cross_entropy(logits, batch["labels"], self.cfg.vocab)
-        return ce + 0.01 * aux
+        with self.dist_scope():
+            if self.plan is not None:
+                logits = _whole_along(logits, logits.ndim - 1)
+            ce = softmax_cross_entropy(logits, batch["labels"],
+                                       self.cfg.vocab)
+            return ce + 0.01 * aux
 
     # -- the linear slot cache --------------------------------------------------
     def cache_shapes(self, batch: int, max_len: int) -> Cache:
@@ -416,7 +489,7 @@ class LM:
         ``active`` [B] bool: inactive rows keep their cache row and
         position (repro drops their write with an out-of-range index)."""
         self._dense_only("decode_step")
-        with self._dist():
+        with self.dist_scope():
             return self._decode_step(params, cache, tokens, active)
 
     def _decode_step(self, params: Params, cache: Cache,
@@ -531,7 +604,7 @@ class LM:
         steps decode_step over it; "scan" forces the stepwise path;
         "parallel" forces the parallel one."""
         self._dense_only("prefill_chunk")
-        with self._dist():
+        with self.dist_scope():
             return self._prefill_chunk(params, cache, tokens, slot, n_valid,
                                        impl)
 

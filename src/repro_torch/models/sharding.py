@@ -189,16 +189,51 @@ def place_tree(tree: Tree, mesh, plan, rules=RULES) -> Tree:
     return go(tree, pl)
 
 
-def zeros_tree(shapes: Tree, mesh, plan, rules=RULES, device=None) -> Tree:
-    """DTensors of zeros for a tree of (shape, dtype) leaves, placed under
-    ``plan``.  Each rank allocates only its own shard, of the local shape
-    ``distribute_tensor`` would give it, so no rank ever holds the whole
-    tensor (the linear cache cut on ``batch`` leaves each card its part).
-    """
+def place(t: torch.Tensor, mesh, placements: Sequence):
+    """``t``, the same full tensor on every rank, as a DTensor under
+    ``placements``: each rank keeps its own slice and nothing moves
+    between ranks."""
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
+def from_local(x: torch.Tensor, mesh, placements: Sequence,
+               shape: Sequence[int]):
+    """This rank's shard ``x`` as a DTensor of global ``shape``
+    (contiguous) under ``placements``: nothing is checked and nothing
+    moves between ranks."""
     from torch.distributed.tensor import DTensor
+    return DTensor.from_local(
+        x, mesh, placements, run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def like_placed(x: torch.Tensor, ref):
+    """Local tensor ``x`` as a DTensor placed and shaped as ``ref`` (``x``
+    itself when ``ref`` is a plain tensor)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(ref, DTensor):
+        return x
+    return from_local(x, ref.device_mesh, ref.placements, ref.shape)
+
+
+def zeros_placed(shape: Sequence[int], dtype, mesh, placements: Sequence,
+                 device=None):
+    """A DTensor of zeros of global ``shape`` under ``placements``.  Each
+    rank allocates only its own shard, of the local shape
+    ``distribute_tensor`` would give it, so no rank ever holds the whole
+    tensor."""
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
+    lshape, _ = compute_local_shape_and_global_offset(shape, mesh,
+                                                      placements)
+    return from_local(torch.zeros(lshape, dtype=dtype, device=device), mesh,
+                      placements, shape)
 
+
+def zeros_tree(shapes: Tree, mesh, plan, rules=RULES, device=None) -> Tree:
+    """DTensors of zeros for a tree of (shape, dtype) leaves, placed under
+    ``plan``, each rank allocating its shard only (``zeros_placed``; the
+    linear cache cut on ``batch`` leaves each card its part)."""
     def go(t: Tree, prefix: str) -> Tree:
         out: Tree = {}
         for k, v in t.items():
@@ -209,12 +244,7 @@ def zeros_tree(shapes: Tree, mesh, plan, rules=RULES, device=None) -> Tree:
             shape, dtype = v
             pl = leaf_placements(plan, path, len(shape),
                                  mesh.mesh_dim_names, rules)
-            lshape, _ = compute_local_shape_and_global_offset(
-                shape, mesh, pl)
-            out[k] = DTensor.from_local(
-                torch.zeros(lshape, dtype=dtype, device=device), mesh, pl,
-                run_check=False, shape=torch.Size(shape),
-                stride=torch.empty(shape, device="meta").stride())
+            out[k] = zeros_placed(shape, dtype, mesh, pl, device)
         return out
     return go(shapes, "")
 

@@ -10,7 +10,14 @@ Differences from repro, none in the arithmetic:
     a step never waits for the device.
 As in repro, weight decay applies to every leaf with ``ndim >= 2``: with
 stacked ``[L, d]`` layers that includes ``ln1``, ``ln2`` and the stacked
-QKV biases, and excludes ``ln_f``."""
+QKV biases, and excludes ``ln_f``.
+
+Under a sharding plan the leaves are DTensors.  ``global_norm`` is the
+norm of the whole gradient, summed from every rank's shard in one
+all-reduce.  The update is elementwise: it runs on the local shards
+where a leaf's grad, ``m``, ``v`` and param (or master) share placements;
+where they do not, the grad and the param are moved into the moments'
+placements first and the new param is moved back."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,6 +27,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .. import tree
+from ..models.common import local
+from ..models.sharding import from_local
 
 Tree = Dict[str, Any]
 
@@ -61,32 +70,89 @@ def init_state(params: Tree) -> Tree:
             "v": tree.tree_map(zeros32, params)}
 
 
+def _owned(g) -> bool:
+    """Whether this rank's shard of DTensor ``g`` counts towards a sum over
+    the whole tensor: on each mesh dim that replicates ``g``, one rank
+    (coordinate 0) holds the copy that counts."""
+    from torch.distributed.tensor import Partial, Replicate
+    coord = g.device_mesh.get_coordinate()
+    for j, p in enumerate(g.placements):
+        if isinstance(p, Partial):
+            raise ValueError("global_norm of a pending sum: reduce the "
+                             "gradient first")
+        if isinstance(p, Replicate) and coord[j]:
+            return False
+    return True
+
+
 def global_norm(t: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.leaves(t)))
+    """The L2 norm of every leaf of ``t`` together, as a plain 0-d f32
+    tensor.  DTensor leaves (a mesh spanning the default group): each
+    rank sums the squares of the shards it owns (``_owned``) and one
+    all-reduce adds the ranks' sums."""
+    from torch.distributed.tensor import DTensor
+    leaves = tree.leaves(t)
+    if not any(isinstance(g, DTensor) for g in leaves):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    terms = []
+    for g in leaves:
+        sq = torch.sum(torch.square(g.to_local().float()))
+        terms.append(sq if _owned(g) else torch.zeros_like(sq))
+    total = sum(terms)
+    torch.distributed.all_reduce(total)
+    return torch.sqrt(total)
+
+
+def _aligned(p, g, m, v):
+    """Local tensors (p, g, m, v) for the elementwise update, and what
+    writes the new p back.  Plain tensors are their own locals.  DTensors
+    are taken in the moments' placements: a grad or param placed
+    otherwise is redistributed there, and the param's new value is
+    redistributed back into its own placements by the write-back."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(p, DTensor):
+        return p, g, m, v, None
+    mesh, pl = m.device_mesh, m.placements
+    if g.placements != pl:
+        g = g.redistribute(mesh, pl)
+    if p.placements == pl:
+        return p.to_local(), g.to_local(), m.to_local(), v.to_local(), None
+    p_l = p.redistribute(mesh, pl).to_local().clone()
+
+    def write_back():
+        new = from_local(p_l, mesh, pl, p.shape)
+        p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())
+    return p_l, g.to_local(), m.to_local(), v.to_local(), write_back
 
 
 @torch.no_grad()
 def apply_updates(params: Tree, grads: Tree, state: Tree,
                   cfg: AdamWConfig) -> Tuple[Tree, Tree, torch.Tensor]:
-    """One AdamW step, in place.  Returns (params, state, grad_norm)."""
-    state["step"] += 1
-    step = state["step"].float()
+    """One AdamW step, in place.  Returns (params, state, grad_norm); the
+    norm is a plain 0-d tensor, the whole gradient's under a plan."""
+    step_t = local(state["step"])
+    step_t += 1
+    step = step_t.float()
     gnorm = global_norm(grads)
     clip = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
             if cfg.clip_norm is not None else None)
-    lr = schedule(cfg, state["step"])
+    lr = schedule(cfg, step_t)
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = 1 - torch.pow(b1, step)
     bc2 = 1 - torch.pow(b2, step)
-    for (path, p), g, m, v in zip(tree.flatten(params), tree.leaves(grads),
-                                  tree.leaves(state["m"]),
-                                  tree.leaves(state["v"])):
+    for (path, p0), g0, m0, v0 in zip(tree.flatten(params),
+                                      tree.leaves(grads),
+                                      tree.leaves(state["m"]),
+                                      tree.leaves(state["v"])):
+        p, g, m, v, write_back = _aligned(p0, g0, m0, v0)
         g = g.float() * clip if clip is not None else g.float()
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        decay = cfg.weight_decay if p.dim() >= 2 else 0.0
+        decay = cfg.weight_decay if p0.dim() >= 2 else 0.0
         p32 = p.float()
         p.copy_(p32 - lr * (delta + decay * p32))
+        if write_back is not None:
+            write_back()
     return params, state, gnorm

@@ -15,6 +15,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from .. import tree
+from ..models.common import local
+from ..models.sharding import like_placed
 
 Tree = Dict[str, Any]
 
@@ -57,6 +59,13 @@ def bucket_slices(nbytes: List[float], n_buckets: int) -> List[List[int]]:
     return out
 
 
+def _peak(t) -> torch.Tensor:
+    lt = local(t)
+    if not lt.numel():                     # an empty shard of an uneven cut
+        return torch.zeros((), dtype=lt.dtype, device=lt.device)
+    return lt.abs().max()
+
+
 def compress_bucketed(grads: Tree, errors: Tree, n_buckets: int,
                       on_wire: Optional[Callable[[int, torch.Tensor],
                                                  torch.Tensor]] = None
@@ -64,25 +73,37 @@ def compress_bucketed(grads: Tree, errors: Tree, n_buckets: int,
     """Error-feedback int8 with one f32 scale per bucket.  ``on_wire(i,
     q_int8)`` sees each leaf's int8 values between quantize and
     dequantize, where a collective would carry them.  Returns (dequantized
-    f32 grads, new error tree)."""
+    f32 grads, new error tree).
+
+    DTensor leaves (grads and errors in the same placements, every pending
+    sum already reduced in f32: an int8 sum would overflow) are quantized
+    shard by shard; the bucket's scale is the max over every rank's
+    shards, one all-reduce a bucket.  ``on_wire`` may move the int8
+    DTensor into other placements (the engine's reshard into the
+    optimizer state's layout): the dequantized grad comes out in those,
+    the new error stays in the errors' placements."""
+    from torch.distributed.tensor import DTensor
     flat_g = tree.flatten(grads)
     flat_e = tree.leaves(errors)
+    sharded = any(isinstance(g, DTensor) for _, g in flat_g)
     buckets = bucket_slices([g.numel() * 4 for _, g in flat_g], n_buckets)
     out: List[Any] = [None] * len(flat_g)
     new_e: List[Any] = [None] * len(flat_g)
     for idxs in buckets:
         corrected = {i: flat_g[i][1].float() + flat_e[i] for i in idxs}
-        scale = torch.clamp(torch.stack([corrected[i].abs().max()
-                                         for i in idxs]).max(),
-                            min=1e-12) / 127.0
+        peaks = torch.stack([_peak(corrected[i]) for i in idxs])
+        if sharded:
+            torch.distributed.all_reduce(peaks,
+                                         op=torch.distributed.ReduceOp.MAX)
+        scale = torch.clamp(peaks.max(), min=1e-12) / 127.0
         for i in idxs:
-            q = torch.clamp(torch.round(corrected[i] / scale),
-                            -127, 127).to(torch.int8)
+            c = local(corrected[i])
+            q = torch.clamp(torch.round(c / scale), -127, 127).to(torch.int8)
+            new_e[i] = like_placed(c - q.float() * scale, corrected[i])
+            wire = like_placed(q, corrected[i])
             if on_wire is not None:
-                q = on_wire(i, q)
-            deq = q.float() * scale
-            out[i] = deq
-            new_e[i] = corrected[i] - deq
+                wire = on_wire(i, wire)
+            out[i] = like_placed(local(wire).float() * scale, wire)
     paths = [p for p, _ in flat_g]
     return (tree.unflatten(list(zip(paths, out))),
             tree.unflatten(list(zip(paths, new_e))))

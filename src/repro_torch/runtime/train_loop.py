@@ -1,5 +1,6 @@
-"""Fault-tolerant training loop on one card (counterpart of
-``repro.runtime.train_loop``): a thin loop over ``train/engine.py``.
+"""Fault-tolerant training loop (counterpart of
+``repro.runtime.train_loop``): a thin loop over ``train/engine.py``, on
+one card or under a sharding plan on a mesh.
 
 - On start it resumes from the latest committed checkpoint in
   ``ckpt_dir``; a killed and resumed run reproduces the uninterrupted loss
@@ -12,13 +13,21 @@
   synchronise, is shared out over its steps.  Intervals after the warmup
   are the measured ones.
 
+Under a plan (``train(mesh=, plan=)``) every rank runs the loop: the
+feed places each batch under the engine's batch placements, the losses
+are the full values.  With a process group up (a mesh, with or without a
+plan) only rank 0 writes checkpoints and prunes old ones; every rank takes
+part in gathering them.
+
 Not ported: the straggler hook and the monitor (they need a per-step
-sync); mesh and plan arguments (the multi-card slice)."""
+sync)."""
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional
+
+import torch
 
 from ..checkpoint import ckpt
 from ..data.pipeline import BatchFeed, DataConfig
@@ -44,24 +53,35 @@ class TrainConfig:
     master_fp32: bool = True
 
 
-def make_engine(model: LM, tcfg: TrainConfig, device="cuda") -> TrainEngine:
+def make_engine(model: LM, tcfg: TrainConfig, device="cuda", mesh=None,
+                plan=None) -> TrainEngine:
+    """The engine for ``tcfg``; with ``plan`` (and ``mesh``) the model
+    runs under that plan and the state is placed under it."""
+    if plan is not None:
+        model = dataclasses.replace(model, plan=plan, mesh=mesh)
     return TrainEngine(
         model,
         EngineConfig(microbatches=tcfg.microbatches, buckets=tcfg.buckets,
                      grad_compression=tcfg.grad_compression,
                      master_fp32=tcfg.master_fp32, optim=tcfg.optim),
-        device=device)
+        device=device, mesh=mesh)
 
 
 def train(model: LM, dcfg: DataConfig, tcfg: TrainConfig,
-          params: Optional[Tree] = None, device="cuda") -> Dict[str, Any]:
-    """Run (or resume) training.  Returns the final state, the engine, the
-    per-step ``history`` ({step, loss, gnorm, sec}) and the measured
-    ``breakdown_s`` (data wait, step and checkpoint seconds after the
-    warmup) with ``measured_steps``."""
+          params: Optional[Tree] = None, device="cuda", mesh=None,
+          plan=None) -> Dict[str, Any]:
+    """Run (or resume) training, under ``plan`` on ``mesh`` if given.
+    Returns the final state, the engine, the per-step ``history`` ({step,
+    loss, gnorm, sec}) and the measured ``breakdown_s`` (data wait, step
+    and checkpoint seconds after the warmup) with ``measured_steps``."""
     dev = resolve_device(device)
     sync = device_sync(dev)
-    engine = make_engine(model, tcfg, device=dev)
+    engine = make_engine(model, tcfg, device=dev, mesh=mesh, plan=plan)
+    dist = torch.distributed
+    writer = (not (dist.is_available() and dist.is_initialized())
+              or dist.get_rank() == 0)
+    feed_at = ({} if not engine.sharded else
+               dict(mesh=engine.mesh, placements=engine.batch_placements()))
     state = None
     start = 0
     if tcfg.ckpt_dir:
@@ -79,7 +99,7 @@ def train(model: LM, dcfg: DataConfig, tcfg: TrainConfig,
     pending = []                  # (step, device loss, device gnorm)
     int_t0 = None
     int_data = 0.0
-    with BatchFeed(dcfg, start_step=start, device=dev) as feed:
+    with BatchFeed(dcfg, start_step=start, device=dev, **feed_at) as feed:
         for step in range(start, tcfg.steps):
             ta = time.monotonic()
             if int_t0 is None:
@@ -108,7 +128,8 @@ def train(model: LM, dcfg: DataConfig, tcfg: TrainConfig,
             if at_ckpt:
                 engine.save(tcfg.ckpt_dir, step + 1, state,
                             extra={"loss": history[-1]["loss"]})
-                ckpt.gc_old(tcfg.ckpt_dir)
+                if writer:
+                    ckpt.gc_old(tcfg.ckpt_dir)
                 ckpt_s += time.monotonic() - tc
     return {"params": state["params"], "opt": state["opt"], "state": state,
             "engine": engine, "history": history,

@@ -1,17 +1,37 @@
-"""The training engine on one card (counterpart of
-``repro.train.engine.TrainEngine`` without a mesh or a plan).
+"""The training engine (counterpart of ``repro.train.engine.TrainEngine``),
+on one card or under a solved sharding plan on a ``DeviceMesh``.
 
 One step carries what repro's jitted step carries, in eager PyTorch:
   - microbatch gradient accumulation in f32 (equal to the full batch);
-  - gradient sync: on one card there is no collective, so the uncompressed
-    path is the f32 cast, and the compressed path is error-feedback int8
-    with one scale per bucket (``optim/compression.compress_bucketed``);
+  - bucketed gradient sync (``optim/compression.bucket_slices``);
+  - optional error-feedback int8 with one scale per bucket
+    (``optim/compression.compress_bucketed``);
   - bf16 compute params with f32 master weights and f32 AdamW moments; the
     update runs on the master copy, which is then cast down into the
     params.
 Unlike repro's donated jit, the step updates the state's tensors in place
-and returns the same dict.  It never waits for the device: the loss and
-the gradient norm come back as device scalars.
+and returns the same dict.
+
+Under a plan (``LM.plan`` with a mesh) every state tree is a tree of
+DTensors placed under its own solved roles (``state_placements``):
+params under the weight roles, ``opt`` under ``<w>.opt``, ``master`` under
+``<w>.master`` (else ``.opt``), ``err`` under ``<w>.err`` (else ``.opt``).
+The gradient is carried in the optimizer state's layout (``.opt``, else
+``.grad``), as repro carries it, so the update runs on local shards:
+  - each microbatch's grads (a pending sum over the cut batch) are
+    redistributed leaf by leaf into the accumulator's placements, in f32,
+    the leaves of one ``bucket_slices`` bucket issued together and waited
+    for together (repro fuses a bucket's per-leaf constraints with
+    ``optimization_barrier``); the accumulator never gathers;
+  - with compression the accumulator is in the ``.err`` placements, so
+    every sum is reduced in f32 before the quantizer, and only the int8
+    values ride the reshard into the gradient's layout (``on_wire``);
+  - AdamW on the master, then the cast-down: bf16 in the master's
+    placements first, then redistributed into the params', so a gather
+    moves bf16;
+  - the loss and the gradient norm come back as full scalars.
+On one card, nothing waits for the device: the loss and the gradient
+norm come back as device scalars.
 
 State (a nested dict, checkpointable as is, with repro's keys):
   ``params``  compute weights (``cfg.dtype``; the leaves require grad)
@@ -22,6 +42,7 @@ State (a nested dict, checkpointable as is, with repro's keys):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -31,9 +52,12 @@ from ..checkpoint import ckpt
 from ..models.common import resolve_device
 from ..models.mamba import SSD_IMPLS
 from ..models.model import LM
+from ..models.sharding import (batch_placements, from_local, like_placed,
+                               place, tree_placements, zeros_placed)
 from ..optim import adamw
 from ..optim.adamw import AdamWConfig, apply_updates
-from ..optim.compression import compress_bucketed, init_error
+from ..optim.compression import (bucket_slices, compress_bucketed,
+                                 init_error)
 
 Tree = Dict[str, Any]
 
@@ -53,14 +77,12 @@ class EngineConfig:
 
 
 class TrainEngine:
-    """One (model, device) training executor."""
+    """One (model, device) training executor, placed under ``model.plan``
+    on ``mesh`` (default ``model.mesh``) when the model has a plan.  A
+    mesh without a plan trains unsharded, as repro's engine does."""
 
     def __init__(self, model: LM, cfg: Optional[EngineConfig] = None,
                  device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port trains on one card; mesh= waits for the "
-                "multi-card slice")
         self.cfg = cfg or EngineConfig()
         self.device = resolve_device(device)
         kernels = self.cfg.kernels
@@ -69,21 +91,99 @@ class TrainEngine:
                              f"{kernels!r}")
         if kernels != "auto":
             model = dataclasses.replace(model, ssd_impl=kernels)
+        self.mesh = mesh if mesh is not None else model.mesh
+        self.plan = model.plan
+        self.sharded = self.plan is not None
+        if self.sharded:
+            if self.mesh is None:
+                raise ValueError("a sharding plan needs a mesh to place on "
+                                 "(TrainEngine(mesh=) or LM.mesh)")
+            if model.mesh is not self.mesh:
+                model = dataclasses.replace(model, mesh=self.mesh)
         self.model = model
+        self._placements: Optional[Tree] = None
 
     # -- state ---------------------------------------------------------------
+    def state_placements(self) -> Tree:
+        """DTensor placements of every state leaf under the plan, by role
+        (repro's ``state_pspecs``): params under the weight roles, ``opt``
+        under ``<w>.opt``, ``master`` under ``<w>.master`` then ``.opt``,
+        ``err`` under ``<w>.err`` then ``.opt``, each falling back to the
+        weight's own cut; ``opt/step`` replicated."""
+        if not self.sharded:
+            raise ValueError("state_placements needs a sharding plan")
+        if self._placements is None:
+            like = self.state_like()
+            names = self.mesh.mesh_dim_names
+
+            def pl(t: Tree, suffixes: Tuple[str, ...] = ()) -> Tree:
+                return tree_placements(self.plan, t, names,
+                                       suffixes=suffixes)
+            out = {"params": pl(like["params"]),
+                   "opt": pl(like["opt"], (".opt",))}
+            if "master" in like:
+                out["master"] = pl(like["master"], (".master", ".opt"))
+            if "err" in like:
+                out["err"] = pl(like["err"], (".err", ".opt"))
+            self._placements = out
+        return self._placements
+
+    def grad_placements(self) -> Tree:
+        """The gradient's placements: the optimizer state's layout
+        (``.opt``, else ``.grad``), as repro carries it (a raw ``.grad``
+        layout made repro re-gather f32 state where the two cuts
+        differ), so the update runs on local shards."""
+        return tree_placements(self.plan, self.state_like()["params"],
+                               self.mesh.mesh_dim_names,
+                               suffixes=(".opt", ".grad"))
+
+    def batch_placements(self) -> Dict[str, List]:
+        """Placements of the host batch's ``tokens`` and ``labels``
+        (repro's ``batch_shardings``; ``data/pipeline.BatchFeed`` feeds
+        batches placed under them)."""
+        return batch_placements(self.plan, self.mesh.mesh_dim_names,
+                                "train")
+
     def init_state(self, seed: int = 0, params: Optional[Tree] = None
                    ) -> Tree:
         """Fresh state from ``model.init(seed)``, or around ``params``
-        (used as given, on this engine's device)."""
+        (used as given, on this engine's device).  Under a plan every
+        leaf is placed from the seeded full tensors (each rank keeps its
+        slice), so every mesh starts from the same weights; the moments
+        and residuals are allocated shard by shard."""
         if params is None:
             params = self.model.init(seed, device=self.device)
-        state: Tree = {"params": params, "opt": adamw.init_state(params)}
+        if not self.sharded:
+            state: Tree = {"params": params,
+                           "opt": adamw.init_state(params)}
+            if self.cfg.master_fp32:
+                state["master"] = tree.tree_map(
+                    lambda p: p.detach().to(torch.float32, copy=True),
+                    params)
+            if self.cfg.grad_compression:
+                state["err"] = init_error(params)
+            return state
+        from torch.distributed.tensor import DTensor
+        pl, mesh = self.state_placements(), self.mesh
+
+        def full(p):
+            return (p.full_tensor() if isinstance(p, DTensor) else p).detach()
+
+        def zeros(p, q):
+            return zeros_placed(p.shape, torch.float32, mesh, q, self.device)
+
+        step = torch.zeros((), dtype=torch.int32, device=self.device)
+        state = {"params": tree.tree_map(lambda p, q: place(full(p), mesh, q),
+                                         params, pl["params"]),
+                 "opt": {"step": place(step, mesh, pl["opt"]["step"]),
+                         "m": tree.tree_map(zeros, params, pl["opt"]["m"]),
+                         "v": tree.tree_map(zeros, params, pl["opt"]["v"])}}
         if self.cfg.master_fp32:
             state["master"] = tree.tree_map(
-                lambda p: p.detach().to(torch.float32, copy=True), params)
+                lambda p, q: place(full(p).to(torch.float32, copy=True),
+                                   mesh, q), params, pl["master"])
         if self.cfg.grad_compression:
-            state["err"] = init_error(params)
+            state["err"] = tree.tree_map(zeros, params, pl["err"])
         return state
 
     def state_like(self) -> Tree:
@@ -121,14 +221,19 @@ class TrainEngine:
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         with torch.enable_grad():
             loss = self.model.loss(params, batch)
+            if self.sharded:
+                loss = loss.full_tensor()     # seeds the backward once
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), grads
 
     def step(self, state: Tree, batch: Dict[str, Any]
              ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
         """One training step, in place.  ``batch`` holds ``tokens`` and
-        ``labels`` [B, S] (tensors or numpy).  Returns (state, {"loss",
-        "gnorm"} as device scalars)."""
+        ``labels`` [B, S] (tensors or numpy; DTensors under a plan, as
+        ``BatchFeed`` places them).  Returns (state, {"loss", "gnorm"} as
+        0-d tensors: the full values under a plan)."""
+        if self.sharded:
+            return self._step_planned(state, batch)
         cfg = self.cfg
         batch = self._batch(batch)
         params = state["params"]
@@ -180,19 +285,155 @@ class TrainEngine:
                                                 self.cfg.buckets)
         return grads
 
+    # -- the step under a plan -----------------------------------------------
+    def _micro_batches(self, batch: Dict[str, Any], n: int
+                       ) -> List[Dict[str, Any]]:
+        """The batch placed under the train batch placements, cut into
+        ``n`` microbatches on each rank's local rows (rank r's rows i*m to
+        (i+1)*m go to microbatch i), so no row moves between ranks.  With
+        the batch dim uncut that is the contiguous split of the one-card
+        path; with it cut, each microbatch takes rows from every data
+        shard, which sums to the same full-batch gradient."""
+        from torch.distributed.tensor import DTensor
+        mesh, want = self.mesh, self.batch_placements()
+        placed = {}
+        for k, v in batch.items():
+            pl = want[k]
+            if not isinstance(v, DTensor):
+                v = place(torch.as_tensor(v, device=self.device), mesh, pl)
+            elif tuple(v.placements) != tuple(pl):
+                v = v.redistribute(mesh, pl)
+            placed[k] = v
+        b = placed["tokens"].shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} is not divisible by "
+                             f"{n} microbatches")
+        if n == 1:
+            return [placed]
+        parts: List[Dict[str, Any]] = [{} for _ in range(n)]
+        for k, v in placed.items():
+            lt = v.to_local()
+            if lt.shape[0] % n:
+                raise ValueError(
+                    f"{k}: this rank's {lt.shape[0]} rows do not split into "
+                    f"{n} microbatches")
+            m = lt.shape[0] // n
+            shape = (b // n,) + tuple(v.shape[1:])
+            for i in range(n):
+                parts[i][k] = from_local(lt[i * m:(i + 1) * m], mesh,
+                                         v.placements, shape)
+        return parts
+
+    def _reshard(self, grads: List, placements: List) -> List:
+        """Each grad into its placements, in f32 (reducing the pending
+        sum over the cut batch), bucket by bucket: a bucket's leaves are
+        issued together and waited for together.  A grad already in its
+        placements is returned as it is, in its own dtype."""
+        mesh, out = self.mesh, list(grads)
+        for idxs in bucket_slices([g.numel() * 4 for g in grads],
+                                  self.cfg.buckets):
+            moved = []
+            for i in idxs:
+                if tuple(out[i].placements) != tuple(placements[i]):
+                    out[i] = out[i].float().redistribute(
+                        mesh, placements[i], async_op=True)
+                    moved.append(i)
+            for i in moved:
+                g = out[i]
+                lt = g.to_local()
+                if hasattr(lt, "wait"):           # AsyncCollectiveTensor
+                    lt = lt.wait()
+                out[i] = like_placed(lt, g)
+        return out
+
+    def _to_grads(self, placements: List, i: int, q):
+        """``compress_bucketed``'s ``on_wire`` under a plan: leaf i's int8
+        values into the gradient's placements, the one reshard that
+        carries int8."""
+        if tuple(q.placements) == tuple(placements[i]):
+            return q
+        return q.redistribute(self.mesh, placements[i])
+
+    def _step_planned(self, state: Tree, batch: Dict[str, Any]
+                      ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
+        cfg, mesh = self.cfg, self.mesh
+        pl = self.state_placements()
+        params = state["params"]
+        flat = tree.flatten(params)
+        leaves = [p for _, p in flat]
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        n = cfg.microbatches
+        parts = self._micro_batches(batch, n)
+        grad_pl = tree.leaves(self.grad_placements())
+        # the f32 accumulator's placements: the gradient's, or under
+        # compression the residuals' (every sum reduced before the
+        # quantizer; int8 then rides the reshard into the grads')
+        acc_pl = tree.leaves(pl["err"]) if cfg.grad_compression else grad_pl
+        if n == 1:
+            loss, g = self._grads(params, leaves, parts[0])
+            grads = [x.float() for x in self._reshard(list(g), acc_pl)]
+            del g
+        else:
+            grads = [zeros_placed(p.shape, torch.float32, mesh, q,
+                                  self.device)
+                     for p, q in zip(leaves, acc_pl)]
+            loss = torch.zeros((), dtype=torch.float32, device=self.device)
+            for part in parts:
+                li, g = self._grads(params, leaves, part)
+                g = self._reshard(list(g), acc_pl)
+                for a, gi in zip(grads, g):
+                    a.to_local().add_(gi.to_local())   # into f32, local
+                loss = loss + li
+                del g
+            for a in grads:
+                a.to_local().div_(n)
+            loss = loss / n
+        gtree = tree.unflatten([(p, g) for (p, _), g in zip(flat, grads)])
+        del grads
+        if cfg.grad_compression:
+            gtree, state["err"] = compress_bucketed(
+                gtree, state["err"], cfg.buckets,
+                on_wire=functools.partial(self._to_grads, grad_pl))
+        ref = state["master"] if cfg.master_fp32 else params
+        _, _, gnorm = apply_updates(ref, gtree, state["opt"], cfg.optim)
+        if cfg.master_fp32:
+            with torch.no_grad():
+                for p, m in zip(leaves, tree.leaves(state["master"])):
+                    # bf16 in the master's placements, then into the
+                    # params': a gather there moves bf16, not f32
+                    y = like_placed(m.to_local().to(p.dtype), m)
+                    if tuple(y.placements) != tuple(p.placements):
+                        y = y.redistribute(mesh, p.placements)
+                    p.to_local().copy_(y.to_local())
+        return state, {"loss": loss, "gnorm": gnorm}
+
     # -- checkpointing -----------------------------------------------------------
     def save(self, directory: str, step: int, state: Tree,
              extra: Optional[Dict[str, Any]] = None) -> str:
+        """Write the state (gathered whole under a plan; rank 0 writes,
+        every rank returns once it is committed)."""
         return ckpt.save(directory, step, state, extra=extra)
 
     def restore(self, directory: str, step: Optional[int] = None
                 ) -> Optional[Tuple[Tree, Dict[str, Any], int]]:
         """The latest (or given) step's state on this engine's device, or
-        None when the directory holds no checkpoint."""
+        None when the directory holds no checkpoint.  Under a plan each
+        leaf is placed straight into this engine's placements, whatever
+        mesh wrote it: the elastic restart (4x2 -> 2x4)."""
         if step is None:
             step = ckpt.latest_step(directory)
         if step is None:
             return None
+        placer = None
+        if self.sharded:
+            flat = {tree.key(p): q
+                    for p, q in tree.flatten(self.state_placements())}
+            mesh = self.mesh
+
+            def placer(key: str, t: torch.Tensor):
+                return place(t, mesh, flat[key])
         state, extra = ckpt.restore(directory, step, self.state_like(),
-                                    device=self.device)
+                                    device=self.device, place=placer)
         return state, extra, step

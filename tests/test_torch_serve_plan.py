@@ -323,7 +323,8 @@ def test_seq_kv_cut_falls_back(runs):
     _check_like(ref, got)
     L = _cfg().n_layers
     assert got["fallbacks"] == {"prefill_attention": L * ref["prefill"],
-                                "attend_cache": L * ref["decode"]}
+                                "attend_cache": L * ref["decode"],
+                                "attention": 0}
 
 
 def test_own_plan_cuts_batch_only(plans, runs):
@@ -365,7 +366,8 @@ def test_kv_heads_cut_that_does_not_divide_falls_back(runs):
     # every attention call fell back: one per layer per prefill chunk and
     # per decode step
     assert got["fallbacks"] == {"prefill_attention": L * ref["prefill"],
-                                "attend_cache": L * ref["decode"]}
+                                "attend_cache": L * ref["decode"],
+                                "attention": 0}
     # megatron's model axis cuts the heads of wq
     assert got["params"]["layers/attn/wq"][0] == ("R",
                                                   "S(2)")

@@ -84,16 +84,26 @@ def _batch(cfg, b=4, s=12, seed=0):
 # loss and grads
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3.2-3b",
-                                  "h2o-danube-3-4b"])
+# (arch, sequence length): 12 tokens for each config, and 40 tokens, past
+# the reduced danube's window of 16, so that the window masks keys in the
+# forward and in the backward (the ids of the 12-token cases are the
+# architectures' names alone)
+LOSS_CASES = [(a, 12) for a in ("qwen2-1.5b", "llama3.2-3b",
+                                "h2o-danube-3-4b")] + \
+    [(a, 40) for a in ("qwen2-1.5b", "llama3.2-3b", "h2o-danube-3-4b")]
+
+
+@pytest.mark.parametrize("arch,seq", LOSS_CASES,
+                         ids=[a if s == 12 else f"{a}-s{s}"
+                              for a, s in LOSS_CASES])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_loss_and_grads_match_repro(arch, dtype):
+def test_loss_and_grads_match_repro(arch, seq, dtype):
     jcfg = dataclasses.replace(jax_arch(arch).reduced(), dtype=dtype)
     tcfg = dataclasses.replace(get_arch(arch).reduced(), dtype=dtype)
     jm, tm = JaxLM(jcfg), LM(tcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tp = params_from_jax(_np_tree(jp), tcfg, device="cpu")
-    batch = _batch(tcfg)
+    batch = _batch(tcfg, s=seq)
     lj, gj = jax.value_and_grad(jm.loss)(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     leaves = [p.requires_grad_(True) for p in tree.leaves(tp)]
