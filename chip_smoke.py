@@ -74,7 +74,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      call, no non-finite logit; then the reduced model on the card against
      the same model on the CPU;
   4e. plan: a world-1 NCCL group (TCP store on 127.0.0.1) and a (1, 1)
-     ("data", "model") DeviceMesh; the port's solver (H100 constants)
+     ("data", "model") DeviceMesh, up until phase 4i is done; the port's
+     solver (H100 constants)
      solves qwen2-1.5b's 16 x 2048 decode shape for the (1, 1), (4, 2)
      and (2, 4) meshes and prints each plan and its solve time (the last
      two solved only); phase 4's workload on phase 4's weights under the
@@ -85,8 +86,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      with and without the plan; then the gathered route (the cache's cut
      on seq_kv, which has no local-shard rule) on 4 requests: the
      kernels launched on the gathered cache, every call counted in
-     plan_fallbacks, the streams of the same requests with no plan; the
-     group is torn down after;
+     plan_fallbacks, the streams of the same requests with no plan;
   4b. train: qwen2-1.5b at full width, f32 master weights, global batch
      4 x 1024 in 2 microbatches, AdamW lr 3e-4 with 2 warmup steps, 12
      steps through launch.train's runner; every loss finite, the last
@@ -115,6 +115,23 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      dispatches + prompt tokens), flash_fwd and the paged kernel never,
      no plain call, no non-finite logit; then the reduced danube (window
      16) on the card against the CPU, 40 decode steps past the window;
+  4i. serving's remaining tiers under a plan, on 4e's group and mesh:
+     4c's P1 (preemption, resume, prefix cache) and P2 (spec_k 4: drafts
+     and re-scores) on phase 4's weights under the solved (1, 1) decode
+     plan (pool, block table and params as DTensors; the paged decode,
+     offset forward and re-score kernels inside local_map): 4c's streams,
+     counters and launches of flash_paged_decode / flash_fwd /
+     flash_decode exactly, no plan fallback, no plain call, no non-finite
+     logit; a paged decode step's host and device ms with and without the
+     plan; then the pool's cut moved to blocks on 4 requests: every
+     paged call gathered, counted in plan_fallbacks, its kernel launched,
+     the unplanned streams; then danube at full width under its solved
+     (1, 1) decode plan and with no plan, 2 requests of 128 tokens and
+     32 greedy tokens on 8 slots x 2048 through the scan prefill: equal
+     streams, flash_decode exactly 24 x (decode dispatches + prompt
+     tokens) on both, flash_fwd never; the reduced danube under the plan
+     against the CPU past its window; the phase's seconds and peak
+     memory; the group is torn down after;
   4d. hybrid train: zamba2-2.7b at full width (54 Mamba2 layers, d 2560,
      80 SSM heads of P 64 / N 64, chunk 256; the shared attention+MLP
      block, 32 heads of hd 80, after every 6 layers), f32 master weights,
@@ -1237,8 +1254,8 @@ def time_bwd(dev, timer, rnd, b, h, kv, hd):
 
 
 def checked_server():
-    """A Server that counts the non-finite logits of every prefill and
-    decode step."""
+    """A Server that counts the non-finite logits of every prefill,
+    decode step and speculative round (its last draft step)."""
     from repro_torch.runtime.serve import Server
 
     class CheckedServer(Server):
@@ -1252,6 +1269,13 @@ def checked_server():
 
         def decode_once(self, forced_tokens=None):
             ev = super().decode_once(forced_tokens)
+            if ev:
+                self.nonfinite += int((~torch.isfinite(
+                    self.last_logits)).sum())
+            return ev
+
+        def spec_once(self):
+            ev = super().spec_once()
             if ev:
                 self.nonfinite += int((~torch.isfinite(
                     self.last_logits)).sum())
@@ -1562,23 +1586,23 @@ def decode_step_times(srv, n, tag, label):
     return rec
 
 
-def serve_plan(base, lin_launches, dev, tag):
+def serve_plan(base, lin_launches, dev, tag, mesh):
     """Phase 4e: phase 4's workload on phase 4's weights under the solved
-    (1, 1) decode plan, on a world-1 NCCL group and a (1, 1) DeviceMesh.
-    The streams must be phase 4's token for token, flash_fwd and
-    flash_decode must launch as often as in phase 4, no attention may
-    fall back to the plain path, no plain version may run, no logit may
-    be non-finite.  Also prints the (4, 2) and (2, 4) plans (solved
-    only), the solve times, and a decode step's host and device ms with
-    and without the plan.  Tears the group down before it returns."""
+    (1, 1) decode plan, on the world-1 NCCL group and the (1, 1)
+    DeviceMesh ``mesh``.  The streams must be phase 4's token for token,
+    flash_fwd and flash_decode must launch as often as in phase 4, no
+    attention may fall back to the plain path, no plain version may run,
+    no logit may be non-finite.  Also prints the (4, 2) and (2, 4) plans
+    (solved only), the solve times, and a decode step's host and device
+    ms with and without the plan.  Returns the (1, 1) plan too (phase 4i
+    serves under it)."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.compile import plan_from_record, solve_cell_plan
-    from repro_torch.launch.mesh import (free_port, init_distributed,
-                                         make_mesh, solver_axes)
+    from repro_torch.launch.mesh import solver_axes
     from repro_torch.launch.serve import run_workload
     from repro_torch.models.model import LM
     from repro_torch.runtime.serve import ServeConfig, Server
@@ -1586,8 +1610,6 @@ def serve_plan(base, lin_launches, dev, tag):
     lin_model, params, prompts, lin_streams = base
     cfg = lin_model.cfg
     L = cfg.n_layers
-    init_distributed("cuda", 0, 1, free_port())
-    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
     print(f"plan: {dist.get_backend()} group of {dist.get_world_size()}, "
           f"mesh {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}")
     shape = ShapeConfig(*PLAN_SHAPE)
@@ -1675,70 +1697,283 @@ def serve_plan(base, lin_launches, dev, tag):
         steps[label] = decode_step_times(srv, PLAN_STEPS, tag, label)
         del srv
     slim["decode_step"] = steps
-    slim["fallback"] = serve_fallback(lin_model, params, prompts, plan,
-                                      mesh, scfg, tag)
-    dist.destroy_process_group()
+    slim["fallback"] = serve_fallback(
+        lin_model, params, prompts,
+        plan.with_override("kv_cache", {"data": "batch", "model": "seq_kv"}),
+        mesh, scfg, tag)
     torch.cuda.empty_cache()
-    return slim, launches
+    return slim, launches, plan
 
 
-def serve_fallback(lin_model, params, prompts, plan, mesh, scfg, tag):
-    """The gathered route of a plan on the card: with the cache's cut
-    moved to ``seq_kv`` (which would split the softmax) no attention call
-    has a local-shard rule, so each gathers the query and the layer's
-    cache and runs the kernel on them.  A few requests, against the
-    server with no plan on the same requests: the same streams, flash_fwd
-    and flash_decode launched once a layer a dispatch as there, every
-    attention call counted in ``plan_fallbacks``, no plain call, no
-    non-finite logit."""
+def serve_fallback(lin_model, params, prompts, fb_plan, mesh, scfg, tag,
+                   label="plan fallback",
+                   decode=("attend_cache", "flash_decode")):
+    """The gathered route of a plan on the card: ``fb_plan`` cuts the
+    cache where no attention call has a local-shard rule (the linear
+    cache on ``seq_kv``, which would split the softmax; the paged pool on
+    ``blocks``, which would split a row's blocks over ranks), so each call
+    gathers the query and the layer's cache (pool and table) and runs the
+    kernel on them.  FALLBACK_REQS requests against the server with no
+    plan on the same requests: the same streams and launches (flash_fwd
+    once a layer a prefill chunk, the decode kernel ``decode[1]`` once a
+    layer a decode step), each prefill call counted in
+    ``plan_fallbacks["prefill_attention"]`` and each decode call in
+    ``plan_fallbacks[decode[0]]``, no plain call, no non-finite logit."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models.model import LM
 
     L = lin_model.cfg.n_layers
-    fb_plan = plan.with_override("kv_cache",
-                                 {"data": "batch", "model": "seq_kv"})
+    kinds = ("flash_fwd", "flash_decode", "flash_paged_decode")
     CheckedServer = checked_server()
     out = {}
-    for label, m in (("no plan", lin_model),
-                     ("seq_kv cut", LM(lin_model.cfg, plan=fb_plan,
-                                       mesh=mesh))):
+    for name, m in (("no plan", lin_model),
+                    ("cut", LM(lin_model.cfg, plan=fb_plan, mesh=mesh))):
         srv = CheckedServer(m, params, scfg)
         fa.reset_launches()
         ops.reset_plain_calls()
         for p in prompts[:FALLBACK_REQS]:
             srv.submit(p[:FALLBACK_PROMPT], max_new_tokens=FALLBACK_GEN)
         streams = srv.run()
-        out[label] = dict(
+        out[name] = dict(
             streams={r: list(t) for r, t in streams.items()},
-            launches={k: fa.launches[k]
-                      for k in ("flash_fwd", "flash_decode")},
+            launches={k: fa.launches[k] for k in kinds},
             plain=dict(ops.plain_calls), fallbacks=dict(ops.plan_fallbacks),
             prefill=srv.prefill_dispatches, decode=srv.decode_dispatches,
             nonfinite=srv.nonfinite)
         del srv
-    ref, got = out["no plan"], out["seq_kv cut"]
-    print(f"plan fallback: {got['prefill']} prefill and {got['decode']} "
-          f"decode dispatches; launches {got['launches']}, plan fallbacks "
+    ref, got = out["no plan"], out["cut"]
+    print(f"{label}: {got['prefill']} prefill and {got['decode']} decode "
+          f"dispatches; launches {got['launches']}, plan fallbacks "
           f"{got['fallbacks']}, plain calls {got['plain']} {tag}")
-    want = {"prefill_attention": L * got["prefill"],
-            "attend_cache": L * got["decode"], "attention": 0}
+    want = dict.fromkeys(got["fallbacks"], 0)
+    want.update({"prefill_attention": L * got["prefill"],
+                 decode[0]: L * got["decode"]})
     if got["fallbacks"] != want:
-        fail(f"plan fallback: counted {got['fallbacks']}, want {want}")
-    if got["launches"] != ref["launches"] or got["launches"] != {
-            "flash_fwd": L * got["prefill"],
-            "flash_decode": L * got["decode"]}:
-        fail(f"plan fallback: launches {got['launches']}, without the "
-             f"plan {ref['launches']}")
+        fail(f"{label}: counted {got['fallbacks']}, want {want}")
+    launches = dict.fromkeys(kinds, 0)
+    launches.update({"flash_fwd": L * got["prefill"],
+                     decode[1]: L * got["decode"]})
+    if got["launches"] != ref["launches"] or got["launches"] != launches:
+        fail(f"{label}: launches {got['launches']}, without the plan "
+             f"{ref['launches']}")
     if any(got["plain"].values()) or got["nonfinite"]:
-        fail(f"plan fallback: plain calls {got['plain']}, "
-             f"{got['nonfinite']} non-finite logits")
+        fail(f"{label}: plain calls {got['plain']}, {got['nonfinite']} "
+             f"non-finite logits")
     if got["streams"] != ref["streams"]:
-        fail("plan fallback: streams differ from the server with no plan")
-    print(f"plan fallback: the gathered route's streams equal the "
-          f"unplanned server's; every attention call launched its kernel "
-          f"{tag}")
+        fail(f"{label}: streams differ from the server with no plan")
+    print(f"{label}: the gathered route's streams equal the unplanned "
+          f"server's; every attention call launched its kernel {tag}")
     return {k: v for k, v in got.items() if k != "streams"}
+
+
+# 4i: serving's remaining tiers under the solved (1, 1) decode plan: 4c's
+# P1 and P2, the paged fallback route, and danube's scan prefill
+DANUBE_PLAN_SHAPE = ("serve8x2048", DANUBE_MAX_LEN, DANUBE_SLOTS, "decode")
+DANUBE_PLAN_REQS, DANUBE_PLAN_PROMPT = 2, 128
+
+
+def serve_paged_plan(base, paged_rec, plan, mesh, dev, tag):
+    """Phase 4i, the paged tier: phase 4c's P1 (16 slots on P1_BLOCKS
+    blocks with the prefix cache: it preempts and resumes) and P2 (2049
+    blocks, spec_k 4: drafts and re-scores) on phase 4's weights and
+    prompts under the solved (1, 1) decode plan (pool, table, params as
+    DTensors; the paged decode, the offset forward and the re-score's
+    kernels inside local_map).  Each must give 4c's streams (phase 4's),
+    4c's dispatch counters, and 4c's launches of flash_paged_decode,
+    flash_fwd and flash_decode exactly; no plan fallback, no plain call,
+    no non-finite logit.  Then a paged decode step's host and device ms
+    with and without the plan, and the gathered route with the pool cut on
+    blocks (``serve_fallback``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    lin_model, params, prompts, lin_streams = base
+    cfg = lin_model.cfg
+    model = LM(cfg, plan=plan, mesh=mesh)
+    base_kw = dict(max_len=2048, prefill_chunk=256, paged=True, block_len=16)
+    runs = {"P1": dict(slots=16, n_blocks=P1_BLOCKS),
+            "P2": dict(slots=16, spec_k=4)}
+    warm = Server(model, params, ServeConfig(slots=16, spec_k=4, **base_kw))
+    warm.admit(prompts[0][:300], 0, max_new_tokens=6)    # DTensor's first
+    warm.run()                                           # paged ops
+    del warm
+    kinds = ("flash_paged_decode", "flash_fwd", "flash_decode")
+    counters = ("prefill_dispatches", "decode_dispatches",
+                "verify_dispatches", "preemptions", "prompt_cache_hits")
+    out, total = {}, {k: 0 for k in fa.launches}
+    for name, kw in runs.items():
+        scfg = ServeConfig(**base_kw, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        srv = checked_server()(model, params, scfg)
+        fa.reset_launches()
+        ops.reset_plain_calls()
+        rec = run_workload(srv, [(0.0, p) for p in prompts], gen=32)
+        launches, plain = dict(fa.launches), dict(ops.plain_calls)
+        fallbacks = dict(ops.plan_fallbacks)
+        peak = torch.cuda.max_memory_allocated(dev)
+        streams = {r: list(t) for r, t in srv.outputs.items()}
+        got = {c: getattr(srv, c) for c in counters}
+        want = {c: paged_rec[name][c] for c in counters}
+        print(f"paged plan {name}: {got} (4c {want}); launches "
+              f"{ {k: launches[k] for k in kinds} } (4c "
+              f"{ {k: paged_rec[name]['launches'][k] for k in kinds} }), "
+              f"plan fallbacks {fallbacks}, plain calls {plain}, "
+              f"non-finite logits {srv.nonfinite}")
+        if got != want:
+            fail(f"paged plan {name}: counters {got}, 4c's {want}")
+        if any(launches[k] != paged_rec[name]["launches"][k] for k in kinds):
+            fail(f"paged plan {name}: launches {launches}, 4c's "
+                 f"{paged_rec[name]['launches']}")
+        if any(fallbacks.values()) or any(plain.values()) or srv.nonfinite:
+            fail(f"paged plan {name}: fallbacks {fallbacks}, plain calls "
+                 f"{plain}, {srv.nonfinite} non-finite logits")
+        if streams != lin_streams:
+            bad = [r for r in lin_streams
+                   if streams.get(r) != lin_streams[r]]
+            fail(f"paged plan {name}: streams differ from 4c's (phase 4's) "
+                 f"for requests {bad}")
+        ms = 1e3
+        print(f"paged plan {name} metrics: prefill "
+              f"{rec['prefill_tok_per_s']:.1f} tok/s, decode "
+              f"{rec['decode_tok_per_s']:.1f} tok/s (4c "
+              f"{paged_rec[name]['decode_tok_per_s']:.1f}), TTFT p50 "
+              f"{rec['ttft_p50_s'] * ms:.1f} ms, ITL p50 "
+              f"{rec['itl_p50_s'] * ms:.2f} ms p95 "
+              f"{rec['itl_p95_s'] * ms:.2f} ms, wall {rec['wall_s']:.2f} s "
+              f"(4c {paged_rec[name]['wall_s']:.2f}), peak memory "
+              f"{peak / 2**30:.2f} GiB (4c "
+              f"{paged_rec[name]['peak_memory_bytes'] / 2**30:.2f}) {tag}")
+        slim = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+        slim.update(got, launches=launches, plan_fallbacks=fallbacks,
+                    peak_memory_bytes=peak)
+        out[name] = slim
+        for k in total:
+            total[k] += launches[k]
+        del srv
+        torch.cuda.empty_cache()
+    print(f"paged plan: P1 and P2 under the (1, 1) plan give 4c's streams, "
+          f"counters and launches; 0 fallbacks, 0 plain calls {tag}")
+    steps = {}
+    for label, m in (("without the plan", lin_model),
+                     ("with the plan", model)):
+        srv = Server(m, params, ServeConfig(slots=16, **base_kw))
+        for s in range(16):
+            srv.admit(prompts[s][:1000], s, max_new_tokens=1000)
+        torch.cuda.synchronize()
+        steps[label] = decode_step_times(srv, PLAN_STEPS, tag,
+                                         f"(paged tier) {label}")
+        del srv
+    out["decode_step"] = steps
+    out["fallback"] = serve_fallback(
+        lin_model, params, prompts,
+        plan.with_override("kv_cache", {"data": None, "model": "blocks"}),
+        mesh, ServeConfig(slots=16, **base_kw), tag, "paged plan fallback",
+        ("attend_paged", "flash_paged_decode"))
+    torch.cuda.empty_cache()
+    return out, total
+
+
+def serve_danube_plan(dev, tag, mesh):
+    """Phase 4i, danube: h2o-danube-3-4b at full width (phase 4f's
+    weights, from torch.Generator(0) again) under its solved (1, 1)
+    decode plan and with no plan, DANUBE_PLAN_REQS requests of
+    DANUBE_PLAN_PROMPT tokens and DANUBE_GEN greedy tokens on 4f's 8
+    slots x 2048: every prompt token a batch-1 scan step (under the plan
+    the slot's row written and attended by its owner,
+    ``attend_slot_sharded``).  Equal streams; on both runs flash_decode
+    exactly n_layers x (decode dispatches + prompt tokens), flash_fwd and
+    the paged kernel never; no fallback, no plain call, no non-finite
+    logit.  Then the reduced danube under the plan against the CPU past
+    its window.  Returns the record, the launches of both runs and the
+    plan."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.compile import plan_from_record, solve_cell_plan
+    from repro_torch.launch.mesh import solver_axes
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = get_arch(DANUBE)
+    params = LM(cfg).init(0, device=dev)
+    t0 = time.perf_counter()
+    prec = solve_cell_plan(cfg, ShapeConfig(*DANUBE_PLAN_SHAPE),
+                           solver_axes((1, 1)), "mesh1x1", use_cache=False)
+    plan = plan_from_record(prec)
+    print(f"danube plan: {cfg.name} {DANUBE_PLAN_SHAPE[0]} on the 1x1 mesh, "
+          f"solved in {time.perf_counter() - t0:.3f} s:")
+    print(plan.describe())
+    scfg = ServeConfig(slots=DANUBE_SLOTS, max_len=DANUBE_MAX_LEN,
+                       prefill_chunk=256)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=DANUBE_PLAN_PROMPT).tolist()
+               for _ in range(DANUBE_PLAN_REQS)]
+    L, scan_steps = cfg.n_layers, DANUBE_PLAN_REQS * DANUBE_PLAN_PROMPT
+    out, total, streams = {}, {k: 0 for k in fa.launches}, {}
+    for label, m in (("no plan", LM(cfg)),
+                     ("plan", LM(cfg, plan=plan, mesh=mesh))):
+        warm = Server(m, params, scfg)
+        warm.admit(prompts[0][:8], 0, max_new_tokens=2)
+        warm.run()
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        srv = checked_server()(m, params, scfg)
+        fa.reset_launches()
+        ops.reset_plain_calls()
+        rec = run_workload(srv, [(0.0, p) for p in prompts], gen=DANUBE_GEN)
+        launches, plain = dict(fa.launches), dict(ops.plain_calls)
+        fallbacks = dict(ops.plan_fallbacks)
+        peak = torch.cuda.max_memory_allocated(dev)
+        streams[label] = {r: list(t) for r, t in srv.outputs.items()}
+        want = dict.fromkeys(launches, 0)
+        want["flash_decode"] = L * (srv.decode_dispatches + scan_steps)
+        ms = 1e3
+        print(f"danube plan, {label}: {srv.prefill_dispatches} prefill "
+              f"chunks ({scan_steps} scan steps), {srv.decode_dispatches} "
+              f"decode dispatches; launches {launches} (want {want}), plan "
+              f"fallbacks {fallbacks}, plain calls {plain}, non-finite "
+              f"logits {srv.nonfinite}")
+        print(f"danube plan, {label} metrics: scan step "
+              f"{rec['prefill_s'] / scan_steps * ms:.2f} ms, decode "
+              f"{rec['decode_tok_per_s']:.1f} tok/s, ITL p50 "
+              f"{rec['itl_p50_s'] * ms:.2f} ms, wall {rec['wall_s']:.2f} s, "
+              f"peak memory {peak / 2**30:.2f} GiB {tag}")
+        if launches != want:
+            fail(f"danube plan, {label}: launches {launches}, want {want}")
+        if any(fallbacks.values()) or any(plain.values()) or srv.nonfinite:
+            fail(f"danube plan, {label}: fallbacks {fallbacks}, plain calls "
+                 f"{plain}, {srv.nonfinite} non-finite logits")
+        if any(len(t) != DANUBE_GEN for t in streams[label].values()):
+            fail(f"danube plan, {label}: a request did not produce "
+                 f"{DANUBE_GEN} tokens")
+        slim = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+        slim.update(prefill_dispatches=srv.prefill_dispatches,
+                    decode_dispatches=srv.decode_dispatches,
+                    scan_step_ms=rec["prefill_s"] / scan_steps * ms,
+                    launches=launches, plan_fallbacks=fallbacks,
+                    peak_memory_bytes=peak)
+        out[label] = slim
+        for k in total:
+            total[k] += launches[k]
+        del srv
+        torch.cuda.empty_cache()
+    if streams["plan"] != streams["no plan"]:
+        fail("danube plan: streams differ from the server with no plan")
+    print(f"danube plan: the (1, 1) plan's streams equal the unplanned "
+          f"server's; launches exact, 0 fallbacks, 0 plain calls {tag}")
+    del params
+    torch.cuda.empty_cache()
+    out["reduced_card_vs_cpu"] = reduced_danube_card_vs_cpu(dev, tag, plan,
+                                                            mesh)
+    return out, total
 
 
 def profile_serve(model, params, scfg, prompts, tag, fill=1000, admit=768,
@@ -2337,40 +2572,52 @@ def serve_danube(dev, tag, profile=False):
     return slim, launches
 
 
-def reduced_danube_card_vs_cpu(dev, tag):
+def reduced_danube_card_vs_cpu(dev, tag, plan=None, mesh=None):
     """The reduced h2o-danube-3-4b (window 16, hd 16) on the card against
     the same bf16 weights on the CPU: a scan prefill of 20 tokens into
     slot 0 (its ring of 16 wraps) and of 10 into slot 1, then 40 decode
     steps of both rows, so that slot 0 runs 44 positions past the
-    window."""
+    window.  With ``plan`` and ``mesh`` the card's side runs under the
+    plan (params and ring cache placed as the Server places them)."""
     from repro_torch.configs import get_arch
+    from repro_torch.models.common import whole
     from repro_torch.models.model import LM
+    from repro_torch.models.sharding import (CACHE_RULES, place_tree,
+                                             zeros_tree)
 
     cfg = get_arch(DANUBE).reduced()
     model = LM(cfg)
     p_cpu = model.init(0, device="cpu")
+    models = {"cpu": model, dev: model}
     params = {"cpu": p_cpu, dev: _to(p_cpu, dev)}
     caches = {d: model.init_cache(2, 64, device=d) for d in ("cpu", dev)}
+    if plan is not None:
+        plan = plan.for_pool(2, dict(zip(mesh.mesh_dim_names,
+                                         mesh.mesh.shape)))
+        models[dev] = LM(cfg, plan=plan, mesh=mesh)
+        params[dev] = place_tree(params[dev], mesh, plan)
+        caches[dev] = zeros_tree(model.cache_shapes(2, 64), mesh, plan,
+                                 CACHE_RULES, device=dev)
     rng = np.random.default_rng(2)
     worst = 0.0
     for slot, n in ((0, 20), (1, 10)):
         pr = rng.integers(0, cfg.vocab, size=n)
-        lg = {d: model.prefill_chunk(params[d], caches[d],
-                                     torch.as_tensor(pr, device=d), slot,
-                                     n)[0] for d in ("cpu", dev)}
+        lg = {d: whole(models[d].prefill_chunk(
+            params[d], caches[d], torch.as_tensor(pr, device=d), slot,
+            n)[0]) for d in ("cpu", dev)}
         worst = max(worst, float((lg["cpu"] - lg[dev].cpu()).abs().max()))
     for _ in range(40):
         toks = rng.integers(0, cfg.vocab, size=2)
-        lg = {d: model.decode_step(params[d], caches[d],
-                                   torch.as_tensor(toks, device=d))[0]
+        lg = {d: whole(models[d].decode_step(
+            params[d], caches[d], torch.as_tensor(toks, device=d))[0])
               for d in ("cpu", dev)}
         worst = max(worst, float((lg["cpu"].float()
                                   - lg[dev].float().cpu()).abs().max()))
     ring = caches[dev]["kv"]["k"].shape[2]
-    pos = caches[dev]["pos"].tolist()
-    print(f"reduced danube, card vs CPU, ring of {ring} positions, rows at "
-          f"positions {pos}: max|dlogits|={worst:.4g} (band {LOGITS_ATOL}) "
-          f"{tag}")
+    pos = whole(caches[dev]["pos"]).tolist()
+    print(f"reduced danube{' under the plan' if plan is not None else ''}, "
+          f"card vs CPU, ring of {ring} positions, rows at positions {pos}: "
+          f"max|dlogits|={worst:.4g} (band {LOGITS_ATOL}) {tag}")
     if ring != cfg.swa_window or pos != [60, 50]:
         fail(f"reduced danube's ring {ring} / positions {pos}")
     if not worst <= LOGITS_ATOL:
@@ -2560,9 +2807,16 @@ def main() -> int:
     paged_rec, paged_launches = serve_paged(
         base, serve_rec["decode_dispatches"], dev, tag)
     # 4e. the same workload under the solved (1, 1) plan on a DeviceMesh
-    plan_rec, plan_launches = serve_plan(base, serve_launches, dev, tag)
+    # of a world-1 NCCL group, which stays up until phase 4i is done
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (free_port, init_distributed,
+                                         make_mesh)
+    init_distributed("cuda", 0, 1, free_port())
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    plan_rec, plan_launches, plan = serve_plan(base, serve_launches, dev,
+                                               tag, mesh)
     print(f"phase 4e done at {time.perf_counter() - t_start:.1f}s")
-    del base
     gc.collect()
     torch.cuda.empty_cache()
     reduced_err = reduced_card_vs_cpu(dev, tag)
@@ -2574,6 +2828,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     danube_reduced = reduced_danube_card_vs_cpu(dev, tag)
     print(f"phase 4f done at {time.perf_counter() - t_start:.1f}s")
+
+    # 4i. 4c's P1 and P2, the paged fallback route and danube's scan
+    # prefill under the solved (1, 1) plans, on 4e's group and mesh
+    t_4i = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    paged_plan_rec, paged_plan_launches = serve_paged_plan(
+        base, paged_rec, plan, mesh, dev, tag)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    danube_plan_rec, danube_plan_launches = serve_danube_plan(dev, tag, mesh)
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_4i_s = time.perf_counter() - t_4i
+    print(f"phase 4i: {phase_4i_s:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB {tag}")
+    print(f"phase 4i done at {time.perf_counter() - t_start:.1f}s")
 
     # 4b. train at full width, then the reduced model against the CPU
     train_rec, train_launches = train_full_width(dev, tag)
@@ -2628,8 +2900,8 @@ def main() -> int:
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
 
     # 6. the kernels line: launches are those of the main paths (linear
-    # serving, the four paged runs, serving under the plan, training,
-    # training under the plan, hybrid training)
+    # serving, the four paged runs, serving under the plan, the paged runs
+    # under the plan, training, training under the plan, hybrid training)
     fa_py = "src/repro/kernels/flash_attention.py"
     replaces = {"flash_fwd": f"{fa_py}:146 and {fa_py}:191",
                 "flash_decode": f"{fa_py}:280",
@@ -2647,9 +2919,10 @@ def main() -> int:
     # the hd-120 instances (danube's) have entries of their own: launches
     # from phases 4f and 4g, errors from phase 3's hd-120 cases, times from
     # phase 5's hd-120 rows; the other entries keep the other runs and hd
-    runs = (serve_launches, paged_launches, plan_launches, train_launches,
-            train_plan_launches, hybrid_launches)
-    runs120 = (danube_launches, danube_train_launches)
+    runs = (serve_launches, paged_launches, plan_launches,
+            paged_plan_launches, train_launches, train_plan_launches,
+            hybrid_launches)
+    runs120 = (danube_launches, danube_plan_launches, danube_train_launches)
     kernels = []
     for k, hd120 in [(k, False) for k in replaces] + [
             (k, True) for k in ("flash_fwd", "flash_decode", "flash_bwd_dq",
@@ -2671,6 +2944,8 @@ def main() -> int:
             device=name, nvidia_smi=smi, torch=torch.__version__,
             build=build.build_info, hgmma=hgmma, checks=checks, times=times,
             serve=serve_rec, paged=paged_rec, plan=plan_rec,
+            paged_plan=paged_plan_rec, danube_plan=danube_plan_rec,
+            phase_4i_s=phase_4i_s,
             reduced_card_vs_cpu=reduced_err,
             train=train_rec, reduced_train_card_vs_cpu=reduced_train,
             train_plan=train_plan_rec,

@@ -31,11 +31,15 @@ plain_calls: Dict[str, int] = {"flash_attention_fwd_ref": 0,
                                "flash_attention_paged_decode_ref": 0,
                                "ssd_ref": 0}
 bwd_recomputes: Dict[str, int] = {"ssd_chunk_scan": 0}
-# attention calls under a sharding plan whose cut the kernel cannot run
-# on each rank's local shard (models/attention.py), which took the plain
-# attention on the gathered tensors instead
+# calls under a sharding plan whose cut the kernel cannot run on each
+# rank's local shards (models/attention.py), which ran the same kernel
+# wrapper on the gathered tensors instead: the linear decode step, a
+# prefill chunk (both tiers), training attention, the paged decode step,
+# the speculative re-score (both tiers); and the copy-on-write of a pool
+# block whose blocks are cut across ranks (runtime/serve.py)
 plan_fallbacks: Dict[str, int] = {"attend_cache": 0, "prefill_attention": 0,
-                                  "attention": 0}
+                                  "attention": 0, "attend_paged": 0,
+                                  "rescore": 0, "copy_block": 0}
 
 
 def reset_plain_calls() -> None:

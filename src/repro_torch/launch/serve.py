@@ -14,6 +14,10 @@ throughput and TTFT / inter-token latency percentiles (counterpart of
   # under the solved decode plan on a 4x2 mesh of 8 gloo ranks:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --reduced --device cpu --mesh 4x2 --plan auto --slots 8
+  # the paged tier with speculative decoding under the plan, 2x2:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+      --reduced --device cpu --mesh 2x2 --plan auto --slots 4 --paged \\
+      --n-blocks 9 --spec-k 4
 
 Runs on the card unless ``--device cpu`` is given; without a card and
 without ``--device cpu`` it raises.  Weights are random, from
@@ -25,8 +29,9 @@ gloo ranks with ``--device cpu``, otherwise NCCL, one rank a card.  Under
 the module spawns the D*M ranks itself.  ``--plan auto`` solves the
 decode tiling of ``ShapeConfig(f"serve{tag}{slots}x{max_len}")`` for the
 mesh (``launch/compile.solve_cell_plan``, cached under
-``.cache/plans_torch/``) and places params and cache with it; every rank
-runs the same scheduler, and rank 0 prints and writes the record."""
+``.cache/plans_torch/``) and places params and cache with it, on either
+tier (``--paged``) and with ``--spec-k``; every rank runs the same
+scheduler, and rank 0 prints and writes the record."""
 from __future__ import annotations
 
 import argparse

@@ -50,6 +50,13 @@ def shard(x, plan, role: str, phys_dims: Sequence[str]):
     return x.redistribute(mesh, pl)
 
 
+def whole(t):
+    """A DTensor gathered whole on every rank (``full_tensor``), or ``t``
+    itself."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def local(t):
     """The local tensor of a DTensor (all of it when it is replicated),
     or ``t`` itself."""

@@ -28,15 +28,16 @@ index; in the paged pool they go to block 0, the null sink that the host
 allocator (runtime/paged.py) never hands out.
 
 Under a sharding plan (``LM.plan`` with ``LM.mesh``: the training
-forward and loss and the linear tier's serving entry points of the dense
-family) params, cache and activations are DTensors: ``shard``
+forward and loss and every serving entry point of the dense family, on
+both tiers) params, cache and activations are DTensors: ``shard``
 redistributes the activations where repro constrains them, and the
 attention runs on the local shards (``attention.attention_sharded``
-around the training kernels, ``attend_cache_sharded`` /
-``prefill_attention_sharded`` with each layer's K/V write when serving).
-Plain tensors (lengths, the rotary tables) join the DTensor ops as
-replicated (``dist_scope``).  The hybrid family refuses a plan.  Without
-a plan every path runs as before."""
+around the training kernels; when serving, the ``*_sharded`` routes of
+``models/attention.py`` with each layer's K/V write: the linear cache,
+the scan prefill's row, the paged pool and its table, the re-score).
+Plain tensors (lengths, write indices, the rotary tables) join the
+DTensor ops as replicated (``dist_scope``).  The hybrid family refuses a
+plan.  Without a plan every path runs as before."""
 from __future__ import annotations
 
 import contextlib
@@ -49,10 +50,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from .attention import (attend_cache, attend_cache_sharded, attend_paged,
+                        attend_paged_sharded, attend_slot_sharded,
                         attention, attention_sharded,
-                        prefill_attention_sharded)
+                        prefill_attention_paged_sharded,
+                        prefill_attention_sharded, rescore_sharded)
 from .common import (dense_init, embed_init, local, resolve_device, rms_norm,
-                     rope, shard, softmax_cross_entropy)
+                     rope, shard, softmax_cross_entropy, whole)
 from .sharding import global_offset
 from .mamba import SSD_IMPLS, mamba_forward, mamba_shapes
 
@@ -153,6 +156,13 @@ def _replicating():
         dispatcher._allow_implicit_replication = before
 
 
+def _zeros(shapes: Cache, dev: torch.device) -> Cache:
+    """A tree of (shape, dtype) leaves as zeroed tensors on ``dev``."""
+    return {k: _zeros(v, dev) if isinstance(v, dict)
+            else torch.zeros(v[0], dtype=v[1], device=dev)
+            for k, v in shapes.items()}
+
+
 def _mlp_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu((x @ p["wg"]).float()).to(x.dtype)
     return (g * (x @ p["wu"])) @ p["wd"]
@@ -167,8 +177,8 @@ class LM:
     # tensor, the chunked scan elsewhere)
     ssd_impl: str = "auto"
     # a solved ShardingPlan and the DeviceMesh its axes name (repro's
-    # LM.plan / LM.mesh): the trainer (train/engine.py) and the linear
-    # tier's Server place the params (and cache) under it
+    # LM.plan / LM.mesh): the trainer (train/engine.py) and the Server
+    # place the params (and cache) under it
     plan: Any = None
     mesh: Any = None
     # per-layer views of the last params["layers"] seen (built once, not
@@ -197,12 +207,6 @@ class LM:
             raise NotImplementedError(
                 f"{self.cfg.name}: {what} of the hybrid family waits for the "
                 "hybrid serving slice (mamba_step, the shared ring cache)")
-
-    def _unplanned(self, what: str) -> None:
-        if self.plan is not None:
-            raise NotImplementedError(
-                f"{what} under a sharding plan waits for the paged and "
-                "speculative tiers' plan slice (ROADMAP A.1)")
 
     def _shard(self, x, role: str, dims: Sequence[str]):
         return shard(x, self.plan, role, dims)
@@ -411,22 +415,18 @@ class LM:
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> Cache:
         """The linear cache of ``cache_shapes``, zeroed."""
-        sh = self.cache_shapes(batch, max_len)
-        dev = resolve_device(device)
-        return {"pos": torch.zeros(sh["pos"][0], dtype=torch.int32,
-                                   device=dev),
-                "kv": {k: torch.zeros(shape, dtype=dt, device=dev)
-                       for k, (shape, dt) in sh["kv"].items()}}
+        return _zeros(self.cache_shapes(batch, max_len),
+                      resolve_device(device))
 
-    def init_cache_paged(self, batch: int, max_len: int, n_blocks: int,
-                         block_len: int, device="cuda") -> Cache:
-        """Paged serving cache: one block pool per layer, no per-slot
-        max_len reservation, plus a per-slot block table mapping logical
-        block index -> pool block id: {"pos": [B] int32, "block_table":
-        [B, max_len // block_len] int32, "pages": {"k", "v": [L, NB, BL,
-        KV, hd] bf16}}.  Block 0 is the host allocator's reserved null
-        sink (zeroed table rows point at it).  Dense full-attention
-        configurations only (``paged_ok``)."""
+    def cache_shapes_paged(self, batch: int, max_len: int, n_blocks: int,
+                           block_len: int) -> Cache:
+        """The paged serving cache's tree of (shape, dtype): one block
+        pool per layer, no per-slot max_len reservation, plus a per-slot
+        block table mapping logical block index -> pool block id:
+        {"pos": [B] int32, "block_table": [B, max_len // block_len] int32,
+        "pages": {"k", "v": [L, NB, BL, KV, hd] bf16}}.  Block 0 is the
+        host allocator's reserved null sink (zeroed table rows point at
+        it).  Dense full-attention configurations only (``paged_ok``)."""
         self._dense_only("init_cache_paged")
         cfg = self.cfg
         if not paged_ok(cfg):
@@ -438,15 +438,18 @@ class LM:
                 f"block_len={block_len} must divide max_len={max_len} "
                 "(keeps the gathered per-slot view the same length as "
                 "the linear cache: the bit-equality invariant)")
-        dev = resolve_device(device)
         shape = (cfg.n_layers, n_blocks, block_len, cfg.n_kv_heads, cfg.hd)
-        return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-                "block_table": torch.zeros((batch, max_len // block_len),
-                                           dtype=torch.int32, device=dev),
-                "pages": {"k": torch.zeros(shape, dtype=torch.bfloat16,
-                                           device=dev),
-                          "v": torch.zeros(shape, dtype=torch.bfloat16,
-                                           device=dev)}}
+        return {"pos": ((batch,), torch.int32),
+                "block_table": ((batch, max_len // block_len), torch.int32),
+                "pages": {"k": (shape, torch.bfloat16),
+                          "v": (shape, torch.bfloat16)}}
+
+    def init_cache_paged(self, batch: int, max_len: int, n_blocks: int,
+                         block_len: int, device="cuda") -> Cache:
+        """The paged cache of ``cache_shapes_paged``, zeroed."""
+        return _zeros(self.cache_shapes_paged(batch, max_len, n_blocks,
+                                              block_len),
+                      resolve_device(device))
 
     def reset_slot(self, cache: Cache, slot: int) -> Cache:
         """Zero one slot's K/V and position, in place.  For a paged cache
@@ -454,12 +457,14 @@ class LM:
         blocks are recycled by the host allocator, and a zeroed table row
         points at the null block."""
         self._dense_only("reset_slot")
-        if self.plan is not None and "kv" in cache:
+        if self.plan is not None:
             # each rank zeroes the slot's row where its shard holds it
-            for t in (cache["kv"]["k"], cache["kv"]["v"]):
-                lt, b0 = local(t), global_offset(t)[1]
-                if lt.numel() and b0 <= slot < b0 + lt.shape[1]:
-                    lt[:, slot - b0].zero_()
+            dim, rows = ((0, [cache["block_table"]]) if "pages" in cache
+                         else (1, [cache["kv"]["k"], cache["kv"]["v"]]))
+            for t in rows:
+                lt, b0 = local(t), global_offset(t)[dim]
+                if lt.numel() and b0 <= slot < b0 + lt.shape[dim]:
+                    lt.select(dim, slot - b0).zero_()
             local(cache["pos"])[slot] = 0
             return cache
         if "pages" in cache:
@@ -493,19 +498,24 @@ class LM:
             return self._decode_step(params, cache, tokens, active)
 
     def _decode_step(self, params: Params, cache: Cache,
-                     tokens: torch.Tensor, active: Optional[torch.Tensor]
+                     tokens: torch.Tensor, active: Optional[torch.Tensor],
+                     slot: Optional[int] = None
                      ) -> Tuple[torch.Tensor, Cache]:
+        """``slot``: a batch-1 step of that row of a planned linear cache
+        (the scan prefill; ``tokens`` [1]), which advances its position
+        alone."""
         cfg = self.cfg
         hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         bd = ("batch", "d_model")
         pos = local(cache["pos"])
+        if slot is not None:
+            pos = pos[slot:slot + 1]                    # a view: += lands
         x = self._shard(params["embed"][tokens], "x", bd)
         b = x.shape[0]
         if "pages" in cache:
-            self._unplanned("the paged decode step")
             attend = self._paged_writer(cache, pos, active, b)
         else:
-            attend = self._linear_writer(cache, pos, active, b)
+            attend = self._linear_writer(cache, pos, active, b, slot)
         rpos = pos[:, None]
         for li, p in enumerate(self._layers(params)):
             pa = p["attn"]
@@ -527,27 +537,30 @@ class LM:
         return self._head(params, x), cache
 
     def _linear_writer(self, cache: Cache, pos: torch.Tensor,
-                       active: Optional[torch.Tensor], b: int):
+                       active: Optional[torch.Tensor], b: int,
+                       slot: Optional[int] = None):
         """attend(layer, q, k, v) for a decode step on the linear cache:
-        write the new K/V at each row's position, then attend."""
+        write the new K/V at each row's position, then attend.  ``slot``:
+        the batch-1 step of that row of a planned cache (``pos`` is its
+        [1] view)."""
         kc_all, vc_all = cache["kv"]["k"], cache["kv"]["v"]
         S = kc_all.shape[2]
-        slot = pos % S if self.cfg.swa_window is not None else pos
-        ok = slot < S
+        at = pos % S if self.cfg.swa_window is not None else pos
+        ok = at < S
         if active is not None:
             ok = ok & active
         # a dropped row rewrites its own position 0 with the value already
         # there, so every index stays in range and no two rows collide
         length = torch.clamp(pos + 1, max=S).to(torch.int32)
         if self.plan is not None:
-            # the write's drop rule (slot < S) is applied shard by shard
+            # the write's drop rule (at < S) is applied shard by shard
             keep = (torch.ones_like(ok) if active is None else active)
-
-            def attend_sharded(li, q, k, v):
-                return attend_cache_sharded(q, k, v, kc_all, vc_all, li,
-                                            slot, keep, length)
-            return attend_sharded
-        idx = torch.where(ok, slot, torch.zeros_like(slot)).long()
+            if slot is not None:
+                return lambda li, q, k, v: attend_slot_sharded(
+                    q, k, v, kc_all, vc_all, li, slot, at, keep, length)
+            return lambda li, q, k, v: attend_cache_sharded(
+                q, k, v, kc_all, vc_all, li, at, keep, length)
+        idx = torch.where(ok, at, torch.zeros_like(at)).long()
         rows = torch.arange(b, device=pos.device)
         keep = ok[:, None, None]
 
@@ -568,7 +581,9 @@ class LM:
         through the table.  A row that is inactive or whose position lies
         past its table writes into the null block 0 instead of being
         dropped, so no index is out of range and no such write can land
-        in a live or trie-shared block."""
+        in a live or trie-shared block.  Under a plan the write indices
+        come from the whole table (every rank writes every row into its
+        pool replica) and ``attend_paged_sharded`` writes and attends."""
         kp_all, vp_all = cache["pages"]["k"], cache["pages"]["v"]
         table = cache["block_table"]
         bl, mb = kp_all.shape[2], table.shape[1]
@@ -578,10 +593,13 @@ class LM:
         if active is not None:
             ok = ok & active
         rows = torch.arange(b, device=pos.device)
-        blk = table[rows, bidx.clamp(max=mb - 1)].long()
+        blk = whole(table)[rows, bidx.clamp(max=mb - 1)].long()
         wblk = torch.where(ok, blk, torch.zeros_like(blk))
         woff = p64 % bl
         length = torch.clamp(pos + 1, max=mb * bl).to(torch.int32)
+        if self.plan is not None:
+            return lambda li, q, k, v: attend_paged_sharded(
+                q, k, v, kp_all, vp_all, table, li, wblk, woff, length)
 
         def attend(li, q, k, v):
             kp, vp = kp_all[li], vp_all[li]
@@ -618,7 +636,6 @@ class LM:
             raise ValueError(f"n_valid={n_valid} outside [1, "
                              f"{tokens.shape[0]}]")
         if "pages" in cache:
-            self._unplanned("the paged prefill")
             # the pool has no slot axis: writes go through the slot's
             # table row instead of a batch-1 view
             if impl == "scan":
@@ -637,18 +654,28 @@ class LM:
             logits = self._prefill_chunk_attn(params, cache, tokens, slot,
                                               n_valid)
         else:
-            self._unplanned("the scan prefill")
-            logits = self._prefill_chunk_scan(
-                params, self._slot_view(cache, slot), tokens, n_valid)
+            logits = self._prefill_chunk_scan(params, cache, tokens, slot,
+                                              n_valid)
         return logits, cache
 
-    def _prefill_chunk_scan(self, params: Params, sub: Cache,
-                            tokens: torch.Tensor, n_valid: int):
-        """Step decode_step over the chunk's valid tokens on the slot's
-        batch-1 view (the padded tail is never fed)."""
+    def _prefill_chunk_scan(self, params: Params, cache: Cache,
+                            tokens: torch.Tensor, slot: int, n_valid: int):
+        """Step the decode step over the chunk's valid tokens on the
+        slot's row (the padded tail is never fed): on its batch-1 view,
+        or, under a plan, on the placed cache's row through
+        ``attend_slot_sharded`` (a view of a batch-cut DTensor would slice
+        across shards; every rank joins the step's weight collectives)."""
+        if self.plan is None:
+            sub = self._slot_view(cache, slot)
+
+            def step(tok):
+                return self.decode_step(params, sub, tok)
+        else:
+            def step(tok):
+                return self._decode_step(params, cache, tok, None, slot)
         logits = None
         for i in range(n_valid):
-            logits, _ = self.decode_step(params, sub, tokens[i:i + 1])
+            logits, _ = step(tokens[i:i + 1])
         return logits[0].float()
 
     def _prefill_chunk_attn(self, params: Params, cache: Cache,
@@ -656,23 +683,17 @@ class LM:
         """Parallel chunk prefill: write the chunk's K/V at its absolute
         positions and attend its queries against the slot's whole cache
         with the causal offset ``pos``, read on the device."""
-        cfg = self.cfg
-        hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-        bsd = ("batch", "seq", "d_model")
         c = tokens.shape[0]
-        if self.plan is not None:
-            pos0 = local(cache["pos"])[slot:slot + 1]       # [1] int32
-        else:
-            sub = self._slot_view(cache, slot)
-            pos0 = sub["pos"]                               # [1] int32
-        x = self._shard(params["embed"][tokens][None], "x", bsd)  # [1,C,D]
-        positions = (pos0.long() + torch.arange(c, device=x.device))[None]
+        pos0 = local(cache["pos"])[slot:slot + 1]           # [1] int32
+        positions = (pos0.long() + torch.arange(c, device=tokens.device)
+                     )[None]
         if self.plan is not None:
             def attend(li, q, k, v):
                 return prefill_attention_sharded(
                     q, k, v, cache["kv"]["k"], cache["kv"]["v"], li, slot,
                     pos0)
         else:
+            sub = self._slot_view(cache, slot)
             kc_all, vc_all = sub["kv"]["k"], sub["kv"]["v"]  # [L,1,S,KV,hd]
             S = kc_all.shape[2]
             # rows at or past S are dropped, as repro's mode="drop".  Only
@@ -692,6 +713,22 @@ class LM:
                 vc[0, widx] = torch.where(
                     keep, v[0, :cw].to(torch.bfloat16), vc[0, widx])
                 return attention(q, kc, vc, causal=True, q_offset=pos0)
+        return self._chunk_layers(params, tokens, positions, attend, n_valid,
+                                  pos0)
+
+    def _chunk_layers(self, params: Params, tokens: torch.Tensor,
+                      positions: torch.Tensor, attend, n_valid: int,
+                      pos0: torch.Tensor) -> torch.Tensor:
+        """The layers of a parallel prefill chunk ``tokens`` [C] at
+        ``positions`` [1, C], each layer's K/V write and attention done by
+        ``attend(layer, q, k, v)``; advances the slot's position ``pos0``
+        [1] by ``n_valid`` and returns the f32 logits [V] of the last
+        valid token."""
+        cfg = self.cfg
+        hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        bsd = ("batch", "seq", "d_model")
+        c = tokens.shape[0]
+        x = self._shard(params["embed"][tokens][None], "x", bsd)  # [1,C,D]
         for li, p in enumerate(self._layers(params)):
             pa = p["attn"]
             xn = self._shard(rms_norm(x, p["ln1"], cfg.norm_eps), "x", bsd)
@@ -719,16 +756,18 @@ class LM:
         the slot's table row at its absolute positions (padded rows and
         rows past the table into the null block 0), then the chunk's
         queries attend the slot's gathered view [1, MB*BL, KV, hd] with
-        the causal offset ``pos``, as the reference does."""
+        the causal offset ``pos``, as the reference does.  Under a plan
+        ``prefill_attention_paged_sharded`` writes every rank's pool
+        replica and attends on the row's owner."""
         cfg = self.cfg
-        hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        hd, kvh = cfg.hd, cfg.n_kv_heads
         kp_all, vp_all = cache["pages"]["k"], cache["pages"]["v"]
-        bl, mb = kp_all.shape[2], cache["block_table"].shape[1]
-        pos0 = cache["pos"][slot:slot + 1]                  # [1] int32
-        row = cache["block_table"][slot].long()             # [MB]
+        table = cache["block_table"]
+        bl, mb = kp_all.shape[2], table.shape[1]
+        pos0 = local(cache["pos"])[slot:slot + 1]           # [1] int32
+        row = whole(table)[slot].long()                     # [MB]
         c = tokens.shape[0]
-        x = params["embed"][tokens][None]                   # [1, C, D]
-        ar = torch.arange(c, device=x.device)
+        ar = torch.arange(c, device=tokens.device)
         positions = (pos0.long() + ar)[None]
         abs_pos = positions[0]
         bidx = abs_pos // bl
@@ -736,25 +775,22 @@ class LM:
         blk = row[bidx.clamp(max=mb - 1)]
         wblk = torch.where(ok, blk, torch.zeros_like(blk))
         woff = abs_pos % bl
-        for li, p in enumerate(self._layers(params)):
-            pa = p["attn"]
-            xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = self._qkv(pa, xn)
-            q = rope(q.reshape(1, c, h, hd), positions, cfg.rope_theta)
-            k = rope(k.reshape(1, c, kvh, hd), positions, cfg.rope_theta)
-            v = v.reshape(1, c, kvh, hd)
-            kp, vp = kp_all[li], vp_all[li]                 # [NB,BL,KV,hd]
-            kp[wblk, woff] = k[0].to(torch.bfloat16)
-            vp[wblk, woff] = v[0].to(torch.bfloat16)
-            kview = kp[row].reshape(1, mb * bl, kvh, hd)
-            vview = vp[row].reshape(1, mb * bl, kvh, hd)
-            o = attention(q, kview, vview, causal=True, q_offset=pos0)
-            x = x + o.reshape(1, c, h * hd) @ pa["wo"]
-            x = x + _mlp_forward(p["mlp"], rms_norm(x, p["ln2"],
-                                                    cfg.norm_eps))
-        last = rms_norm(x[0, n_valid - 1], params["ln_f"], cfg.norm_eps)
-        pos0 += n_valid
-        return self._head(params, last).float()
+        if self.plan is not None:
+            def attend(li, q, k, v):
+                return prefill_attention_paged_sharded(
+                    q, k, v, kp_all, vp_all, table, li, slot, row, wblk,
+                    woff, pos0)
+        else:
+            def attend(li, q, k, v):
+                kp, vp = kp_all[li], vp_all[li]             # [NB,BL,KV,hd]
+                kp[wblk, woff] = k[0].to(torch.bfloat16)
+                vp[wblk, woff] = v[0].to(torch.bfloat16)
+                kview = kp[row].reshape(1, mb * bl, kvh, hd)
+                vview = vp[row].reshape(1, mb * bl, kvh, hd)
+                return attention(q, kview, vview, causal=True,
+                                 q_offset=pos0)
+        return self._chunk_layers(params, tokens, positions, attend, n_valid,
+                                  pos0)
 
     def _prefill_chunk_paged_scan(self, params: Params, cache: Cache,
                                   tokens: torch.Tensor, slot: int,
@@ -764,7 +800,7 @@ class LM:
         mask, so only ``slot`` writes and advances.  Pool-wide and not on
         a batch-1 view: this is the preemption resume, and it recomputes
         decode-written K/V bit-exactly only at the batch width that first
-        wrote them."""
+        wrote them (under a plan too: every rank steps the whole pool)."""
         b = cache["pos"].shape[0]
         onehot = torch.arange(b, device=tokens.device) == slot
         zero = torch.zeros((), dtype=tokens.dtype, device=tokens.device)
@@ -772,7 +808,7 @@ class LM:
         for i in range(n_valid):
             feed = torch.where(onehot, tokens[i], zero)
             logits, _ = self.decode_step(params, cache, feed, active=onehot)
-        return logits[slot].float()
+        return whole(logits)[slot].float()
 
     def decode_rescore(self, params: Params, cache: Cache,
                        tokens: torch.Tensor, rows: torch.Tensor,
@@ -784,34 +820,52 @@ class LM:
         paged cache the kernel reads through ``table[rows]`` with lengths
         ``positions + 1`` (the reference's gather, then attend_cache, with
         no [N, MB*BL, KV, hd] view built); on a linear cache the rows'
-        caches are gathered and attended, as the reference does."""
-        self._unplanned("the speculative re-score")
+        caches are gathered and attended, as the reference does.  Under a
+        plan each rank attends the rows it owns (``rescore_sharded``)."""
+        self._dense_only("decode_rescore")
+        with self.dist_scope():
+            return self._decode_rescore(params, cache, tokens, rows,
+                                        positions)
+
+    def _decode_rescore(self, params: Params, cache: Cache,
+                        tokens: torch.Tensor, rows: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         hd, h = cfg.hd, cfg.n_heads
+        bd = ("batch", "d_model")
         n = tokens.shape[0]
         paged = "pages" in cache
         length = (positions + 1).to(torch.int32)
-        if paged:
-            kv_all = cache["pages"]
+        kv_all = cache["pages"] if paged else cache["kv"]
+        if self.plan is not None:
+            table = cache["block_table"] if paged else None
+
+            def attend(li, q):
+                return rescore_sharded(q, kv_all["k"], kv_all["v"], li, rows,
+                                       length, table)
+        elif paged:
             table = cache["block_table"][rows]              # [N, MB]
+
+            def attend(li, q):
+                return attend_paged(q, kv_all["k"][li], kv_all["v"][li],
+                                    table, length)
         else:
-            kv_all = cache["kv"]
-        x = params["embed"][tokens]                         # [N, D]
+            def attend(li, q):
+                return attend_cache(q, kv_all["k"][li][rows],
+                                    kv_all["v"][li][rows], length)
+        x = self._shard(params["embed"][tokens], "x", bd)   # [N, D]
         rpos = positions[:, None]
         for li, p in enumerate(self._layers(params)):
             pa = p["attn"]
-            xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+            xn = self._shard(rms_norm(x, p["ln1"], cfg.norm_eps), "x", bd)
             q = xn @ pa["wq"]
             if cfg.qkv_bias:
                 q = q + pa["bq"]
+            q = self._shard(q, "wq.out", ("batch", "heads"))
             q = rope(q.reshape(n, 1, h, hd), rpos, cfg.rope_theta)[:, 0]
-            kc, vc = kv_all["k"][li], kv_all["v"][li]
-            if paged:
-                o = attend_paged(q, kc, vc, table, length)
-            else:
-                o = attend_cache(q, kc[rows], vc[rows], length)
-            x = x + o.reshape(n, h * hd) @ pa["wo"]
-            x = x + _mlp_forward(p["mlp"], rms_norm(x, p["ln2"],
-                                                    cfg.norm_eps))
+            o = attend(li, q)
+            x = self._shard(x + o.reshape(n, h * hd) @ pa["wo"], "x", bd)
+            xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bd)
+            x = self._shard(x + _mlp_forward(p["mlp"], xn), "x", bd)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return self._head(params, x)

@@ -232,8 +232,12 @@ def zeros_placed(shape: Sequence[int], dtype, mesh, placements: Sequence,
 
 def zeros_tree(shapes: Tree, mesh, plan, rules=RULES, device=None) -> Tree:
     """DTensors of zeros for a tree of (shape, dtype) leaves, placed under
-    ``plan``, each rank allocating its shard only (``zeros_placed``; the
-    linear cache cut on ``batch`` leaves each card its part)."""
+    ``plan``, each rank allocating its shard only (``zeros_placed``).  The
+    linear cache cut on ``batch`` leaves each card its part; the paged
+    pool [L, NB, BL, KV, hd] takes the ``kv_cache`` cuts on (blocks,
+    block_len, kv_heads, hd), so having no batch dim it is replicated over
+    the data axis, and its table [B, MB] the ``block_table`` cuts on
+    (batch, blocks)."""
     def go(t: Tree, prefix: str) -> Tree:
         out: Tree = {}
         for k, v in t.items():
@@ -251,9 +255,12 @@ def zeros_tree(shapes: Tree, mesh, plan, rules=RULES, device=None) -> Tree:
 
 def global_offset(t) -> Tuple[int, ...]:
     """Global offset, per tensor dim, of this rank's local shard of
-    DTensor ``t``."""
+    DTensor ``t`` (zeros for a plain tensor: all of it is local)."""
+    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
+    if not isinstance(t, DTensor):
+        return (0,) * t.ndim
     return tuple(compute_local_shape_and_global_offset(
         t.shape, t.device_mesh, t.placements)[1])
 
@@ -263,11 +270,16 @@ def even_placements(placements: Sequence, shape: Sequence[int],
     """``placements`` without the cuts whose degree does not divide
     their dim (for_pool's rule: of the mesh dims that cut one tensor dim,
     in mesh order, the largest prefix whose product divides the dim
-    stays).  A one-row prefill chunk thus stays whole on a batch cut."""
+    stays), and without those of a mesh dim of size 1, which cut
+    nothing.  A one-row prefill chunk thus stays whole on a batch cut
+    (DTensor refuses to flatten a cut dim of size 1, as the chunk's
+    matmuls do, even on a mesh dim of size 1)."""
     out = list(placements)
     prod: Dict[int, int] = {}
     for j, p in enumerate(placements):
-        if isinstance(p, Shard):
+        if isinstance(p, Shard) and mesh.size(j) == 1:
+            out[j] = Replicate()
+        elif isinstance(p, Shard):
             d = p.dim % len(shape)
             n = prod.get(d, 1) * mesh.size(j)
             if shape[d] % n:

@@ -38,17 +38,19 @@ Paged tier (``ServeConfig.paged``):
   tokens always come from the draft, so the stream equals sequential
   decoding while tokens arrive up to ``spec_k`` per round.
 
-Plan sharding (the linear tier): a model with ``LM.plan`` and
-``LM.mesh`` serves under ``plan.for_pool(slots, axis sizes)``: the params
-(full tensors, the same on every rank, or DTensors placed already) are
-placed as DTensors by ``models/sharding.py``'s rules, and each rank
-allocates only its own shard of the linear cache.  Every rank runs this
+Plan sharding (both tiers, speculative decoding included): a model with
+``LM.plan`` and ``LM.mesh`` serves under ``plan.for_pool(slots, axis
+sizes)``: the params (full tensors, the same on every rank, or DTensors
+placed already) are placed as DTensors by ``models/sharding.py``'s rules,
+and each rank allocates only its own shard of the cache (the linear
+cache, or the paged pool and its block table).  Every rank runs this
 same host scheduler from the same seed (SPMD) and joins every step's
 collectives; the logits that sampling reads are gathered whole on every
-rank, so every rank takes the same decisions.  The paged tier,
-speculative decoding and the hybrid family under a plan raise
-``NotImplementedError`` (ROADMAP A.1).  The obs wiring is not ported
-yet: ``Server`` takes no registry or monitor."""
+rank, so every rank takes the same decisions.  The host's table mirror
+is written into each rank's table shard; the speculative rollback of
+positions and table stays host-side.  The hybrid family under a plan
+raises ``NotImplementedError`` (ROADMAP A.1).  The obs wiring is not
+ported yet: ``Server`` takes no registry or monitor."""
 from __future__ import annotations
 
 import collections
@@ -58,9 +60,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
-from ..models.common import local
+from ..kernels import ops
+from ..models.common import local, whole
 from ..models.model import LM, is_hybrid, paged_ok
+from ..models.sharding import global_offset
 from .paged import BlockPool, NoFreeBlocks, PrefixTrie
 
 # budget sentinel for "generate until EOS / cache full"
@@ -158,15 +163,10 @@ class Server:
         if self.sharded:
             if self.mesh is None:
                 raise ValueError("a sharding plan needs LM.mesh to place on")
-            for what, unported in (("the paged tier", scfg.paged),
-                                   ("speculative decoding", scfg.spec_k > 1),
-                                   ("the hybrid family",
-                                    is_hybrid(model.cfg))):
-                if unported:
-                    raise NotImplementedError(
-                        f"{what} under a sharding plan is not ported yet "
-                        "(ROADMAP A.1: the block_table role, the plan "
-                        "slices of the paged tier and of hybrid serving)")
+            if is_hybrid(model.cfg):
+                raise NotImplementedError(
+                    "the hybrid family under a sharding plan is not ported "
+                    "yet (ROADMAP A.1: hybrid serving under a plan)")
             sizes = dict(zip(self.mesh.mesh_dim_names,
                              self.mesh.mesh.shape))
             self.plan = self.plan.for_pool(n, sizes)
@@ -223,14 +223,18 @@ class Server:
                 self.trie = PrefixTrie(self.pool, self.bl)
             self.table = np.zeros((n, self.mb), np.int32)
             self.n_slot_blocks = np.zeros((n,), np.int64)
-            self.cache = self.model.init_cache_paged(
-                n, scfg.max_len, nb, self.bl, device=self.device)
-        elif self.sharded:
+        if self.sharded:
             # each rank allocates only its shard of the cache
             from ..models.sharding import CACHE_RULES, zeros_tree
-            self.cache = zeros_tree(
-                self.model.cache_shapes(n, scfg.max_len), self.mesh,
-                self.plan, CACHE_RULES, device=self.device)
+            shapes = (self.model.cache_shapes_paged(n, scfg.max_len, nb,
+                                                    self.bl)
+                      if self.paged else
+                      self.model.cache_shapes(n, scfg.max_len))
+            self.cache = zeros_tree(shapes, self.mesh, self.plan,
+                                    CACHE_RULES, device=self.device)
+        elif self.paged:
+            self.cache = self.model.init_cache_paged(
+                n, scfg.max_len, nb, self.bl, device=self.device)
         else:
             self.cache = self.model.init_cache(n, scfg.max_len,
                                                device=self.device)
@@ -249,9 +253,14 @@ class Server:
         before the next dispatch.  The copies are blocking: the host
         waits until the stream has read its arrays, so it may write them
         again at once (an asynchronous copy from these arrays could read
-        them after a later mutation)."""
+        them after a later mutation).  Under a plan each rank writes its
+        own shard of the table from the mirror."""
         if self._table_dirty:
-            self.cache["block_table"].copy_(torch.from_numpy(self.table))
+            t = self.cache["block_table"]
+            lt = local(t)
+            r0, c0 = global_offset(t)
+            lt.copy_(torch.from_numpy(
+                self.table[r0:r0 + lt.shape[0], c0:c0 + lt.shape[1]]))
             self._table_dirty = False
         if self._pos_dirty:
             local(self.cache["pos"]).copy_(
@@ -263,13 +272,6 @@ class Server:
         return [torch.Generator(device=self.device).manual_seed(
             stream_seed(self.scfg.seed, int(r), int(c)))
             for r, c in zip(rids, counts)]
-
-    @staticmethod
-    def _whole(logits) -> torch.Tensor:
-        """The logits as one plain tensor, the same on every rank (a
-        sharded DTensor is gathered)."""
-        full = getattr(logits, "full_tensor", None)
-        return full() if full is not None else logits
 
     def _sample(self, logits: torch.Tensor, rids, counts) -> np.ndarray:
         gens = (None if self.scfg.temperature <= 0.0
@@ -316,7 +318,8 @@ class Server:
             logits = self._prefill_paged(prompt, slot, method,
                                          resume_tail=req.prior_out)
         else:
-            logits = self._whole(self._prefill_linear(prompt, slot, method))
+            logits = self._prefill_linear(prompt, slot, method)
+        logits = whole(logits)     # the same on every rank under a plan
         tok = int(self._sample(logits[None], [req.rid], [req.prior_out])[0])
         self.prefill_logits[slot] = logits.cpu().numpy()
         self.active[slot] = True
@@ -464,9 +467,26 @@ class Server:
 
     def _copy_block(self, dst: int, src: int) -> None:
         """Copy-on-write: duplicate pool block ``src`` into ``dst`` in
-        every layer, in place, once per pool (K and V)."""
+        every layer, in place, once per pool (K and V).  Under a plan each
+        rank copies within its own shard of the pool (its block_len,
+        kv_heads and hd cuts hold the same part of both blocks); where a
+        mesh dim cuts ``blocks``, ``src`` and ``dst`` may live on
+        different ranks, so that cut is gathered first, counted in
+        ``ops.plan_fallbacks["copy_block"]``."""
         for pool in self.cache["pages"].values():
-            pool[:, dst] = pool[:, src]
+            lp = local(pool)
+            placed = list(getattr(pool, "placements", ()))
+            whole_blocks = [Replicate() if isinstance(p, Shard) and p.dim == 1
+                            else p for p in placed]
+            if whole_blocks == placed:
+                lp[:, dst] = lp[:, src]
+                continue
+            ops.plan_fallbacks["copy_block"] += 1
+            src_row = local(pool.redistribute(pool.device_mesh,
+                                              whole_blocks))[:, src]
+            nb0 = global_offset(pool)[1]
+            if lp.numel() and nb0 <= dst < nb0 + lp.shape[1]:
+                lp[:, dst - nb0] = src_row
 
     # -- paged allocator glue ---------------------------------------------
     def _alloc_block(self, protect: Optional[int] = None,
@@ -633,7 +653,7 @@ class Server:
         logits, self.cache = self.model.decode_step(
             self.params, self.cache, torch.as_tensor(feed, device=self.device),
             active=torch.as_tensor(act, device=self.device))
-        logits = self._whole(logits).float()
+        logits = whole(logits).float()
         toks = self._sample(logits, self.slot_rid, self.n_out)
         self.last_logits = logits
         self.decode_dispatches += 1
@@ -675,7 +695,7 @@ class Server:
                 self.params, self.cache,
                 torch.as_tensor(feed, device=self.device),
                 active=torch.as_tensor(a, device=self.device))
-            logits = logits.float()
+            logits = whole(logits).float()
             nt = np.where(a, self._sample(logits, self.slot_rid, counts),
                           feed)
             counts = counts + a
@@ -719,10 +739,10 @@ class Server:
         n, kk = self.scfg.slots, self.scfg.spec_k
         rows = np.repeat(np.arange(n), kk)
         positions = (base_pos[:, None] + np.arange(kk)).reshape(-1)
-        logits = self.model.decode_rescore(
+        logits = whole(self.model.decode_rescore(
             self.params, self.cache, torch.as_tensor(feed, device=self.device),
             torch.as_tensor(rows, device=self.device),
-            torch.as_tensor(positions, device=self.device))
+            torch.as_tensor(positions, device=self.device)))
         counts = (base_out[:, None] + np.arange(kk)).reshape(-1)
         return self._sample(logits.float(), np.repeat(self.slot_rid, kk),
                             counts).reshape(n, kk)

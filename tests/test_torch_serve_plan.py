@@ -28,8 +28,9 @@ plans in turn:
 The plans equal repro's cut for cut.  Each run gives repro's streams and
 dispatch counters under the same plan (for (c), repro's unplanned ones)
 and the unplanned port's, its logits within 1e-5 of both; (a) and (b)
-count no fallback, (c) and (d) count every attention call.  In process: a plan
-refuses the paged tier, speculative decoding and the hybrid family.
+count no fallback, (c) and (d) count every attention call.  In process: a
+plan serves the paged tier and speculative decoding on one rank, and
+refuses the hybrid family.
 Every rank imports only torch and the port (repro is imported in the
 ``plans`` fixture and in the subprocess alone)."""
 from __future__ import annotations
@@ -324,7 +325,8 @@ def test_seq_kv_cut_falls_back(runs):
     L = _cfg().n_layers
     assert got["fallbacks"] == {"prefill_attention": L * ref["prefill"],
                                 "attend_cache": L * ref["decode"],
-                                "attention": 0}
+                                "attention": 0, "attend_paged": 0,
+                                "rescore": 0, "copy_block": 0}
 
 
 def test_own_plan_cuts_batch_only(plans, runs):
@@ -367,7 +369,8 @@ def test_kv_heads_cut_that_does_not_divide_falls_back(runs):
     # per decode step
     assert got["fallbacks"] == {"prefill_attention": L * ref["prefill"],
                                 "attend_cache": L * ref["decode"],
-                                "attention": 0}
+                                "attention": 0, "attend_paged": 0,
+                                "rescore": 0, "copy_block": 0}
     # megatron's model axis cuts the heads of wq
     assert got["params"]["layers/attn/wq"][0] == ("R",
                                                   "S(2)")
@@ -375,9 +378,10 @@ def test_kv_heads_cut_that_does_not_divide_falls_back(runs):
 
 def test_plan_on_one_rank_and_what_it_refuses():
     """On a world-1 gloo group: the (1, 1) mesh's solver axes; params
-    placed already are taken as they are; paged=True, spec_k > 1 and the
-    hybrid family raise under a plan, naming ROADMAP A.1; a plan without
-    a mesh is refused."""
+    placed already are taken as they are; paged=True and spec_k=4 serve
+    under a plan, giving the streams of the same server with no plan;
+    the hybrid family raises under a plan, naming ROADMAP A.1; a plan
+    without a mesh is refused."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -400,9 +404,19 @@ def test_plan_on_one_rank_and_what_it_refuses():
         assert isinstance(placed["layers"]["attn"]["wq"], DTensor)
         srv = Server(model, placed, SCFG)
         assert srv.params["embed"] is placed["embed"]
-        for kw in (dict(paged=True), dict(spec_k=4)):
-            with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
-                Server(model, params, dataclasses.replace(SCFG, **kw))
+        for kw in (dict(paged=True), dict(spec_k=4),
+                   dict(paged=True, spec_k=4)):
+            scfg = dataclasses.replace(SCFG, **kw)
+            streams = []
+            for m in (model, LM(cfg)):
+                srv = Server(m, params, scfg)
+                for p in PROMPTS:
+                    srv.submit(p, max_new_tokens=GEN)
+                streams.append(srv.run())
+                tier = srv.cache["pages" if scfg.paged else "kv"]
+                assert isinstance(tier["k"], DTensor) == (m is model)
+            assert streams[0] == streams[1], kw
+            assert all(len(t) == GEN for t in streams[0].values())
         hyb = get_arch("zamba2-2.7b").reduced()
         with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
             Server(LM(hyb, plan=plan, mesh=mesh),
@@ -429,6 +443,26 @@ def test_launch_serve_spawns_gloo_ranks(tmp_path):
     assert rec["plan"]["mesh_axes"] == ["data", "model"]
     assert rec["plan"]["role_cuts"]["kv_cache"] == {"data": "batch",
                                                     "model": "batch"}
+
+
+def test_launch_serve_paged_spec_spawns_gloo_ranks(tmp_path):
+    """``--paged --spec-k 4 --mesh 2x2 --plan auto --device cpu``: the 4
+    gloo ranks serve the paged tier with speculative decoding under the
+    solved decode plan; rank 0 writes the record, with the paged
+    counters."""
+    from repro_torch.launch import serve as launch_serve
+    out = tmp_path / "rec.json"
+    assert launch_serve.main([
+        "--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
+        "--mesh", "2x2", "--plan", "auto", "--slots", "4", "--gen", "6",
+        "--paged", "--n-blocks", "9", "--spec-k", "4",
+        "--json-out", str(out)]) == 0
+    rec = json.loads(out.read_text())
+    assert rec["meta"]["mesh"] == "2x2" and rec["meta"]["paged"]
+    assert rec["meta"]["spec_k"] == 4 and rec["meta"]["n_blocks"] == 9
+    assert rec["requests"] == 4 and rec["generated_tokens"] == 24
+    assert rec["paged"]["verify_dispatches"] >= 1
+    assert rec["plan"]["mesh_axes"] == ["data", "model"]
 
 
 if __name__ == "__main__":

@@ -569,7 +569,8 @@ def test_attention_fallbacks(runs):
             (("R", "R") if name == "solved" else ("R", "S(2)"))
     assert out["fallback"]["fallbacks"] == {
         "attend_cache": 0, "prefill_attention": 0,
-        "attention": 2 * L * MICRO * 2}
+        "attention": 2 * L * MICRO * 2, "attend_paged": 0, "rescore": 0,
+        "copy_block": 0}
 
 
 def test_int8_compression_under_the_plan(runs):
