@@ -96,9 +96,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      CPU, and 3 compressed-sync engine steps on both;
   4h. train under a plan: a world-1 NCCL group and a (1, 1) ("data",
      "model") DeviceMesh; the port's solver solves the qwen2-1.5b train
-     cell (4 x 1024, f32 master state in the graph) for it, and for the
-     (4, 2) and (2, 4) meshes (solved only, printed: which roles cut the
-     moments, the master and the weights); phase 4b's run with --mesh 1x1
+     cell (4 x 1024, f32 master state in the graph) for it; phase 4b's
+     run with --mesh 1x1
      --plan auto through launch.train's runner (params, moments and
      master as DTensors, the attention's kernels inside local_map): phase
      4b's launches exactly, no plan fallback, no plain call, finite losses
@@ -109,7 +108,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   4f. danube serve: h2o-danube-3-4b at full width (24 layers, d 3840,
      32 heads of hd 120 on 8 KV heads, window 4096, untied vocab 32000,
      bf16, random weights from torch.Generator(0)), 8 slots x 2048 (a ring
-     of 2048 positions), 8 requests of 128-512 prompt tokens, 32 greedy
+     of 2048 positions), 4 requests of 128-512 prompt tokens, 32 greedy
      tokens each, through launch.serve.run_workload; every prompt token is
      a batch-1 scan step, so flash_decode launches exactly 24 x (decode
      dispatches + prompt tokens), flash_fwd and the paged kernel never,
@@ -126,7 +125,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      plan; then the pool's cut moved to blocks on 4 requests: every
      paged call gathered, counted in plan_fallbacks, its kernel launched,
      the unplanned streams; then danube at full width under its solved
-     (1, 1) decode plan and with no plan, 2 requests of 128 tokens and
+     (1, 1) decode plan and with no plan, 1 request of 128 tokens and
      32 greedy tokens on 8 slots x 2048 through the scan prefill: equal
      streams, flash_decode exactly 24 x (decode dispatches + prompt
      tokens) on both, flash_fwd never; the reduced danube under the plan
@@ -136,7 +135,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      80 SSM heads of P 64 / N 64, chunk 256; the shared attention+MLP
      block, 32 heads of hd 80, after every 6 layers), f32 master weights,
      global batch 4 x 1024 in 2 microbatches, AdamW lr 3e-4 with 2 warmup
-     steps, 8 steps through launch.train's runner; every loss finite, the
+     steps, 4 steps through launch.train's runner; every loss finite, the
      last below the first, launches per step exactly ssd_chunk_scan 216
      (54 layers x 2 microbatches x forward and remat recompute), flash_fwd
      36, flash_bwd_dq / flash_bwd_dkv 18 each, no decode kernel, 108 SSD
@@ -149,6 +148,29 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      exactly flash_fwd 48, flash_bwd_dq / flash_bwd_dkv 24 each, no f32
      or decode kernel, no plain call; then the reduced danube's loss and
      grads on the card against the CPU;
+  4j. hybrid serve: zamba2-2.7b at full width (4d's weights' shapes,
+     from torch.Generator(0)), 16 slots x 2048 (the shared block's rings
+     hold all 2048 positions; the rings take 3.0 GB and the Mamba state
+     1.16 GB), 8 requests of 64-192 prompt tokens, 32 greedy tokens each,
+     through launch.serve.run_workload; every prompt token is a batch-1
+     scan step (54 mamba_steps, 9 shared blocks), so flash_decode
+     launches exactly 9 x (decode dispatches + prompt tokens), flash_fwd
+     and ssd_chunk_scan never, no plain call, no non-finite logit; then
+     the reduced zamba2 on the card against the CPU, 40 decode steps
+     after two scan prefills;
+  4k. the hybrid family under the solved (1, 1) plans, on a world-1 NCCL
+     group and a (1, 1) DeviceMesh of its own (torn down after): 4j's
+     first 2 requests under the decode plan (state and rings as
+     DTensors, the state update, ring write and flash_decode in
+     local_map): 4j's streams, launches 9 x (decode dispatches + prompt
+     tokens) exactly, no fallback, no plain call; a decode step's and a
+     scan step's host and device ms with and without the plan; the
+     reduced zamba2 under the plan against the CPU; then 4d's run (its
+     4 steps and schedule) under the solved train plan through
+     launch.train --mesh 1x1 --plan auto: 4d's launches exactly, 0
+     fallbacks, 0 plain calls, each loss within 1e-3 relative of 4d's;
+     the peak memory, and a step's host and device ms with and without
+     the plan;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch, the stream held by a spin kernel so the interval is device
      time; the forward and both decode kernels also without the hold,
@@ -163,7 +185,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      time; three CUDA launches a call), with the chunked PyTorch scan
      (kernels/ssd.ssd_scan) as its yardstick, as no single PyTorch call
      computes the scan; the forward, backward and decode at danube's
-     shapes (hd 120);
+     shapes (hd 120); the decode kernel at zamba2's serving step (q
+     [16,32,80] against [16,2048,32,80], the lengths 4j reached);
   6. the kernels line (the hd-120 instances as entries of their own) and
      the contract's last line.
 With --profile, also torch.profiler over one admission and 8 decode
@@ -224,24 +247,36 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 12, 4, 1024, 2
 # 4h: phase 4b's run under the solved (1, 1) train plan, all 12 steps (the
 # same cosine schedule, so its losses are comparable step by step), each
 # loss within 1e-3 relative of phase 4b's; the train cell the solver is
-# given for (1, 1), and the meshes whose plans are printed
+# given for (1, 1)
 TRAIN_PLAN_LOSS_REL = 1e-3
 TRAIN_PLAN_SHAPE = ("train4x1024", 1024, 4, "train")
-TRAIN_PLAN_MESHES = ((4, 2), (2, 4))      # solved only, printed
 # host and device ms a step, with and without the plan: steps timed after
 # one warm step (host: each step()'s enqueue; wall: the steps ended by a
 # sync), and steps under torch.profiler (device: its kernels' time)
 STEP_TIMED, STEP_PROFILED = 3, 2
-# the hybrid (zamba2-2.7b) run: 8 steps of the same batch, 2 of them warmup
-HYBRID_ARCH, HYBRID_STEPS = "zamba2-2.7b", 8
+# the hybrid (zamba2-2.7b) run: 4 steps of the same batch, 2 of them warmup
+# (4k trains it again under the plan, on the same cosine schedule)
+HYBRID_ARCH, HYBRID_STEPS = "zamba2-2.7b", 4
+# zamba2-2.7b served at full width (4j): 16 slots x 2048 (the shared
+# block's ring holds all 2048 positions), 8 requests of 64-192 prompt
+# tokens (each a batch-1 scan step: no parallel prefill for a recurrent
+# state), 32 greedy tokens each; 4k serves the first 2 under the solved
+# (1, 1) decode plan and with none, and trains 4d's run under the (1, 1)
+# train plan, each loss within TRAIN_PLAN_LOSS_REL of 4d's
+HYBRID_SLOTS, HYBRID_MAX_LEN, HYBRID_REQUESTS = 16, 2048, 8
+HYBRID_PROMPT, HYBRID_GEN, HYBRID_PLAN_REQS = (64, 192), 32, 2
+HYBRID_PLAN_SHAPE = ("serve16x2048", HYBRID_MAX_LEN, HYBRID_SLOTS, "decode")
+# 4k's training steps timed with and without the plan (a zamba2 step
+# takes seconds): one warm step, 1 timed, 1 under the profiler
+HYBRID_STEP_TIMED, HYBRID_STEP_PROFILED = 1, 1
 # h2o-danube-3-4b (hd 120, window 4096): served at full width, 8 slots x
-# 2048 (a ring of min(2048, 4096) positions), 8 requests of 128-512
+# 2048 (a ring of min(2048, 4096) positions), 4 requests of 128-512
 # prompt tokens (each a batch-1 scan step), 32 greedy tokens each; trained
 # at full width cut to 12 of its 24 layers (full depth holds ~71 GB of
 # params, master weights, moments and grads before activations), 8 steps
 # of the dense run's batch, 2 of them warmup
 DANUBE = "h2o-danube-3-4b"
-DANUBE_SLOTS, DANUBE_MAX_LEN, DANUBE_REQUESTS = 8, 2048, 8
+DANUBE_SLOTS, DANUBE_MAX_LEN, DANUBE_REQUESTS = 8, 2048, 4
 DANUBE_PROMPT, DANUBE_GEN = (128, 512), 32
 DANUBE_TRAIN_LAYERS, DANUBE_STEPS = 12, 8
 HD120 = "(hd 120, danube)"     # the suffix of its rows in phase 5 and 6
@@ -966,7 +1001,7 @@ def check_paged(dev, tag):
     return out
 
 
-def time_kernels(dev, tag, timer):
+def time_kernels(dev, tag, timer, hybrid_lengths):
     """Times at the main paths' shapes: a 256-row prefill chunk at offset
     768 against a 2048-slot cache (row 2) and a 16-slot decode step (row
     3) of serving; the forward without an offset (row 1) and the two
@@ -975,7 +1010,9 @@ def time_kernels(dev, tag, timer):
     its shared block, [2,1024,32,80] (g 1); the SSD scan (row 7) at the
     hybrid training shape; the forward and backward at danube's training
     microbatch, q [2,1024,32,120] against kv [2,1024,8,120], and its decode
-    step, q [8,32,120] against [8,2048,8,120] (hd 120)."""
+    step, q [8,32,120] against [8,2048,8,120] (hd 120); the decode step
+    of zamba2's serving (4j), q [16,32,80] against its [16,2048,32,80]
+    rings at the lengths 4j reached (``hybrid_lengths``), hd 80, g 1."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -1032,6 +1069,9 @@ def time_kernels(dev, tag, timer):
         dev, timer, rnd, TRAIN_MICRO, 32, 8, 120).items()})
     out.update({f"{k} {HD120}": v for k, v in time_decode(
         dev, timer, rnd, 32, 8, 120, b=DANUBE_SLOTS, paged=False).items()})
+    out.update({f"{k} (hd 80, zamba2 serving)": v for k, v in time_decode(
+        dev, timer, rnd, 32, 32, 80, b=HYBRID_SLOTS, paged=False,
+        lengths=hybrid_lengths).items()})
     # the control of the hd-120 backward rows: the hd-128 instances at
     # danube's batch and heads (the instance's own cost against the shape's)
     out.update({f"{k} (hd 128 at danube's heads)": v for k, v in time_bwd(
@@ -1053,18 +1093,22 @@ def time_kernels(dev, tag, timer):
     return out
 
 
-def time_decode(dev, timer, rnd, h, kv, hd, b=16, paged=True):
+def time_decode(dev, timer, rnd, h, kv, hd, b=16, paged=True,
+                lengths=None):
     """Row 3: a ``b``-slot decode step of serving against 2048-slot caches
-    (lengths drawn from default_rng(0)); row 4 (``paged``): the paged
-    kernel on the same lengths."""
+    (``lengths``, or lengths drawn from default_rng(0)); row 4
+    (``paged``): the paged kernel on the same lengths."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     scale = hd ** -0.5
     s = 2048
     q, kc, vc = rnd((b, h, hd)), rnd((b, s, kv, hd)), rnd((b, s, kv, hd))
-    ln = np.random.default_rng(0).integers(1, s + 1, size=b)
-    ln[0], ln[-1] = 1, s
+    if lengths is None:
+        ln = np.random.default_rng(0).integers(1, s + 1, size=b)
+        ln[0], ln[-1] = 1, s
+    else:
+        ln = np.asarray(lengths)
     lengths = torch.tensor(ln, dtype=torch.int32, device=dev)
     by, fl = decode_work(ln, h, kv, hd, None)
     bms, bby = bound(by, fl)
@@ -1552,14 +1596,30 @@ def decode_step_times(srv, n, tag, label):
     step reads nothing back), the wall ms that of ``n`` steps ended by a
     device sync, and the device ms the kernels' device time per step
     under torch.profiler (a separate run of ``n`` steps)."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
-
     tokens = torch.as_tensor(srv.next_tok, device=srv.device)
     active = torch.as_tensor(srv.active, device=srv.device)
 
     def step():
         srv.model.decode_step(srv.params, srv.cache, tokens, active)
+    return step_times(step, n, tag, f"decode step {label}")
+
+
+def scan_step_times(srv, n, tag, label):
+    """``decode_step_times`` for the scan prefill's batch-1 step: one
+    token into slot 0 a call (``LM.prefill_chunk`` of one token)."""
+    tok = torch.zeros(1, dtype=torch.long, device=srv.device)
+
+    def step():
+        srv.model.prefill_chunk(srv.params, srv.cache, tok, 0, 1)
+    return step_times(step, n, tag, f"scan step {label}")
+
+
+def step_times(step, n, tag, what):
+    """Host ms of each of ``n`` calls of ``step`` (after one warm call),
+    wall ms of the ``n`` ended by a device sync, and device ms per call
+    under torch.profiler (a separate ``n``); printed."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
 
     step()
     torch.cuda.synchronize()
@@ -1580,7 +1640,7 @@ def decode_step_times(srv, n, tag, label):
                  if e.device_type == DeviceType.CUDA) / 1e3 / n
     rec = dict(host_ms=float(np.mean(host)), wall_ms=wall_ms,
                device_ms=dev_ms)
-    print(f"plan: decode step {label}: host {rec['host_ms']:.3f} ms, wall "
+    print(f"plan: {what}: host {rec['host_ms']:.3f} ms, wall "
           f"{wall_ms:.3f} ms (n {n}, synced at the end), device "
           f"{dev_ms:.3f} ms (profiler) {tag}")
     return rec
@@ -1770,7 +1830,7 @@ def serve_fallback(lin_model, params, prompts, fb_plan, mesh, scfg, tag,
 # 4i: serving's remaining tiers under the solved (1, 1) decode plan: 4c's
 # P1 and P2, the paged fallback route, and danube's scan prefill
 DANUBE_PLAN_SHAPE = ("serve8x2048", DANUBE_MAX_LEN, DANUBE_SLOTS, "decode")
-DANUBE_PLAN_REQS, DANUBE_PLAN_PROMPT = 2, 128
+DANUBE_PLAN_REQS, DANUBE_PLAN_PROMPT = 1, 128
 
 
 def serve_paged_plan(base, paged_rec, plan, mesh, dev, tag):
@@ -1971,8 +2031,8 @@ def serve_danube_plan(dev, tag, mesh):
           f"server's; launches exact, 0 fallbacks, 0 plain calls {tag}")
     del params
     torch.cuda.empty_cache()
-    out["reduced_card_vs_cpu"] = reduced_danube_card_vs_cpu(dev, tag, plan,
-                                                            mesh)
+    out["reduced_card_vs_cpu"] = reduced_scan_card_vs_cpu(dev, tag, plan,
+                                                          mesh)
     return out, total
 
 
@@ -2213,12 +2273,13 @@ def train_full_width(dev, tag, arch="qwen2-1.5b", steps=TRAIN_STEPS,
     return rec, launches
 
 
-def train_step_times(dev, cfg, plan, mesh, tag, label, profile=False):
+def train_step_times(dev, cfg, plan, mesh, tag, label, profile=False,
+                     timed=STEP_TIMED, profiled=STEP_PROFILED):
     """Host, wall and device ms of a full-width training step of phase
     4b's engine (``plan``/``mesh`` None: unplanned), fed by BatchFeed as
-    the training loop feeds it: one warm step, STEP_TIMED steps whose
+    the training loop feeds it: one warm step, ``timed`` steps whose
     ``step()`` calls are timed on the host (the step reads nothing back)
-    and ended by one sync, then STEP_PROFILED steps under torch.profiler
+    and ended by one sync, then ``profiled`` steps under torch.profiler
     for the kernels' device time.  With ``profile``, the profiler's report
     too."""
     from torch.autograd import DeviceType
@@ -2245,31 +2306,31 @@ def train_step_times(dev, cfg, plan, mesh, tag, label, profile=False):
         torch.cuda.synchronize()
         host = []
         t0 = time.perf_counter()
-        for _ in range(STEP_TIMED):
+        for _ in range(timed):
             batch = feed.get()
             t = time.perf_counter()
             state, _ = engine.step(state, batch)
             host.append((time.perf_counter() - t) * 1e3)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / STEP_TIMED
+        wall_ms = (time.perf_counter() - t0) * 1e3 / timed
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(STEP_PROFILED):
+            for _ in range(profiled):
                 state, _ = engine.step(state, feed.get())
             torch.cuda.synchronize()
             prof_ms = (time.perf_counter() - t0) * 1e3
     dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / 1e3 / STEP_PROFILED
+                 if e.device_type == DeviceType.CUDA) / 1e3 / profiled
     rec = dict(host_ms=float(np.mean(host)), wall_ms=wall_ms,
                device_ms=dev_ms)
     print(f"train plan: step {label}: host {rec['host_ms']:.2f} ms "
-          f"(enqueue), wall {wall_ms:.2f} ms (n {STEP_TIMED}, synced at the "
-          f"end), device {dev_ms:.2f} ms (profiler, {STEP_PROFILED} steps) "
+          f"(enqueue), wall {wall_ms:.2f} ms (n {timed}, synced at the "
+          f"end), device {dev_ms:.2f} ms (profiler, {profiled} steps) "
           f"{tag}")
     if profile:
         rec["profile"] = report_profile(
-            prof, f"train {cfg.name} {label} ({STEP_PROFILED} steps)",
+            prof, f"train {cfg.name} {label} ({profiled} steps)",
             prof_ms, tag)
     del state, engine
     return rec
@@ -2281,20 +2342,15 @@ def train_plan(dev, tag, ref_rec, profile=False):
     launch.train's runner with --mesh 1x1 --plan auto.  Launches must be
     phase 4b's exactly, with no plan fallback and no plain call; every
     loss finite, the last below the first, each within
-    TRAIN_PLAN_LOSS_REL of phase 4b's.  Also solves and prints the (4, 2)
-    and (2, 4) train plans (solved only), and a step's host and device ms
+    TRAIN_PLAN_LOSS_REL of phase 4b's.  Also a step's host and device ms
     with and without the plan.  Tears the group down before it
-    returns."""
-    import multiprocessing as mp
-    from concurrent.futures import ProcessPoolExecutor
-
+    returns.  (The (4, 2) and (2, 4) train plans, solved only, are the
+    CPU tests' (tests/test_torch_train_plan.py): solved here they took
+    ~70 s of the smoke's time.)"""
     import torch.distributed as dist
 
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core.builders import build_graph
-    from repro_torch.core.plan import ShardingPlan
-    from repro_torch.core.solver import solve_mesh
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
@@ -2317,35 +2373,11 @@ def train_plan(dev, tag, ref_rec, profile=False):
     solves = {"1x1": dict(solve_s=time.perf_counter() - t0,
                           total_bytes=plan_rec["total_bytes"],
                           role_cuts=plan_rec["role_cuts"])}
-    # the (4, 2) and (2, 4) plans, solved only (one card here), in two
-    # processes side by side (~1 min each on the card's host), started
-    # fresh: this process has CUDA's and NCCL's threads, so no fork
-    g = build_graph(cfg, shape, **graph_kwargs)
-    t0 = time.perf_counter()
-    with ProcessPoolExecutor(len(TRAIN_PLAN_MESHES),
-                             mp_context=mp.get_context("spawn")) as ex:
-        futures = [ex.submit(solve_mesh, g, solver_axes(m))
-                   for m in TRAIN_PLAN_MESHES]
-        sols = [f.result() for f in futures]
-    many_s = time.perf_counter() - t0
-    for m, sol in zip(TRAIN_PLAN_MESHES, sols):
-        name = f"{m[0]}x{m[1]}"
-        cuts = ShardingPlan.from_graph_solution(sol, g).role_cuts
-        solves[name] = dict(solve_s=many_s, total_bytes=sol.total_bytes,
-                            role_cuts=cuts)
-        state = {r: {a: d for a, d in c.items() if d}
-                 for r, c in cuts.items()
-                 if r.endswith((".opt", ".master")) or r.startswith("w")}
-        print(f"train plan: {cfg.name} {shape.name} on a {name} mesh "
-              f"(solved only: one card here), solver cost "
-              f"{sol.total_bytes:.6g}; cuts of the moments, master and "
-              f"weights: { {r: c for r, c in sorted(state.items()) if c} }")
     cut = sorted(r for r, c in plan_rec["role_cuts"].items()
                  if any(c.values()))
     print(f"train plan: the (1, 1) plan solved in "
           f"{solves['1x1']['solve_s']:.3f} s (solver cost "
-          f"{plan_rec['total_bytes']:.6g}, roles cut: {cut or 'none'}); "
-          f"the other two side by side in {many_s:.1f} s")
+          f"{plan_rec['total_bytes']:.6g}, roles cut: {cut or 'none'})")
     plan = plan_from_record(plan_rec)
 
     args = launch_train.build_argparser().parse_args(
@@ -2471,6 +2503,303 @@ def train_hybrid_full_width(dev, tag):
     return rec, launches
 
 
+def hybrid_cache_bytes(cache):
+    """(ring bytes, Mamba state bytes) of a hybrid cache, all slots."""
+    from repro_torch.models.common import local
+
+    def nbytes(tree):
+        return sum(local(t).numel() * local(t).element_size()
+                   for t in tree.values())
+    return nbytes(cache["shared"]), nbytes(cache["mamba"])
+
+
+def hybrid_launches_want(cfg, srv, scan_steps, launches):
+    """What a hybrid serving run must launch: the decode kernel once a
+    shared application for every decode step and every batch-1 scan step,
+    nothing else (no forward, no SSD scan, no paged kernel)."""
+    want = dict.fromkeys(launches, 0)
+    want["flash_decode"] = (cfg.n_layers // cfg.attn_every
+                            * (srv.decode_dispatches + scan_steps))
+    return want
+
+
+def serve_hybrid(dev, tag, profile=False):
+    """Phase 4j: zamba2-2.7b served at full width through
+    launch.serve.run_workload.  The hybrid family has no parallel prefill:
+    every prompt token is a batch-1 decode step (the scan prefill), each
+    of the 54 Mamba layers a ``mamba_step`` on its state and each of the
+    9 shared-block applications a ring write and ``flash_decode``.  So
+    flash_decode launches exactly 9 x (decode dispatches + prompt tokens)
+    times, flash_fwd and ssd_chunk_scan never, no plain call, no
+    non-finite logit.  Then the reduced zamba2 on the card against the
+    CPU.  Returns the record, the launches and what 4k serves again (the
+    params, prompts, streams and ServeConfig)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = get_arch(HYBRID_ARCH)
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    apps = cfg.n_layers // cfg.attn_every
+    print(f"serve zamba2: {cfg.name} full width, {cfg.n_layers} Mamba2 "
+          f"layers + the shared block x {apps} ({cfg.n_heads} heads of hd "
+          f"{cfg.hd}, g 1), d {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{n_params / 1e9:.3f} B params bf16, init "
+          f"{time.perf_counter() - t0:.1f}s {tag}")
+    scfg = ServeConfig(slots=HYBRID_SLOTS, max_len=HYBRID_MAX_LEN,
+                       prefill_chunk=256)
+    rng = np.random.default_rng(0)
+    lo, hi = HYBRID_PROMPT
+    prompts = [rng.integers(0, cfg.vocab,
+                            size=int(rng.integers(lo, hi + 1))).tolist()
+               for _ in range(HYBRID_REQUESTS)]
+
+    warm = Server(model, params, scfg)      # first launches, cuBLAS set-up
+    warm.admit(prompts[0][:8], 0, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    srv = checked_server()(model, params, scfg)
+    ring_b, state_b = hybrid_cache_bytes(srv.cache)
+    fa.reset_launches()
+    ssd.reset_launches()
+    ops.reset_plain_calls()
+    t0 = time.perf_counter()
+    rec = run_workload(srv, [(0.0, p) for p in prompts], gen=HYBRID_GEN)
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches, **ssd.launches)
+    plain = dict(ops.plain_calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    n = HYBRID_REQUESTS
+    scan_steps = sum(len(p) for p in prompts)
+    reasons = set(srv.finished.values())
+    want = hybrid_launches_want(cfg, srv, scan_steps, launches)
+    print(f"serve zamba2: {rec['requests']} requests, "
+          f"{rec['prompt_tokens']} prompt tokens ({scan_steps} batch-1 scan "
+          f"steps), {rec['generated_tokens']} generated, "
+          f"{srv.prefill_dispatches} prefill chunks, {srv.decode_dispatches} "
+          f"decode dispatches, retire reasons {sorted(reasons)}; cache: "
+          f"rings {ring_b / 1e9:.3f} GB, Mamba state {state_b / 1e9:.3f} GB")
+    print(f"serve zamba2: launches {launches} (want {want}), plain calls "
+          f"{plain}")
+    if rec["requests"] != n or len(srv.finished) != n or reasons != {
+            "length"}:
+        fail(f"not every zamba2 request retired by length: {srv.finished}")
+    if any(len(srv.outputs[r]) != HYBRID_GEN for r in srv.finished):
+        fail(f"a zamba2 request did not produce {HYBRID_GEN} tokens")
+    if launches != want:
+        fail(f"zamba2 serving launches {launches}, expected {want}")
+    if any(plain.values()):
+        fail(f"a plain version ran on zamba2's serving path: {plain}")
+    if srv.nonfinite:
+        fail(f"{srv.nonfinite} non-finite zamba2 logits")
+    ms = 1e3
+    print(f"serve zamba2 metrics: prefill {rec['prefill_tok_per_s']:.1f} "
+          f"tok/s, decode {rec['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{rec['ttft_p50_s'] * ms:.1f} ms p95 {rec['ttft_p95_s'] * ms:.1f} "
+          f"ms, ITL p50 {rec['itl_p50_s'] * ms:.2f} ms p95 "
+          f"{rec['itl_p95_s'] * ms:.2f} ms, scan step "
+          f"{rec['prefill_s'] / scan_steps * ms:.2f} ms, wall {wall:.2f} s, "
+          f"peak memory {peak / 2**30:.2f} GiB {tag}")
+    slim = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+    slim.update(prefill_dispatches=srv.prefill_dispatches,
+                decode_dispatches=srv.decode_dispatches,
+                scan_steps=scan_steps, ring_bytes=ring_b,
+                state_bytes=state_b, wall_s=wall, peak_memory_bytes=peak,
+                params=n_params,
+                # the lengths the decode kernel reached: prompt + 31 on the
+                # rows that served, 1 on the idle ones (phase 5's hd-80 row)
+                lengths=[len(p) + HYBRID_GEN - 1 for p in prompts]
+                + [1] * (HYBRID_SLOTS - n))
+    streams = {r: list(t) for r, t in srv.outputs.items()}
+    del srv
+    torch.cuda.empty_cache()
+    if profile:
+        # 15 slots of 4 tokens, an admission of 32 (32 scan steps), then
+        # 8 decode steps of the 16 slots
+        slim["profile"] = profile_serve(model, params, scfg, prompts, tag,
+                                        fill=4, admit=32, tiers=("",))
+    slim["reduced_card_vs_cpu"] = reduced_scan_card_vs_cpu(
+        dev, tag, arch=HYBRID_ARCH)
+    return slim, launches, (params, prompts, streams, scfg)
+
+
+def serve_hybrid_plan(base, dev, tag, mesh):
+    """Phase 4k, serving: 4j's first HYBRID_PLAN_REQS requests on 4j's
+    weights and slots under the solved (1, 1) decode plan (params, each
+    layer's Mamba state and the shared block's rings as DTensors; the
+    state update, the ring write and flash_decode inside local_map; the
+    scan step on the slot's owner).  They must give 4j's streams of those
+    requests; flash_decode exactly 9 x (decode dispatches + prompt
+    tokens), flash_fwd and ssd_chunk_scan never, no fallback, no plain
+    call, no non-finite logit.  Prints a decode step's and a scan step's
+    host and device ms with and without the plan (on a fresh pool each),
+    then the reduced zamba2 under the plan against the CPU.  Returns the
+    record and the launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.launch.compile import plan_from_record, solve_cell_plan
+    from repro_torch.launch.mesh import solver_axes
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import Server
+
+    params, prompts, streams4j, scfg = base
+    cfg = get_arch(HYBRID_ARCH)
+    t0 = time.perf_counter()
+    prec = solve_cell_plan(cfg, ShapeConfig(*HYBRID_PLAN_SHAPE),
+                           solver_axes((1, 1)), "mesh1x1", use_cache=False)
+    plan = plan_from_record(prec)
+    print(f"zamba2 plan: {cfg.name} {HYBRID_PLAN_SHAPE[0]} on the 1x1 mesh, "
+          f"solved in {time.perf_counter() - t0:.3f} s:")
+    print(plan.describe())
+    model = LM(cfg, plan=plan, mesh=mesh)
+    reqs = prompts[:HYBRID_PLAN_REQS]
+    scan_steps = sum(len(p) for p in reqs)
+    warm = Server(model, params, scfg)
+    warm.admit(reqs[0][:8], 0, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = checked_server()(model, params, scfg)
+    fa.reset_launches()
+    ssd.reset_launches()
+    ops.reset_plain_calls()
+    rec = run_workload(srv, [(0.0, p) for p in reqs], gen=HYBRID_GEN)
+    launches = dict(fa.launches, **ssd.launches)
+    plain, fallbacks = dict(ops.plain_calls), dict(ops.plan_fallbacks)
+    peak = torch.cuda.max_memory_allocated(dev)
+    streams = {r: list(t) for r, t in srv.outputs.items()}
+    want = hybrid_launches_want(cfg, srv, scan_steps, launches)
+    ms = 1e3
+    print(f"zamba2 plan: {len(reqs)} requests, {scan_steps} scan steps, "
+          f"{srv.decode_dispatches} decode dispatches; launches {launches} "
+          f"(want {want}), plan fallbacks {fallbacks}, plain calls {plain}, "
+          f"non-finite logits {srv.nonfinite}")
+    print(f"zamba2 plan metrics: scan step "
+          f"{rec['prefill_s'] / scan_steps * ms:.2f} ms, decode "
+          f"{rec['decode_tok_per_s']:.1f} tok/s, ITL p50 "
+          f"{rec['itl_p50_s'] * ms:.2f} ms, wall {rec['wall_s']:.2f} s, "
+          f"peak memory {peak / 2**30:.2f} GiB {tag}")
+    if launches != want:
+        fail(f"zamba2 plan: launches {launches}, want {want}")
+    if any(fallbacks.values()) or any(plain.values()) or srv.nonfinite:
+        fail(f"zamba2 plan: fallbacks {fallbacks}, plain calls {plain}, "
+             f"{srv.nonfinite} non-finite logits")
+    if streams != {r: streams4j[r] for r in range(len(reqs))}:
+        fail("zamba2 plan: streams differ from phase 4j's")
+    out = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+    out.update(decode_dispatches=srv.decode_dispatches,
+               scan_step_ms=rec["prefill_s"] / scan_steps * ms,
+               launches=launches, plan_fallbacks=fallbacks,
+               peak_memory_bytes=peak)
+    del srv
+    torch.cuda.empty_cache()
+    for label, m in (("no plan", LM(cfg)), ("plan", model)):
+        srv = Server(m, params, scfg)
+        out[label] = dict(
+            decode_step=decode_step_times(srv, PLAN_STEPS, tag,
+                                          f"zamba2 {label}"),
+            scan_step=scan_step_times(srv, PLAN_STEPS, tag,
+                                      f"zamba2 {label}"))
+        del srv
+        torch.cuda.empty_cache()
+    print(f"zamba2 plan: 4j's streams of its first {len(reqs)} requests "
+          f"under the (1, 1) plan; launches exact, 0 fallbacks, 0 plain "
+          f"calls {tag}")
+    out["reduced_card_vs_cpu"] = reduced_scan_card_vs_cpu(
+        dev, tag, plan, mesh, arch=HYBRID_ARCH)
+    return out, launches
+
+
+def train_hybrid_plan(dev, tag, ref_rec, mesh, profile=False):
+    """Phase 4k, training: phase 4d's run (its batch, optimizer, schedule
+    and HYBRID_STEPS steps) under the solved (1, 1) train plan through
+    launch.train's runner with --mesh 1x1 --plan auto (4k's group must be
+    up): params, moments and master as DTensors, the SSD scan and the
+    shared block's attention kernels inside local_map.  Launches exactly
+    4d's, 0 fallbacks, 0 plain calls, every loss finite and within
+    TRAIN_PLAN_LOSS_REL of 4d's; the peak memory; a step's host and
+    device ms with and without the plan."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.compile import plan_from_record
+
+    cfg = get_arch(HYBRID_ARCH)
+    args = launch_train.build_argparser().parse_args(
+        train_argv(HYBRID_ARCH, HYBRID_STEPS) + ["--mesh", "1x1", "--plan",
+                                                 "auto"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    ssd.reset_launches()
+    ops.reset_plain_calls()
+    rec = launch_train.run(args)
+    launches = dict(fa.launches, **ssd.launches)
+    recomputes = dict(ops.bwd_recomputes)
+    plain, fallbacks = dict(ops.plain_calls), dict(ops.plan_fallbacks)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = ref_rec["launches"]
+    losses, ref = rec["losses"], ref_rec["losses"]
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, ref))
+    L, n, m = cfg.n_layers, HYBRID_STEPS, TRAIN_MICRO
+    print(f"hybrid train plan: {cfg.name} full width under the (1, 1) plan, "
+          f"{n} steps, losses {[round(x, 4) for x in losses]}")
+    print(f"hybrid train plan: launches {launches} (want 4d's {want}), SSD "
+          f"backward recomputes {recomputes}, plan fallbacks {fallbacks}, "
+          f"plain calls {plain}")
+    print(f"hybrid train plan: losses against 4d's: bit-equal "
+          f"{losses == ref}, max relative gap {rel:.3g} (band "
+          f"{TRAIN_PLAN_LOSS_REL})")
+    if len(losses) != n or not np.isfinite(losses).all():
+        fail(f"hybrid train plan: losses not all finite: {losses}")
+    if launches != want:
+        fail(f"hybrid train plan: launches {launches}, expected {want}")
+    if recomputes != {"ssd_chunk_scan": L * m * n}:
+        fail(f"hybrid train plan: SSD backward recomputes {recomputes}")
+    if any(fallbacks.values()) or any(plain.values()):
+        fail(f"hybrid train plan: fallbacks {fallbacks}, plain {plain}")
+    if len(ref) != n or not rel <= TRAIN_PLAN_LOSS_REL:
+        fail(f"hybrid train plan: losses {losses} against 4d's {ref}")
+    print(f"hybrid train plan metrics: {rec['tokens_per_s']:.1f} tok/s (4d "
+          f"{ref_rec['tokens_per_s']:.1f}), mean step "
+          f"{rec['mean_step_s'] * 1e3:.2f} ms (4d "
+          f"{ref_rec['mean_step_s'] * 1e3:.2f}), peak memory "
+          f"{peak / 2**30:.2f} GiB (4d "
+          f"{ref_rec['peak_memory_bytes'] / 2**30:.2f}) {tag}")
+    rec.update(launches=launches, bwd_recomputes=recomputes,
+               plan_fallbacks=fallbacks, peak_memory_bytes=peak,
+               bit_equal=losses == ref, max_rel_gap=rel)
+    plan = plan_from_record(rec["plan"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = {}
+    for label, p in (("without the plan", None), ("with the plan", plan)):
+        steps[label] = train_step_times(
+            dev, cfg, p, None if p is None else mesh, tag,
+            f"zamba2 {label}", profile and p is not None,
+            timed=HYBRID_STEP_TIMED, profiled=HYBRID_STEP_PROFILED)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["step"] = steps
+    return rec, launches
+
+
 def serve_danube(dev, tag, profile=False):
     """Phase 4f: h2o-danube-3-4b served at full width through
     launch.serve.run_workload.  Its 4096 window gives the linear tier a
@@ -2564,28 +2893,31 @@ def serve_danube(dev, tag, profile=False):
                 peak_memory_bytes=peak, params=n_params)
     del srv
     if profile:
-        # 7 slots of 64 tokens, an admission of 32 (32 scan steps), then 8
+        # 7 slots of 16 tokens, an admission of 32 (32 scan steps), then 8
         # decode steps of the 8 slots
         slim["profile"] = profile_serve(model, params, scfg, prompts, tag,
-                                        fill=64, admit=32, tiers=("",))
+                                        fill=16, admit=32, tiers=("",))
     del params, model
     return slim, launches
 
 
-def reduced_danube_card_vs_cpu(dev, tag, plan=None, mesh=None):
+def reduced_scan_card_vs_cpu(dev, tag, plan=None, mesh=None,
+                             arch=DANUBE):
     """The reduced h2o-danube-3-4b (window 16, hd 16) on the card against
     the same bf16 weights on the CPU: a scan prefill of 20 tokens into
     slot 0 (its ring of 16 wraps) and of 10 into slot 1, then 40 decode
     steps of both rows, so that slot 0 runs 44 positions past the
     window.  With ``plan`` and ``mesh`` the card's side runs under the
-    plan (params and ring cache placed as the Server places them)."""
+    plan (params and ring cache placed as the Server places them).
+    ``arch`` zamba2-2.7b: the reduced hybrid the same way (each Mamba
+    layer's state and the shared block's ring of 64, 4f's band)."""
     from repro_torch.configs import get_arch
     from repro_torch.models.common import whole
     from repro_torch.models.model import LM
     from repro_torch.models.sharding import (CACHE_RULES, place_tree,
                                              zeros_tree)
 
-    cfg = get_arch(DANUBE).reduced()
+    cfg = get_arch(arch).reduced()
     model = LM(cfg)
     p_cpu = model.init(0, device="cpu")
     models = {"cpu": model, dev: model}
@@ -2613,15 +2945,16 @@ def reduced_danube_card_vs_cpu(dev, tag, plan=None, mesh=None):
               for d in ("cpu", dev)}
         worst = max(worst, float((lg["cpu"].float()
                                   - lg[dev].float().cpu()).abs().max()))
-    ring = caches[dev]["kv"]["k"].shape[2]
+    name = "danube" if arch == DANUBE else "zamba2"
+    ring = caches[dev]["kv" if arch == DANUBE else "shared"]["k"].shape[2]
     pos = whole(caches[dev]["pos"]).tolist()
-    print(f"reduced danube{' under the plan' if plan is not None else ''}, "
+    print(f"reduced {name}{' under the plan' if plan is not None else ''}, "
           f"card vs CPU, ring of {ring} positions, rows at positions {pos}: "
           f"max|dlogits|={worst:.4g} (band {LOGITS_ATOL}) {tag}")
-    if ring != cfg.swa_window or pos != [60, 50]:
-        fail(f"reduced danube's ring {ring} / positions {pos}")
+    if ring != (cfg.swa_window or 64) or pos != [60, 50]:
+        fail(f"reduced {name}'s ring {ring} / positions {pos}")
     if not worst <= LOGITS_ATOL:
-        fail("reduced danube on the card disagrees with the CPU")
+        fail(f"reduced {name} on the card disagrees with the CPU")
     return worst
 
 
@@ -2826,7 +3159,7 @@ def main() -> int:
     danube_rec, danube_launches = serve_danube(dev, tag, args.profile)
     gc.collect()
     torch.cuda.empty_cache()
-    danube_reduced = reduced_danube_card_vs_cpu(dev, tag)
+    danube_reduced = reduced_scan_card_vs_cpu(dev, tag)
     print(f"phase 4f done at {time.perf_counter() - t_start:.1f}s")
 
     # 4i. 4c's P1 and P2, the paged fallback route and danube's scan
@@ -2895,13 +3228,45 @@ def main() -> int:
     danube_train_reduced = reduced_grads_card_vs_cpu(dev, tag, DANUBE)[:3]
     print(f"phase 4g done at {time.perf_counter() - t_start:.1f}s")
 
+    # 4j. zamba2-2.7b served at full width (the scan prefill, each Mamba
+    # layer's decode step, the shared block's ring), then the reduced
+    # zamba2 against the CPU
+    hybrid_serve, hybrid_serve_launches, hybrid_base = serve_hybrid(
+        dev, tag, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4j done at {time.perf_counter() - t_start:.1f}s")
+
+    # 4k. the hybrid family under the solved (1, 1) plans, on a world-1
+    # NCCL group of its own: 4j's first requests, then 4d's training
+    t_4k = time.perf_counter()
+    init_distributed("cuda", 0, 1, free_port())
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    hybrid_plan_serve, hybrid_plan_serve_launches = serve_hybrid_plan(
+        hybrid_base, dev, tag, mesh)
+    del hybrid_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_plan_train, hybrid_plan_train_launches = train_hybrid_plan(
+        dev, tag, hybrid_rec, mesh, args.profile)
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_4k_s = time.perf_counter() - t_4k
+    print(f"phase 4k: {phase_4k_s:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB {tag}")
+    print(f"phase 4k done at {time.perf_counter() - t_start:.1f}s")
+
     # 5. times
-    times = time_kernels(dev, tag, timer)
+    times = time_kernels(dev, tag, timer, hybrid_serve["lengths"])
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
 
     # 6. the kernels line: launches are those of the main paths (linear
     # serving, the four paged runs, serving under the plan, the paged runs
-    # under the plan, training, training under the plan, hybrid training)
+    # under the plan, training, training under the plan, hybrid training,
+    # hybrid serving, and the hybrid family's serving and training under
+    # the plan)
     fa_py = "src/repro/kernels/flash_attention.py"
     replaces = {"flash_fwd": f"{fa_py}:146 and {fa_py}:191",
                 "flash_decode": f"{fa_py}:280",
@@ -2921,7 +3286,8 @@ def main() -> int:
     # phase 5's hd-120 rows; the other entries keep the other runs and hd
     runs = (serve_launches, paged_launches, plan_launches,
             paged_plan_launches, train_launches, train_plan_launches,
-            hybrid_launches)
+            hybrid_launches, hybrid_serve_launches,
+            hybrid_plan_serve_launches, hybrid_plan_train_launches)
     runs120 = (danube_launches, danube_plan_launches, danube_train_launches)
     kernels = []
     for k, hd120 in [(k, False) for k in replaces] + [
@@ -2954,6 +3320,8 @@ def main() -> int:
             danube_serve=danube_rec, reduced_danube_card_vs_cpu=danube_reduced,
             danube_train=danube_train,
             reduced_danube_train_card_vs_cpu=danube_train_reduced,
+            hybrid_serve=hybrid_serve, hybrid_plan_serve=hybrid_plan_serve,
+            hybrid_plan_train=hybrid_plan_train, phase_4k_s=phase_4k_s,
             kernels=kernels), indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))

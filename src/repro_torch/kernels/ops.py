@@ -35,11 +35,14 @@ bwd_recomputes: Dict[str, int] = {"ssd_chunk_scan": 0}
 # rank's local shards (models/attention.py), which ran the same kernel
 # wrapper on the gathered tensors instead: the linear decode step, a
 # prefill chunk (both tiers), training attention, the paged decode step,
-# the speculative re-score (both tiers); and the copy-on-write of a pool
-# block whose blocks are cut across ranks (runtime/serve.py)
+# the speculative re-score (both tiers); the copy-on-write of a pool
+# block whose blocks are cut across ranks (runtime/serve.py); and a
+# Mamba decode step whose state is cut on an axis other than batch
+# (models/mamba.py), whose update ran on the gathered state
 plan_fallbacks: Dict[str, int] = {"attend_cache": 0, "prefill_attention": 0,
                                   "attention": 0, "attend_paged": 0,
-                                  "rescore": 0, "copy_block": 0}
+                                  "rescore": 0, "copy_block": 0,
+                                  "mamba_state": 0}
 
 
 def reset_plain_calls() -> None:

@@ -100,6 +100,10 @@ def mesh_to_solver_axes(mesh) -> List[MeshAxis]:
 
 def _spawned(rank: int, fn: Callable, world: int, device_type: str,
              port: int, args: tuple) -> None:
+    if device_type == "cpu":
+        # CPU ranks share the host's cores: one intra-op thread each, so
+        # that world ranks never ask for more threads than the host has
+        torch.set_num_threads(1)
     init_distributed(device_type, rank, world, port)
     try:
         fn(rank, world, *args)
@@ -111,7 +115,8 @@ def spawn(fn: Callable, world: int, device_type: str = "cpu",
           args: tuple = ()) -> None:
     """Run ``fn(rank, world, *args)`` on ``world`` local processes, each
     with the default group initialised (gloo on the CPU, NCCL on the
-    cards) and torn down after.  ``fn`` must be importable (module
+    cards) and torn down after; a CPU rank runs torch on one intra-op
+    thread.  ``fn`` must be importable (module
     level), as ``torch.multiprocessing.spawn`` pickles it."""
     import torch.multiprocessing as mp
     mp.spawn(_spawned, args=(fn, world, device_type, free_port(), args),

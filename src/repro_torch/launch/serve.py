@@ -179,9 +179,6 @@ def run_workload(srv: Server, arrivals: Sequence[Tuple[float, List[int]]],
 
 
 def _rank_main(rank: int, world: int, argv: List[str]) -> None:
-    if build_argparser().parse_args(argv).device == "cpu":
-        # CPU ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     main(argv)
 
 

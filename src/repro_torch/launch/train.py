@@ -46,7 +46,7 @@ import torch
 from ..configs.base import ArchConfig, get_arch
 from ..data.pipeline import DataConfig
 from ..models.common import resolve_device
-from ..models.model import LM, refuse_plan
+from ..models.model import LM
 from ..optim.adamw import AdamWConfig
 from ..runtime.train_loop import TrainConfig, train
 
@@ -106,20 +106,22 @@ def solve_train_plan(args: argparse.Namespace, cfg: ArchConfig,
                                  "error_feedback": args.grad_compression})
 
 
-def run(args: argparse.Namespace,
-        cfg: Optional[ArchConfig] = None) -> Dict[str, Any]:
+def run(args: argparse.Namespace, cfg: Optional[ArchConfig] = None,
+        plan_rec: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Train as ``args`` say and return the record (the fields of repro's
     launch record that this port has).  ``cfg``, if given, is trained in
     place of ``--arch``'s config (a depth cut of it, say).  With
     ``--mesh`` the default process group must be up (``main`` brings it
-    up, or spawns the ranks)."""
+    up, or spawns the ranks); ``plan_rec``, if given, is the plan record
+    ``--plan auto`` takes in place of solving (the one the parent solved
+    before it spawned the ranks)."""
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_arch(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
     master_fp32 = not args.no_master_fp32
-    mesh = plan = plan_rec = None
+    mesh = plan = None
     rank = 0
     if args.mesh:
         import torch.distributed as dist
@@ -134,15 +136,18 @@ def run(args: argparse.Namespace,
         mesh = make_mesh(shape, names, device.type)
         if args.plan == "auto":
             t0 = time.time()
-            plan_rec = solve_train_plan(args, cfg, shape, names)
+            if plan_rec is None:
+                plan_rec = solve_train_plan(args, cfg, shape, names)
             plan = plan_from_record(plan_rec)
             if rank == 0:
                 print(f"train plan ({time.time() - t0:.2f}s, solve "
                       f"{plan_rec['solve_time']:.2f}s):")
                 print(plan.describe())
-        elif rank == 0:
-            print(f"note: --mesh {args.mesh} without --plan auto trains "
-                  "UNSHARDED (no plan, no placements)")
+        else:
+            plan_rec = None
+            if rank == 0:
+                print(f"note: --mesh {args.mesh} without --plan auto trains "
+                      "UNSHARDED (no plan, no placements)")
     model = LM(cfg)
     tcfg = TrainConfig(
         steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
@@ -185,14 +190,13 @@ def run(args: argparse.Namespace,
     }
 
 
-def _rank_main(rank: int, world: int, argv: List[str]) -> None:
-    if build_argparser().parse_args(argv).device == "cpu":
-        # CPU ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    main(argv)
+def _rank_main(rank: int, world: int, argv: List[str],
+               plan_rec: Optional[Dict[str, Any]]) -> None:
+    main(argv, plan_rec)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
+def main(argv: Optional[Sequence[str]] = None,
+         plan_rec: Optional[Dict[str, Any]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     ap = build_argparser()
     args = ap.parse_args(argv)
@@ -205,25 +209,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from .mesh import init_distributed, spawn
     device = resolve_device(args.device)
-    if args.plan:
-        refuse_plan(get_arch(args.arch))     # before any rank starts
     world = 1
     for s in args.mesh.lower().split("x"):
         world *= int(s)
     if not dist.is_initialized() and "RANK" not in os.environ:
         # no launcher: start the ranks here, each running this main; the
-        # plan is solved (and cached) once, here, for all of them
+        # plan is solved (or read from the cache) once, here, and handed
+        # to every rank, so no rank solves it again
         if args.plan == "auto":
             cfg = get_arch(args.arch)
             shape = [int(s) for s in args.mesh.lower().split("x")]
-            solve_train_plan(args, cfg.reduced() if args.reduced else cfg,
-                             shape, ("data", "model")[:len(shape)])
-        spawn(_rank_main, world, device.type, (argv,))
+            plan_rec = solve_train_plan(
+                args, cfg.reduced() if args.reduced else cfg, shape,
+                ("data", "model")[:len(shape)])
+        spawn(_rank_main, world, device.type, (argv, plan_rec))
         return 0
     ours = not dist.is_initialized()
     init_distributed(device.type)
     try:
-        rec = run(args)
+        rec = run(args, plan_rec=plan_rec)
         return _report(args, rec) if rec["meta"]["rank"] == 0 else 0
     finally:
         if ours:

@@ -40,7 +40,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..kernels import ops as kops
-from .sharding import global_offset
+from .sharding import global_offset, redistribute
 
 IMPLS = ("auto",)
 
@@ -180,9 +180,13 @@ def _local_region(region, q, k, v, state: Sequence, qpl, opl=None):
     # one output: its placements go as a list (a tuple would name
     # several); None for a region that returns None
     out = None if qpl is None else list(qpl if opl is None else opl)
+    # the inputs moved here (a one-row step's gathers on its leading dim,
+    # sharding.redistribute), so local_map moves nothing
+    if qpl is not None:
+        q = redistribute(q, qpl)
+    k, v = redistribute(k, rep), redistribute(v, rep)
     return local_map(region, out_placements=out,
-                     in_placements=(q.placements if qpl is None else qpl,
-                                    rep, rep)
+                     in_placements=(q.placements, rep, rep)
                      + tuple(t.placements for t in state),
                      device_mesh=mesh, redistribute_inputs=True)(
                          q, k, v, *state)

@@ -1,15 +1,42 @@
-"""Mamba2 (SSD) block, training path (counterpart of
-``repro.models.mamba``: ``init_mamba``'s shapes, ``_split_proj``,
-``_causal_conv``, ``_ssd_dispatch`` and ``mamba_forward``; its chunked
-``ssd_scan`` is ``kernels/ssd.ssd_scan``).
+"""Mamba2 (SSD) block (counterpart of ``repro.models.mamba``:
+``init_mamba``'s shapes, ``_split_proj``, ``_causal_conv``,
+``_ssd_dispatch``, ``mamba_forward``, ``init_mamba_state`` and
+``mamba_step``; its chunked ``ssd_scan`` is ``kernels/ssd.ssd_scan``).
 
 State-space:  h_t = a_t * h_{t-1} + dt_t * x_t (x) B_t ;  y_t = C_t . h_t
 with a_t = exp(dt_t * A) per head (A < 0), B/C shared across heads (one
-group), head channels P, state N.  The stepwise decode (``mamba_step``,
-``init_mamba_state``) belongs to the serving slice and is not here."""
+group), head channels P, state N.  The stepwise decode is ``mamba_step``
+on the state of ``init_mamba_state`` (repro's), updated in place.
+
+Under a sharding plan (``plan`` and ``mesh`` given, x a DTensor) the
+projections run as DTensor ops and the per-row work on each rank's local
+batch rows through ``local_map``:
+
+- ``w_in`` is [z | x] on one ``inner`` axis of 2 * d_inner, so a cut of
+  that axis gives whole halves to whole ranks (degree 2: all of z on one,
+  all of x on the other) and ``_split_proj`` would slice across shards.
+  ``_inner_whole`` gathers ``zx``'s inner axis first, explicitly;
+- the SSD scan (the CUDA kernel or the chunked scan, ``ssd_dispatch``)
+  runs on the batch cut of ``plan.pspec("ssm_h", ("batch", "seq",
+  "inner"))`` (repro's shard_map rule), heads and sequence whole, inside
+  one ``local_map`` region that holds the whole block between its
+  projections (the conv, the scan, the gate, the norm:
+  ``_mixer_sharded``).  Where the plan has no ``ssm_h`` role (no builder
+  gives the scan's activations one, so no solved plan has it, and repro
+  then runs the scan whole on every device) the region takes the batch
+  cut of the activations' role ``x``, which holds the same rows: the
+  same arithmetic per row, no gather.  A cut that does not divide B is
+  dropped;
+- ``mamba_step``'s state update runs in a ``local_map`` region on the
+  state's batch rows, in place.  The conv state's last axis is [xs | B |
+  C] (d_inner + 2N): an ``inner`` cut of it does not line up with
+  ``w_in``'s cut of x, and an ``inner`` / ``sdim`` cut of the SSM state
+  splits a head's update over ranks, so a state cut on anything but
+  ``batch`` is gathered whole on its other axes for the update and cut
+  back after (counted in ``ops.plan_fallbacks["mamba_state"]``)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,13 +78,28 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def _batch_axes_placements(plan, mesh, b: int) -> List:
+    """``_mixer_sharded``'s placements for a [B, ...] tensor: Shard(0)
+    on the mesh dims of the batch entry of ``plan.pspec("ssm_h",
+    ("batch", "seq", "inner"))`` (else of role ``x``), Replicate
+    elsewhere; a cut whose degree does not divide ``b`` is dropped
+    (``even_placements``)."""
+    from .sharding import even_placements, spec_placements
+    role = "ssm_h" if plan.has_role("ssm_h") else "x"
+    spec = plan.pspec(role, ("batch", "seq", "inner"))
+    pl = spec_placements(spec[:1], mesh.mesh_dim_names)
+    return even_placements(pl, (b,), mesh)
+
+
 def ssd_dispatch(xh, a_log, bb, cc, chunk: int, impl: str) -> torch.Tensor:
     """Route the SSD scan (repro's ``_ssd_dispatch``): "chunked" is the
     chunked ``kernels/ssd.ssd_scan``; "kernel" pads S to a multiple of
     ``q = min(chunk, S)`` and runs ``ops.ssd_chunk_scan_diff`` (the CUDA
     kernel for a CUDA tensor, the plain version for a CPU one), then
     slices back to S; "auto" is "kernel" on a CUDA tensor and "chunked"
-    elsewhere.  Returns y only."""
+    elsewhere.  Under a plan it runs on each rank's local batch rows,
+    inside ``_mixer_sharded``'s region (module docstring).  Returns y
+    only."""
     if impl not in SSD_IMPLS:
         raise ValueError(f"ssd impl must be one of {SSD_IMPLS}, got "
                          f"{impl!r}")
@@ -72,26 +114,238 @@ def ssd_dispatch(xh, a_log, bb, cc, chunk: int, impl: str) -> torch.Tensor:
     return kops.ssd_chunk_scan_diff(*ins, q)[:, :s]
 
 
-def mamba_forward(params, x: torch.Tensor, cfg: ArchConfig, *,
-                  impl: str = "auto") -> torch.Tensor:
-    """x [B, S, D] -> [B, S, D] (training; returns no state)."""
-    b, s, _ = x.shape
+def _inner_whole(t, dim: int):
+    """DTensor ``t`` with no mesh dim cutting tensor dim ``dim``: ``zx``'s
+    [z | x] axis before ``_split_proj`` slices it (a plain tensor is
+    returned as it is)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from .sharding import redistribute
+    if not isinstance(t, DTensor):
+        return t
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+          for p in t.placements]
+    return redistribute(t, pl)
+
+
+def mamba_forward(params, x: torch.Tensor, cfg: ArchConfig, plan=None, *,
+                  impl: str = "auto", mesh=None) -> torch.Tensor:
+    """x [B, S, D] -> [B, S, D] (training; returns no state).  Under a
+    plan the projections are DTensor ops, ``zx`` is constrained at
+    repro's site (role ``ssm_h``) and its inner axis gathered, and the
+    per-row work between the projections runs on the local batch rows
+    (``_mixer_sharded``)."""
+    from .common import shard
+    zx = shard(x @ params["w_in"], plan, "ssm_h", ("batch", "seq", "inner"))
+    bcdt = x @ params["w_bcdt"]
+    small = tuple(params[k] for k in _MIXER_PARAMS)
+    if plan is None or mesh is None:
+        y = _mixer(cfg, impl, x.dtype, zx, bcdt, *small)
+    else:
+        y = _mixer_sharded(cfg, impl, x.dtype, _inner_whole(zx, 2), bcdt,
+                           small, plan, mesh)
+    return y @ params["w_out"]
+
+
+_MIXER_PARAMS = ("conv_w", "dt_bias", "A_log", "D", "norm")
+
+
+def _mixer(cfg: ArchConfig, impl: str, dtype: torch.dtype, zx, bcdt, conv_w,
+           dt_bias, a_log_param, d, norm) -> torch.Tensor:
+    """The block between its projections (repro's ``mamba_forward`` from
+    ``_split_proj`` to the norm): the causal conv, the SSD scan
+    (``ssd_dispatch``), the skip, the gate and the norm.  zx [B, S,
+    2 d_inner], bcdt [B, S, 2N + H] -> [B, S, d_inner] in ``dtype``."""
+    b, s, _ = zx.shape
     di, n = cfg.d_inner, cfg.ssm.state_dim
     p = cfg.ssm.head_dim
     h = di // p
-    z, xs, bb, cc, dt = _split_proj(cfg, x @ params["w_in"],
-                                    x @ params["w_bcdt"])
+    z, xs, bb, cc, dt = _split_proj(cfg, zx, bcdt)
     conv_in = torch.cat([xs, bb, cc], -1)
-    conv_out = F.silu(_causal_conv(conv_in, params["conv_w"]).float())
+    conv_out = F.silu(_causal_conv(conv_in, conv_w).float())
     xs = conv_out[..., :di]
     bb = conv_out[..., di:di + n]
     cc = conv_out[..., di + n:]
-    dt = F.softplus(dt.float() + params["dt_bias"])         # [B,S,H]
-    a = -torch.exp(params["A_log"])                         # [H]
+    dt = F.softplus(dt.float() + dt_bias)                   # [B,S,H]
+    a = -torch.exp(a_log_param)                             # [H]
     a_log = dt * a                                          # [B,S,H]
     xh = xs.reshape(b, s, h, p) * dt[..., None]
     y = ssd_dispatch(xh, a_log, bb, cc, cfg.ssm.chunk, impl)
-    y = y + params["D"][None, None, :, None] * xs.reshape(b, s, h, p)
+    y = y + d[None, None, :, None] * xs.reshape(b, s, h, p)
     y = y.reshape(b, s, di) * F.silu(z.float())
+    return rms_norm(y.to(dtype), norm, cfg.norm_eps)
+
+
+def _mixer_sharded(cfg: ArchConfig, impl: str, dtype: torch.dtype, zx, bcdt,
+                   small, plan, mesh):
+    """``_mixer`` under a plan, in one ``local_map`` region on the rows of
+    ``ssd_dispatch``'s batch cut (``_batch_axes_placements``), the
+    block's small params whole.  Their gradient on a rank is its rows'
+    share: a pending sum over the batch cut (``in_grad_placements``),
+    reduced where the trainer places it.  Nothing between the
+    projections is a DTensor op: slicing a DTensor on its last dim gave
+    the gradient a malformed placement under the card's torch 2.11."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    rows = _batch_axes_placements(plan, mesh, zx.shape[0])
+    whole = [Replicate()] * mesh.ndim
+    summed = [Partial() if isinstance(p, Shard) else Replicate()
+              for p in rows]
+    n = len(small)
+    region = local_map(
+        lambda *a: _mixer(cfg, impl, dtype, *a), out_placements=list(rows),
+        in_placements=(rows, rows) + (whole,) * n,
+        in_grad_placements=(rows, rows) + (summed,) * n,
+        device_mesh=mesh, redistribute_inputs=True)
+    return region(zx, bcdt, *small)
+
+
+# -- the stepwise decode ------------------------------------------------------
+
+def mamba_state_shapes(cfg: ArchConfig, batch: int) -> Dict[str, tuple]:
+    """(shape, dtype) of one layer's decode state (repro's
+    ``init_mamba_state``): ``ssm`` [B, H, P, N] f32 and ``conv`` [B,
+    conv_dim - 1, d_inner + 2N], bf16 whatever the model dtype."""
+    di, n = cfg.d_inner, cfg.ssm.state_dim
+    p, cd = cfg.ssm.head_dim, cfg.ssm.conv_dim
+    return {"ssm": ((batch, di // p, p, n), torch.float32),
+            "conv": ((batch, cd - 1, di + 2 * n), torch.bfloat16)}
+
+
+def init_mamba_state(cfg: ArchConfig, batch: int, device="cuda"
+                     ) -> Dict[str, torch.Tensor]:
+    """One layer's decode state of ``mamba_state_shapes``, zeroed."""
+    from .common import resolve_device
+    dev = resolve_device(device)
+    return {k: torch.zeros(shape, dtype=dt, device=dev)
+            for k, (shape, dt) in mamba_state_shapes(cfg, batch).items()}
+
+
+def _step_update(cfg: ArchConfig, zx, bcdt, conv_w, a_log_param, d,
+                 dt_bias, ssm, conv) -> torch.Tensor:
+    """The per-row part of a decode step (repro's ``mamba_step`` from the
+    projections on): updates ``ssm`` [B, H, P, N] and ``conv`` [B, K-1,
+    C] in place and returns y * silu(z) [B, d_inner] in f32, before the
+    norm.  ``hist`` takes the projection's dtype (bf16 state promoted, as
+    jnp.concatenate promotes), the conv is summed in f32, and ``hist[:,
+    1:]`` is stored back as bf16."""
+    b = zx.shape[0]
+    di, n = cfg.d_inner, cfg.ssm.state_dim
+    p = cfg.ssm.head_dim
+    h = di // p
+    z, xs, bb, cc, dt = _split_proj(cfg, zx, bcdt)
+    conv_in = torch.cat([xs, bb, cc], -1)                       # [B, C]
+    hist = torch.cat([conv.to(conv_in.dtype), conv_in[:, None]], 1)
+    conv_out = F.silu((hist.float() * conv_w.float()).sum(1))
+    xs = conv_out[:, :di]
+    bb = conv_out[:, di:di + n]
+    cc = conv_out[:, di + n:]
+    dt = F.softplus(dt.float() + dt_bias)                       # [B, H]
+    a = torch.exp(dt * -torch.exp(a_log_param))                 # [B, H]
+    xh = xs.reshape(b, h, p) * dt[..., None]
+    s_new = ssm * a[..., None, None] + xh[..., None] * bb[:, None, None, :]
+    y = (s_new * cc[:, None, None, :]).sum(-1)                  # [B, H, P]
+    y = y + d[None, :, None] * xs.reshape(b, h, p)
+    ssm.copy_(s_new)
+    conv.copy_(hist[:, 1:].to(torch.bfloat16))
+    return y.reshape(b, di) * F.silu(z.float())
+
+
+def mamba_step(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
+               cfg: ArchConfig, plan=None, mesh=None,
+               layer: Optional[int] = None,
+               slot: Optional[int] = None) -> torch.Tensor:
+    """One decode step of one layer: x [B, D] -> y [B, D].  ``state`` is
+    one layer's {"ssm", "conv"} (``init_mamba_state``), or, with
+    ``layer``, the cache's stacked [L, B, ...] state of which that layer
+    is stepped; it is updated in place for every row (repro churns an
+    inactive row's state too; ``reset_slot`` clears it).  Under a plan
+    (DTensor state) the update runs on the state's local batch rows
+    (module docstring); with ``slot`` (x [1, D]: the scan prefill's step
+    of that row of the pool's state) on the ranks that hold the row.
+    Without a plan the scan prefill steps a batch-1 view of the state."""
+    ssm, conv = state["ssm"], state["conv"]
+    if layer is not None:
+        ssm, conv = _layer(ssm, layer), _layer(conv, layer)
+    zx = x @ params["w_in"]
+    bcdt = x @ params["w_bcdt"]
+    small = (params["conv_w"], params["A_log"], params["D"],
+             params["dt_bias"])
+    if plan is None or mesh is None:
+        y = _step_update(cfg, zx, bcdt, *small, ssm, conv)
+    else:
+        y = _step_update_sharded(cfg, _inner_whole(zx, 1), bcdt, small, ssm,
+                                 conv, slot)
     y = rms_norm(y.to(x.dtype), params["norm"], cfg.norm_eps)
     return y @ params["w_out"]
+
+
+def _layer(t, layer: int):
+    """Layer ``layer`` of a stacked [L, ...] state: a view, and for a
+    DTensor a DTensor view of this rank's shard (the layer axis is never
+    cut), so writes to it land in the cache."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return t[layer]
+    from .sharding import from_local
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+          for p in t.placements]
+    return from_local(t.to_local()[layer], t.device_mesh, pl, t.shape[1:])
+
+
+def _step_update_sharded(cfg: ArchConfig, zx, bcdt, small, ssm, conv,
+                         slot: Optional[int] = None):
+    """``_step_update`` under a plan: the rows of the state's batch cut on
+    each rank, in one ``local_map`` region that writes the local state
+    (DTensors [B, ...]) in place.  A state cut on another axis is
+    gathered whole there for the update, and its local part copied back
+    after (``ops.plan_fallbacks["mamba_state"]``).  ``slot``: zx and bcdt
+    are one row, replicated; the ranks whose shard holds row ``slot``
+    step it and the others give zeros, which the batch mesh dims sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from .sharding import global_offset
+    mesh = ssm.device_mesh
+
+    # the rows each rank steps: the state's batch cut (one role, so the
+    # same for both states), every other cut gathered
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in ssm.placements]
+    work = []
+    for t in (ssm, conv):
+        if list(t.placements) == rows:
+            work.append(t)
+        else:
+            kops.plan_fallbacks["mamba_state"] += 1
+            work.append(t.redistribute(mesh, rows))
+    rep = [Replicate()] * mesh.ndim
+    if slot is None:
+        xin, out = rows, rows
+
+        def region(*a):
+            return _step_update(cfg, *a)
+    else:
+        # one row: replicated in, a Partial sum out on the batch mesh dims
+        xin = rep
+        out = [Partial() if isinstance(p, Shard) else p for p in rows]
+        b0 = global_offset(work[0])[0]
+
+        def region(zx_l, bcdt_l, *rest):
+            *small_l, ssm_l, conv_l = rest
+            r = slot - b0
+            if not ssm_l.numel() or not 0 <= r < ssm_l.shape[0]:
+                return torch.zeros((1, cfg.d_inner), dtype=torch.float32,
+                                   device=zx_l.device)
+            return _step_update(cfg, zx_l, bcdt_l, *small_l,
+                                ssm_l[r:r + 1], conv_l[r:r + 1])
+    y = local_map(region, out_placements=list(out),
+                  in_placements=(xin, xin) + (tuple(rep),) * 4 + (rows, rows),
+                  device_mesh=mesh, redistribute_inputs=True)(
+                      zx, bcdt, *small, *work)
+    for t, w in zip((ssm, conv), work):
+        if w is not t:
+            t.to_local().copy_(w.redistribute(mesh, t.placements).to_local())
+    if slot is not None:
+        y = y.redistribute(mesh, rep)
+    return y

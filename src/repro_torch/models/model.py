@@ -3,8 +3,10 @@ and hybrid branches): for the dense family init, forward, loss, the
 linear slot cache and the paged block pool, decode, chunked prefill and
 the speculative re-score; for the hybrid family (zamba2: Mamba2 layers
 with one shared attention+MLP block applied after every ``attn_every``
-of them) init, forward and loss.  The hybrid family's cache and decode
-wait for the hybrid serving slice and raise ``NotImplementedError``.
+of them) init, forward, loss, the linear cache (each layer's Mamba
+state, and the shared block's ring of K/V per application), decode and
+the scan prefill.  As in repro the hybrid family has no paged pool
+(``paged_ok``) and no speculative re-score.
 
 Params are plain dicts of tensors with the same keys and shapes as repro's
 param tree: per-layer weights stacked on a leading ``[L]`` axis (the
@@ -28,16 +30,18 @@ index; in the paged pool they go to block 0, the null sink that the host
 allocator (runtime/paged.py) never hands out.
 
 Under a sharding plan (``LM.plan`` with ``LM.mesh``: the training
-forward and loss and every serving entry point of the dense family, on
-both tiers) params, cache and activations are DTensors: ``shard``
-redistributes the activations where repro constrains them, and the
-attention runs on the local shards (``attention.attention_sharded``
-around the training kernels; when serving, the ``*_sharded`` routes of
-``models/attention.py`` with each layer's K/V write: the linear cache,
-the scan prefill's row, the paged pool and its table, the re-score).
+forward and loss and every serving entry point, on both tiers) params,
+cache and activations are DTensors: ``shard`` redistributes the
+activations where repro constrains them, and the attention runs on the
+local shards (``attention.attention_sharded`` around the training
+kernels; when serving, the ``*_sharded`` routes of
+``models/attention.py`` with each layer's K/V write: the linear cache or
+the hybrid family's ring, the scan prefill's row, the paged pool and its
+table, the re-score).  The hybrid family's SSD scan and its decode
+step's state update run on local batch rows (``models/mamba.py``).
 Plain tensors (lengths, write indices, the rotary tables) join the
-DTensor ops as replicated (``dist_scope``).  The hybrid family refuses a
-plan.  Without a plan every path runs as before."""
+DTensor ops as replicated (``dist_scope``).  Without a plan every path
+runs as before."""
 from __future__ import annotations
 
 import contextlib
@@ -57,7 +61,8 @@ from .attention import (attend_cache, attend_cache_sharded, attend_paged,
 from .common import (dense_init, embed_init, local, resolve_device, rms_norm,
                      rope, shard, softmax_cross_entropy, whole)
 from .sharding import global_offset
-from .mamba import SSD_IMPLS, mamba_forward, mamba_shapes
+from .mamba import (SSD_IMPLS, mamba_forward, mamba_shapes,
+                    mamba_state_shapes, mamba_step)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -100,17 +105,6 @@ def _unsupported_family(cfg: ArchConfig) -> Optional[str]:
     if cfg.family == "ssm" or cfg.ssm is not None:
         return "ssm"
     return None
-
-
-def refuse_plan(cfg: ArchConfig) -> None:
-    """Raise for a config whose family does not run under a sharding plan
-    yet: the hybrid family (repro shards its SSD scan through
-    ``shard_map``)."""
-    if is_hybrid(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family under a sharding plan is not "
-            "ported yet (ROADMAP A.1: hybrid training and serving under a "
-            "plan; repro shards its SSD scan through shard_map)")
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -191,22 +185,14 @@ class LM:
         if fam is not None:
             raise NotImplementedError(
                 f"{self.cfg.name}: the {fam} family is not ported yet; the "
-                "port runs the dense family and trains the hybrid one")
+                "port runs the dense and hybrid families")
         if self.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"ssd_impl must be one of {SSD_IMPLS}, got "
                              f"{self.ssd_impl!r}")
-        if self.plan is not None:
-            refuse_plan(self.cfg)
         if is_hybrid(self.cfg) and self.cfg.n_layers % self.cfg.attn_every:
             raise ValueError(
                 f"{self.cfg.name}: {self.cfg.n_layers} layers are not a "
                 f"multiple of attn_every={self.cfg.attn_every}")
-
-    def _dense_only(self, what: str) -> None:
-        if is_hybrid(self.cfg):
-            raise NotImplementedError(
-                f"{self.cfg.name}: {what} of the hybrid family waits for the "
-                "hybrid serving slice (mamba_step, the shared ring cache)")
 
     def _shard(self, x, role: str, dims: Sequence[str]):
         return shard(x, self.plan, role, dims)
@@ -288,12 +274,13 @@ class LM:
         return {k: make(k, v) for k, v in self.param_shapes().items()}
 
     def _layers(self, params: Params) -> List[Params]:
-        self._dense_only("decoding")
+        """Per-layer views of the stacked layers (the hybrid family's Mamba
+        layers), built once for a params tree."""
+        stack = params["mamba" if is_hybrid(self.cfg) else "layers"]
         src, views = self._views
-        if src is not params["layers"]:
-            views = [_index(params["layers"], i)
-                     for i in range(self.cfg.n_layers)]
-            self._views = (params["layers"], views)
+        if src is not stack:
+            views = [_index(stack, i) for i in range(self.cfg.n_layers)]
+            self._views = (stack, views)
         return views
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -339,16 +326,23 @@ class LM:
         return self._shard(x + _mlp_forward(p["mlp"], xn), "x", bsd)
 
     def _mamba_layer(self, p: Params, x: torch.Tensor) -> torch.Tensor:
-        return x + mamba_forward(p, rms_norm(x, p["ln"], self.cfg.norm_eps),
-                                 self.cfg, impl=self.ssd_impl)
+        """One Mamba layer of the training forward, constrained at repro's
+        sites under a plan (the normed input and the residual sum), in
+        ``dist_scope()`` itself as ``_layer``."""
+        bsd = ("batch", "seq", "d_model")
+        with self.dist_scope():
+            xn = self._shard(rms_norm(x, p["ln"], self.cfg.norm_eps), "x",
+                             bsd)
+            y = mamba_forward(p, xn, self.cfg, self.plan, impl=self.ssd_impl,
+                              mesh=self.mesh)
+            return self._shard(x + y, "x", bsd)
 
     def forward(self, params: Params,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens [B, S] -> (logits [B, S, V], aux_loss 0).  Under autograd
         each layer (each Mamba layer and each application of the hybrid
         family's shared block) is rematerialised in the backward.  Under
-        a plan (dense family) params and tokens are DTensors and so are
-        the logits."""
+        a plan params and tokens are DTensors and so are the logits."""
         with self.dist_scope():
             return self._forward(params, tokens)
 
@@ -403,15 +397,29 @@ class LM:
     # -- the linear slot cache --------------------------------------------------
     def cache_shapes(self, batch: int, max_len: int) -> Cache:
         """The linear cache's tree of (shape, dtype): {"pos": [B] int32,
-        "kv": {"k", "v": [L, B, S, KV, hd] bf16}}.  The cache is bf16
-        whatever the model dtype, as in repro."""
-        self._dense_only("init_cache")
+        "kv": {"k", "v": [L, B, S, KV, hd] bf16}}; for the hybrid family
+        (repro's tree) {"pos", "mamba": {"ssm" [L, B, H, P, N] f32, "conv"
+        [L, B, K-1, d_inner + 2N] bf16}, "shared": {"k", "v": [L /
+        attn_every, B, win, KV, hd] bf16}}, the shared block's ring one
+        per application, ``win = min(max_len, swa_window or 4096)`` past
+        65,536 positions and ``max_len`` below.  K/V are bf16 whatever the
+        model dtype, as in repro."""
         cfg = self.cfg
-        s = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
-        shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.hd)
-        return {"pos": ((batch,), torch.int32),
-                "kv": {"k": (shape, torch.bfloat16),
-                       "v": (shape, torch.bfloat16)}}
+        tree: Cache = {"pos": ((batch,), torch.int32)}
+        if is_hybrid(cfg):
+            tree["mamba"] = {k: ((cfg.n_layers,) + shape, dt)
+                             for k, (shape, dt)
+                             in mamba_state_shapes(cfg, batch).items()}
+            s = (min(max_len, cfg.swa_window or 4096) if max_len > 65536
+                 else max_len)
+            n, key = cfg.n_layers // cfg.attn_every, "shared"
+        else:
+            s = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
+            n, key = cfg.n_layers, "kv"
+        shape = (n, batch, s, cfg.n_kv_heads, cfg.hd)
+        tree[key] = {"k": (shape, torch.bfloat16),
+                     "v": (shape, torch.bfloat16)}
+        return tree
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> Cache:
         """The linear cache of ``cache_shapes``, zeroed."""
@@ -427,7 +435,6 @@ class LM:
         "pages": {"k", "v": [L, NB, BL, KV, hd] bf16}}.  Block 0 is the
         host allocator's reserved null sink (zeroed table rows point at
         it).  Dense full-attention configurations only (``paged_ok``)."""
-        self._dense_only("init_cache_paged")
         cfg = self.cfg
         if not paged_ok(cfg):
             raise ValueError(
@@ -452,37 +459,33 @@ class LM:
                       resolve_device(device))
 
     def reset_slot(self, cache: Cache, slot: int) -> Cache:
-        """Zero one slot's K/V and position, in place.  For a paged cache
-        only the slot's position and table row are cleared: the pool
-        blocks are recycled by the host allocator, and a zeroed table row
-        points at the null block."""
-        self._dense_only("reset_slot")
-        if self.plan is not None:
-            # each rank zeroes the slot's row where its shard holds it
-            dim, rows = ((0, [cache["block_table"]]) if "pages" in cache
-                         else (1, [cache["kv"]["k"], cache["kv"]["v"]]))
-            for t in rows:
-                lt, b0 = local(t), global_offset(t)[dim]
-                if lt.numel() and b0 <= slot < b0 + lt.shape[dim]:
-                    lt.select(dim, slot - b0).zero_()
-            local(cache["pos"])[slot] = 0
-            return cache
+        """Zero one slot's rows (K/V, the hybrid family's Mamba state) and
+        position, in place.  For a paged cache only the slot's position
+        and table row are cleared: the pool blocks are recycled by the
+        host allocator, and a zeroed table row points at the null
+        block."""
         if "pages" in cache:
-            cache["pos"][slot] = 0
-            cache["block_table"][slot].zero_()
-            return cache
-        cache["kv"]["k"][:, slot].zero_()
-        cache["kv"]["v"][:, slot].zero_()
-        cache["pos"][slot] = 0
+            dim, rows = 0, [cache["block_table"]]
+        else:
+            dim = 1                     # every leaf but pos: [L, B, ...]
+            rows = [t for k, sub in cache.items() if k != "pos"
+                    for t in sub.values()]
+        for t in rows:
+            # under a plan each rank zeroes the row where its shard holds it
+            lt, b0 = local(t), global_offset(t)[dim]
+            if lt.numel() and b0 <= slot < b0 + lt.shape[dim]:
+                lt.select(dim, slot - b0).zero_()
+        local(cache["pos"])[slot] = 0
         return cache
 
     @staticmethod
     def _slot_view(cache: Cache, slot: int) -> Cache:
-        """Batch-1 view of one slot's row: writes through it land in the
-        pool cache (repro copies with slot_slice / slot_merge instead)."""
-        return {"pos": cache["pos"][slot:slot + 1],
-                "kv": {"k": cache["kv"]["k"][:, slot:slot + 1],
-                       "v": cache["kv"]["v"][:, slot:slot + 1]}}
+        """Batch-1 view of one slot's rows (every leaf but ``pos`` is [L,
+        B, ...]): writes through it land in the pool cache (repro copies
+        with slot_slice / slot_merge instead)."""
+        return {k: (v[slot:slot + 1] if k == "pos" else
+                    {n: t[:, slot:slot + 1] for n, t in v.items()})
+                for k, v in cache.items()}
 
     # -- decode ----------------------------------------------------------------
     def decode_step(self, params: Params, cache: Cache, tokens: torch.Tensor,
@@ -492,8 +495,9 @@ class LM:
         cache is linear (``init_cache``) or paged (``init_cache_paged``).
 
         ``active`` [B] bool: inactive rows keep their cache row and
-        position (repro drops their write with an out-of-range index)."""
-        self._dense_only("decode_step")
+        position (repro drops their write with an out-of-range index); a
+        hybrid row's Mamba state still churns, as in repro, and
+        ``reset_slot`` clears it at the next admission."""
         with self.dist_scope():
             return self._decode_step(params, cache, tokens, active)
 
@@ -503,32 +507,26 @@ class LM:
                      ) -> Tuple[torch.Tensor, Cache]:
         """``slot``: a batch-1 step of that row of a planned linear cache
         (the scan prefill; ``tokens`` [1]), which advances its position
-        alone."""
+        and steps its Mamba state alone."""
         cfg = self.cfg
-        hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-        bd = ("batch", "d_model")
         pos = local(cache["pos"])
         if slot is not None:
             pos = pos[slot:slot + 1]                    # a view: += lands
-        x = self._shard(params["embed"][tokens], "x", bd)
+        x = self._shard(params["embed"][tokens], "x", ("batch", "d_model"))
         b = x.shape[0]
         if "pages" in cache:
             attend = self._paged_writer(cache, pos, active, b)
         else:
-            attend = self._linear_writer(cache, pos, active, b, slot)
+            attend = self._linear_writer(
+                cache["shared" if is_hybrid(cfg) else "kv"], pos, active, b,
+                slot)
         rpos = pos[:, None]
-        for li, p in enumerate(self._layers(params)):
-            pa = p["attn"]
-            xn = self._shard(rms_norm(x, p["ln1"], cfg.norm_eps), "x", bd)
-            q, k, v = self._qkv(pa, xn)
-            q = self._shard(q, "wq.out", ("batch", "heads"))
-            q = rope(q.reshape(b, 1, h, hd), rpos, cfg.rope_theta)[:, 0]
-            k = rope(k.reshape(b, 1, kvh, hd), rpos, cfg.rope_theta)[:, 0]
-            v = v.reshape(b, kvh, hd)
-            o = attend(li, q, k, v)
-            x = self._shard(x + o.reshape(b, h * hd) @ pa["wo"], "x", bd)
-            xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bd)
-            x = self._shard(x + _mlp_forward(p["mlp"], xn), "x", bd)
+        if is_hybrid(cfg):
+            x = self._hybrid_layers_decode(params, cache["mamba"], x, attend,
+                                           rpos, slot)
+        else:
+            for li, p in enumerate(self._layers(params)):
+                x = self._block_decode(p, x, attend, li, rpos)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         if active is None:
             pos += 1
@@ -536,16 +534,58 @@ class LM:
             pos += active.to(pos.dtype)
         return self._head(params, x), cache
 
-    def _linear_writer(self, cache: Cache, pos: torch.Tensor,
+    def _block_decode(self, p: Params, x: torch.Tensor, attend, li: int,
+                      rpos: torch.Tensor) -> torch.Tensor:
+        """One dense block of a decode step (the hybrid family's shared
+        block at application ``li``): attention through ``attend(li, q, k,
+        v)``, which writes the new K/V, then the MLP."""
+        cfg = self.cfg
+        hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        bd = ("batch", "d_model")
+        b = x.shape[0]
+        pa = p["attn"]
+        xn = self._shard(rms_norm(x, p["ln1"], cfg.norm_eps), "x", bd)
+        q, k, v = self._qkv(pa, xn)
+        q = self._shard(q, "wq.out", ("batch", "heads"))
+        q = rope(q.reshape(b, 1, h, hd), rpos, cfg.rope_theta)[:, 0]
+        k = rope(k.reshape(b, 1, kvh, hd), rpos, cfg.rope_theta)[:, 0]
+        v = v.reshape(b, kvh, hd)
+        o = attend(li, q, k, v)
+        x = self._shard(x + o.reshape(b, h * hd) @ pa["wo"], "x", bd)
+        xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bd)
+        return self._shard(x + _mlp_forward(p["mlp"], xn), "x", bd)
+
+    def _hybrid_layers_decode(self, params: Params, state: Cache,
+                              x: torch.Tensor, attend, rpos: torch.Tensor,
+                              slot: Optional[int]) -> torch.Tensor:
+        """The hybrid family's decode layers (repro's hybrid branch):
+        groups of ``attn_every`` Mamba steps on the stacked ``state``, each
+        followed by the shared block, whose application g writes and
+        attends ring g (``pos % S``, up to ``min(pos + 1, S)``)."""
+        cfg = self.cfg
+        period = cfg.attn_every
+        for li, p in enumerate(self._layers(params)):
+            y = mamba_step(p, rms_norm(x, p["ln"], cfg.norm_eps), state, cfg,
+                           self.plan, self.mesh, layer=li, slot=slot)
+            x = self._shard(x + y, "x", ("batch", "d_model"))
+            if (li + 1) % period == 0:
+                x = self._block_decode(params["shared"], x, attend,
+                                       li // period, rpos)
+        return x
+
+    def _linear_writer(self, kv: Cache, pos: torch.Tensor,
                        active: Optional[torch.Tensor], b: int,
                        slot: Optional[int] = None):
-        """attend(layer, q, k, v) for a decode step on the linear cache:
-        write the new K/V at each row's position, then attend.  ``slot``:
-        the batch-1 step of that row of a planned cache (``pos`` is its
-        [1] view)."""
-        kc_all, vc_all = cache["kv"]["k"], cache["kv"]["v"]
+        """attend(layer, q, k, v) for a decode step on the linear cache
+        ``kv`` ({"k", "v"} [L, B, S, KV, hd]; the hybrid family's shared
+        rings): write the new K/V at each row's position (``pos % S`` on a
+        ring: a window, or the hybrid family's shared block), then
+        attend.  ``slot``: the batch-1 step of that row of a planned cache
+        (``pos`` is its [1] view)."""
+        kc_all, vc_all = kv["k"], kv["v"]
         S = kc_all.shape[2]
-        at = pos % S if self.cfg.swa_window is not None else pos
+        ring = self.cfg.swa_window is not None or is_hybrid(self.cfg)
+        at = pos % S if ring else pos
         ok = at < S
         if active is not None:
             ok = ok & active
@@ -619,9 +659,9 @@ class LM:
 
         ``impl``: "auto" runs the chunk in parallel (offset flash attention
         against the slot's cache) where prefill_parallel_ok allows, else
-        steps decode_step over it; "scan" forces the stepwise path;
-        "parallel" forces the parallel one."""
-        self._dense_only("prefill_chunk")
+        (the hybrid family, a ring-buffer window) steps decode_step over
+        it; "scan" forces the stepwise path; "parallel" forces the
+        parallel one, and raises where it does not apply."""
         with self.dist_scope():
             return self._prefill_chunk(params, cache, tokens, slot, n_valid,
                                        impl)
@@ -649,7 +689,7 @@ class LM:
         if impl == "parallel" and not parallel_ok:
             raise ValueError(
                 f"parallel prefill unsupported for {self.cfg.name} "
-                "(ring-buffer SWA cache)")
+                "(recurrent state or ring-buffer SWA cache)")
         if parallel_ok and impl != "scan":
             logits = self._prefill_chunk_attn(params, cache, tokens, slot,
                                               n_valid)
@@ -821,8 +861,13 @@ class LM:
         ``positions + 1`` (the reference's gather, then attend_cache, with
         no [N, MB*BL, KV, hd] view built); on a linear cache the rows'
         caches are gathered and attended, as the reference does.  Under a
-        plan each rank attends the rows it owns (``rescore_sharded``)."""
-        self._dense_only("decode_rescore")
+        plan each rank attends the rows it owns (``rescore_sharded``).
+        Dense families only: a recurrent state cannot be re-scored read
+        only (repro's ``Server`` never verifies the hybrid family)."""
+        if is_hybrid(self.cfg):
+            raise ValueError(
+                f"speculative re-score unsupported for {self.cfg.name} "
+                "(recurrent state): drafts are accepted as they are")
         with self.dist_scope():
             return self._decode_rescore(params, cache, tokens, rows,
                                         positions)

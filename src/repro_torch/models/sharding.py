@@ -287,3 +287,26 @@ def even_placements(placements: Sequence, shape: Sequence[int],
             else:
                 prod[d] = n
     return out
+
+
+def redistribute(t, placements: Sequence):
+    """``t.redistribute(t.device_mesh, placements)``, with every gather of
+    a one-row DTensor (dim 0 of size 1) run on its leading dim: the
+    tensor is squeezed first and unsqueezed after.  torch's functional
+    all-gather of a local tensor whose dim 0 has size 1, along a later
+    dim, returns a view of the collective's output before it has been
+    waited for; on gloo ranks such gathers (a batch-1 scan step's query
+    or ``zx`` cut on heads or inner) aborted with a corrupted heap now and
+    then."""
+    from torch.distributed.tensor import Shard
+    mesh = t.device_mesh
+    if list(placements) == list(t.placements):
+        return t
+    if t.ndim < 2 or t.shape[0] != 1 or any(
+            isinstance(p, Shard) and p.dim == 0
+            for p in list(t.placements) + list(placements)):
+        return t.redistribute(mesh, placements)
+    down = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+            for p in placements]
+    return t.squeeze(0).redistribute(mesh, down).unsqueeze(0)
+

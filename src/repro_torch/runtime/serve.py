@@ -48,9 +48,13 @@ same host scheduler from the same seed (SPMD) and joins every step's
 collectives; the logits that sampling reads are gathered whole on every
 rank, so every rank takes the same decisions.  The host's table mirror
 is written into each rank's table shard; the speculative rollback of
-positions and table stays host-side.  The hybrid family under a plan
-raises ``NotImplementedError`` (ROADMAP A.1).  The obs wiring is not
-ported yet: ``Server`` takes no registry or monitor."""
+positions and table stays host-side.  The hybrid family (zamba2) serves
+on the linear tier, on one card or under a plan: its cache holds each
+layer's Mamba state beside the shared block's rings, its prompts go
+through the scan prefill, and, as in repro, it has no paged tier (the
+paged cache raises) and its speculative drafts are accepted without a
+re-score (a recurrent state has none).  The obs wiring is not ported
+yet: ``Server`` takes no registry or monitor."""
 from __future__ import annotations
 
 import collections
@@ -64,7 +68,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 from ..kernels import ops
 from ..models.common import local, whole
-from ..models.model import LM, is_hybrid, paged_ok
+from ..models.model import LM, paged_ok
 from ..models.sharding import global_offset
 from .paged import BlockPool, NoFreeBlocks, PrefixTrie
 
@@ -163,10 +167,6 @@ class Server:
         if self.sharded:
             if self.mesh is None:
                 raise ValueError("a sharding plan needs LM.mesh to place on")
-            if is_hybrid(model.cfg):
-                raise NotImplementedError(
-                    "the hybrid family under a sharding plan is not ported "
-                    "yet (ROADMAP A.1: hybrid serving under a plan)")
             sizes = dict(zip(self.mesh.mesh_dim_names,
                              self.mesh.mesh.shape))
             self.plan = self.plan.for_pool(n, sizes)

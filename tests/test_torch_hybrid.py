@@ -272,20 +272,24 @@ def test_repro_checkpoint_restores_into_the_port(tmp_path):
 
 
 def test_serving_paths_raise_for_the_hybrid_family():
+    """What stays refused now that the hybrid family serves on the linear
+    tier (tests/test_torch_hybrid_serve.py): the paged tier and the
+    speculative re-score, as in repro; and the families not ported yet."""
     _, tcfg = _cfgs()
     model = LM(tcfg)
     params = model.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        model.init_cache(1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        model.decode_step(params, {}, torch.zeros(1, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        model.prefill_chunk(params, {}, torch.zeros(4, dtype=torch.long), 0,
-                            4)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        model.reset_slot({}, 0)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        Server(model, params, ServeConfig(slots=1, max_len=16))
+    with pytest.raises(ValueError, match="paged KV cache unsupported"):
+        model.init_cache_paged(1, 16, 3, 8, device="cpu")
+    with pytest.raises(ValueError, match="paged KV cache unsupported"):
+        Server(model, params, ServeConfig(slots=1, max_len=16, paged=True))
+    cache = model.init_cache(1, 16, device="cpu")
+    with pytest.raises(ValueError, match="re-score unsupported"):
+        model.decode_rescore(params, cache, torch.zeros(1, dtype=torch.long),
+                             torch.zeros(1, dtype=torch.long),
+                             torch.zeros(1, dtype=torch.long))
+    with pytest.raises(ValueError, match="recurrent state"):
+        model.prefill_chunk(params, cache, torch.zeros(4, dtype=torch.long),
+                            0, 4, impl="parallel")
     # the families not ported yet keep raising
     for other in (dict(xlstm=XLSTMCfg()), dict(moe=MoECfg(4, 2, 64))):
         with pytest.raises(NotImplementedError, match="not ported"):

@@ -326,7 +326,8 @@ def test_seq_kv_cut_falls_back(runs):
     assert got["fallbacks"] == {"prefill_attention": L * ref["prefill"],
                                 "attend_cache": L * ref["decode"],
                                 "attention": 0, "attend_paged": 0,
-                                "rescore": 0, "copy_block": 0}
+                                "rescore": 0, "copy_block": 0,
+                                "mamba_state": 0}
 
 
 def test_own_plan_cuts_batch_only(plans, runs):
@@ -370,7 +371,8 @@ def test_kv_heads_cut_that_does_not_divide_falls_back(runs):
     assert got["fallbacks"] == {"prefill_attention": L * ref["prefill"],
                                 "attend_cache": L * ref["decode"],
                                 "attention": 0, "attend_paged": 0,
-                                "rescore": 0, "copy_block": 0}
+                                "rescore": 0, "copy_block": 0,
+                                "mamba_state": 0}
     # megatron's model axis cuts the heads of wq
     assert got["params"]["layers/attn/wq"][0] == ("R",
                                                   "S(2)")
@@ -380,8 +382,9 @@ def test_plan_on_one_rank_and_what_it_refuses():
     """On a world-1 gloo group: the (1, 1) mesh's solver axes; params
     placed already are taken as they are; paged=True and spec_k=4 serve
     under a plan, giving the streams of the same server with no plan;
-    the hybrid family raises under a plan, naming ROADMAP A.1; a plan
-    without a mesh is refused."""
+    the hybrid family serves under a plan (spec_k 1 and 4) with the
+    streams of its server with no plan and refuses the paged tier, as it
+    does without one; a plan without a mesh is refused."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -418,9 +421,18 @@ def test_plan_on_one_rank_and_what_it_refuses():
             assert streams[0] == streams[1], kw
             assert all(len(t) == GEN for t in streams[0].values())
         hyb = get_arch("zamba2-2.7b").reduced()
-        with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
-            Server(LM(hyb, plan=plan, mesh=mesh),
-                   LM(hyb).init(0, device="cpu"), SCFG)
+        hyb_params = LM(hyb).init(0, device="cpu")
+        for scfg in (SCFG, dataclasses.replace(SCFG, spec_k=4)):
+            streams = []
+            for m in (LM(hyb, plan=plan, mesh=mesh), LM(hyb)):
+                srv = Server(m, hyb_params, scfg)
+                for p in PROMPTS:
+                    srv.submit(p, max_new_tokens=GEN)
+                streams.append(srv.run())
+            assert streams[0] == streams[1], scfg.spec_k
+        with pytest.raises(ValueError, match="paged KV cache unsupported"):
+            Server(LM(hyb, plan=plan, mesh=mesh), hyb_params,
+                   dataclasses.replace(SCFG, paged=True))
         with pytest.raises(ValueError, match="mesh"):
             Server(LM(cfg, plan=plan), params, SCFG)
     finally:
