@@ -21,7 +21,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      under a window, f32 queries; the backward at windows 128 and 200 and
      every split of the group of 4; decode at its 8 x 2048 serving step,
      a full 4096 ring, split edges with an empty slot, a window, f32
-     queries; one paged case) and at the reduced configs' hd 16;
+     queries; one paged case), at the MoE slice's hd-128 groupings
+     (moonshot's g 1, 16 / 16 heads; qwen2.5-32b's g 5, 40 / 8: forward
+     at an offset and in training, dq, dk/dv at every split of the group,
+     decode, paged decode) and at the reduced configs' hd 16;
      The forward (FWD_CASES): the prefill chunk at offsets 0 to 1900
      (past the cache end), the training shapes (the dense step's
      microbatch and phase 5's row among them), ragged S = 1000 / 1089,
@@ -151,7 +154,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   4j. hybrid serve: zamba2-2.7b at full width (4d's weights' shapes,
      from torch.Generator(0)), 16 slots x 2048 (the shared block's rings
      hold all 2048 positions; the rings take 3.0 GB and the Mamba state
-     1.16 GB), 8 requests of 64-192 prompt tokens, 32 greedy tokens each,
+     1.16 GB), 4 requests of 64-192 prompt tokens, 32 greedy tokens each,
      through launch.serve.run_workload; every prompt token is a batch-1
      scan step (54 mamba_steps, 9 shared blocks), so flash_decode
      launches exactly 9 x (decode dispatches + prompt tokens), flash_fwd
@@ -160,7 +163,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      after two scan prefills;
   4k. the hybrid family under the solved (1, 1) plans, on a world-1 NCCL
      group and a (1, 1) DeviceMesh of its own (torn down after): 4j's
-     first 2 requests under the decode plan (state and rings as
+     first request under the decode plan (state and rings as
      DTensors, the state update, ring write and flash_decode in
      local_map): 4j's streams, launches 9 x (decode dispatches + prompt
      tokens) exactly, no fallback, no plain call; a decode step's and a
@@ -171,6 +174,39 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      fallbacks, 0 plain calls, each loss within 1e-3 relative of 4d's;
      the peak memory, and a step's host and device ms with and without
      the plan;
+  4l. MoE serve: moonshot-v1-16b-a3b at full width (48 layers, d 2048,
+     16 / 16 heads of hd 128, 64 experts top-6 of d_ff 1408, vocab
+     163840 untied; 28.06 B params = 56.1 GB bf16, random weights from
+     torch.Generator(0); weights drawn slice by slice past 4 GiB of f32),
+     8 slots x 2048 (a linear cache of 48 x 2 x 8 x 2048 x 16 x 128 x 2 B
+     = 6.44 GB), 8 requests of 128-512 prompt tokens (default_rng(0)),
+     chunks of 256, 32 greedy tokens each, through run_workload; then the
+     same requests on the paged tier (16-token blocks, no speculation),
+     whose streams must equal the linear tier's token for token.  Exact
+     launches: flash_fwd 48 a prefill chunk, flash_decode (linear) or
+     flash_paged_decode (paged) 48 a decode step; no plain call, no
+     non-finite logit; the prefill chunks' share of routed choices
+     dropped at capacity printed; then the reduced moonshot on the card
+     against the CPU (0.25 band) with the count of routing decisions that
+     differ;
+  4m. on a world-1 NCCL group of its own: 4l's first 2 requests under
+     the solved (1, 1) decode plan pinned by normalize_moe_plan (4l's
+     streams, launches exact, no fallback, no all-to-all, the reduced
+     moonshot under the plan against the CPU); moonshot cut to 4 of its 48
+     layers (widths kept: 2.95 B params, ~53 GB of bf16 params, f32
+     master, moments and grads; full depth would hold ~505 GB) trained
+     through launch.train's runner with 4b's batch and optimizer, 4
+     steps: losses finite and falling, the aux printed, launches per
+     step exactly flash_fwd 16, flash_bwd_dq / flash_bwd_dkv 8 each, the
+     model-FLOPs share of the active experts (moe_train_flops); then the
+     same run with --mesh 1x1 --plan auto: launches exact, 0 fallbacks,
+     each loss within 1e-3 relative of the unplanned run's;
+  4n. qwen2.5-32b at full width (64 layers, d 5120, 40 / 8 heads of hd
+     128, d_ff 27648, vocab 152064, QKV bias; 32.76 B params = 65.5 GB
+     bf16), every earlier tensor freed: 8 slots x 2048 (a cache of 4.29
+     GB), 4 requests of 256-1024 prompt tokens, 16 greedy tokens each;
+     launches exactly flash_fwd 64 a chunk and flash_decode 64 a step, the
+     peak memory under the card's;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch, the stream held by a spin kernel so the interval is device
      time; the forward and both decode kernels also without the hold,
@@ -196,6 +232,7 @@ Imports nothing of JAX and nothing of the repro (JAX) package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -258,13 +295,14 @@ STEP_TIMED, STEP_PROFILED = 3, 2
 # (4k trains it again under the plan, on the same cosine schedule)
 HYBRID_ARCH, HYBRID_STEPS = "zamba2-2.7b", 4
 # zamba2-2.7b served at full width (4j): 16 slots x 2048 (the shared
-# block's ring holds all 2048 positions), 8 requests of 64-192 prompt
+# block's ring holds all 2048 positions), 4 requests of 64-192 prompt
 # tokens (each a batch-1 scan step: no parallel prefill for a recurrent
-# state), 32 greedy tokens each; 4k serves the first 2 under the solved
+# state), 32 greedy tokens each; 4k serves the first under the solved
 # (1, 1) decode plan and with none, and trains 4d's run under the (1, 1)
-# train plan, each loss within TRAIN_PLAN_LOSS_REL of 4d's
-HYBRID_SLOTS, HYBRID_MAX_LEN, HYBRID_REQUESTS = 16, 2048, 8
-HYBRID_PROMPT, HYBRID_GEN, HYBRID_PLAN_REQS = (64, 192), 32, 2
+# train plan, each loss within TRAIN_PLAN_LOSS_REL of 4d's (8 and 2
+# requests until the MoE phases needed the time)
+HYBRID_SLOTS, HYBRID_MAX_LEN, HYBRID_REQUESTS = 16, 2048, 4
+HYBRID_PROMPT, HYBRID_GEN, HYBRID_PLAN_REQS = (64, 192), 32, 1
 HYBRID_PLAN_SHAPE = ("serve16x2048", HYBRID_MAX_LEN, HYBRID_SLOTS, "decode")
 # 4k's training steps timed with and without the plan (a zamba2 step
 # takes seconds): one warm step, 1 timed, 1 under the profiler
@@ -280,6 +318,27 @@ DANUBE_SLOTS, DANUBE_MAX_LEN, DANUBE_REQUESTS = 8, 2048, 4
 DANUBE_PROMPT, DANUBE_GEN = (128, 512), 32
 DANUBE_TRAIN_LAYERS, DANUBE_STEPS = 12, 8
 HD120 = "(hd 120, danube)"     # the suffix of its rows in phase 5 and 6
+# the MoE family, moonshot-v1-16b-a3b (48 layers, d 2048, 16 / 16 heads of
+# hd 128, 64 experts top-6 of d_ff 1408, vocab 163840; 28.06 B params =
+# 56.1 GB bf16): 4l serves it at full width, 8 slots x 2048 (a linear cache
+# of 48 x 2 x 8 x 2048 x 16 x 128 x 2 B = 6.44 GB), 8 requests of 128-512
+# prompt tokens in chunks of 256, 32 greedy tokens each, on both tiers; 4m
+# serves the first 2 under the solved (1, 1) decode plan, and trains it
+# cut to 4 of its 48 layers (2.95 B params: ~53 GB of bf16 params, f32
+# master, moments and grads at 18 B a param; full depth would hold ~505
+# GB), 4 steps of the dense run's batch, 2 of them warmup, and the same
+# run under the (1, 1) train plan
+MOE_ARCH, MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS = ("moonshot-v1-16b-a3b", 8,
+                                                  2048, 8)
+MOE_PROMPT, MOE_GEN, MOE_CHUNK, MOE_PLAN_REQS = (128, 512), 32, 256, 2
+MOE_TRAIN_LAYERS, MOE_STEPS = 4, 4
+MOE_PLAN_SHAPE = ("serve8x2048", MOE_MAX_LEN, MOE_SLOTS, "decode")
+# qwen2.5-32b (64 layers, d 5120, 40 / 8 heads of hd 128, d_ff 27648,
+# vocab 152064, QKV bias; 32.76 B params = 65.5 GB bf16) served at full
+# width (4n): 8 slots x 2048 (a cache of 64 x 2 x 8 x 2048 x 8 x 128 x 2 B
+# = 4.29 GB), 4 requests of 256-1024 prompt tokens, 16 greedy tokens each
+QWEN32, QWEN32_REQUESTS, QWEN32_PROMPT, QWEN32_GEN = ("qwen2.5-32b", 4,
+                                                      (256, 1024), 16)
 # SSD kernel vs its plain version: y is f32 on both sides, the sequential
 # recurrence against the chunked form, so the same terms summed in another
 # order (up to a chunk of 256 in one sum): |err| <= 2e-4 x max(1, max|ref|).
@@ -558,6 +617,15 @@ FWD_CASES = [
     (1, 1089, 1089, 32, 8, 120, 0, True, None, "bf16"),
     (1, 256, 2048, 32, 8, 120, 1300, True, 512, "bf16"),
     (1, 300, 300, 32, 8, 120, 0, True, 200, "f32"),
+    # hd 128 at g 1 (moonshot, 16 / 16 heads): its training microbatch and
+    # a prefill chunk at an offset; at g 5 (qwen2.5-32b, 40 / 8): prefill
+    # chunks at offsets 0 and 768 (past a tile edge) and ragged S = 1000
+    (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 128, 0, True,
+     None, "bf16"),
+    (1, 256, 2048, 16, 16, 128, 300, True, None, "bf16"),
+    (1, 256, 2048, 40, 8, 128, 0, True, None, "bf16"),
+    (1, 256, 2048, 40, 8, 128, 768, True, None, "bf16"),
+    (1, 1000, 1000, 40, 8, 128, 0, True, None, "bf16"),
 ]
 
 
@@ -636,7 +704,13 @@ DEC_CASES = [(16, 2048, 12, 2, 128, None, None, "bf16"),
               [128, 129, 1, 256, 257, 2048, 0, 1000], "bf16"),
              (8, 2048, 32, 8, 120, 200,
               [300, 129, 1, 256, 2048, 500, 201, 199], "bf16"),
-             (DANUBE_SLOTS, DANUBE_MAX_LEN, 32, 8, 120, 4096, None, "f32")]
+             (DANUBE_SLOTS, DANUBE_MAX_LEN, 32, 8, 120, 4096, None, "f32"),
+             # hd 128 at g 1 (moonshot) and g 5 (qwen2.5-32b): their
+             # serving steps (8 slots x 2048), g 5 also at the split edges
+             (MOE_SLOTS, MOE_MAX_LEN, 16, 16, 128, None, None, "bf16"),
+             (MOE_SLOTS, MOE_MAX_LEN, 40, 8, 128, None, None, "bf16"),
+             (8, 2048, 40, 8, 128, None,
+              [128, 129, 1, 256, 257, 2048, 0, 1000], "bf16")]
 # the decode kernels' key positions per block that phase 5 times; phase
 # 3 runs every decode case at each, twice
 DEC_SPLITS = (64, 128, 256, 512)
@@ -757,6 +831,10 @@ def check_kernels(dev, tag):
         (1, 600, 32, 8, 120, True, 200, bf),
         (1, 1089, 32, 8, 120, False, None, bf),
         (1, 300, 32, 8, 120, True, 200, f32),
+        # hd 128 at g 1 (moonshot's training microbatch) and at g 5
+        # (qwen2.5-32b: dk/dv at splits 1 and 5), ragged S
+        (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 16, 16, 128, True, None, bf),
+        (1, 1000, 40, 8, 128, True, None, bf),
     ]
     for i, (b, s, h, kv, hd, causal, window, dt) in enumerate(bwd_cases):
         q, do = (rnd((b, s, h, hd), 200 + 4 * i, dt),
@@ -940,7 +1018,10 @@ def check_paged(dev, tag):
              (3, 12, 2, 128, 48, 6, [200, 97, 288]),
              (3, 32, 32, 80, 16, 8, [5, 128, 77]),
              (4, 12, 2, 128, 48, 43, [129, 65, 0, 2064]),
-             (4, 32, 8, 120, 16, 8, [5, 128, 0, 77])]     # hd 120
+             (4, 32, 8, 120, 16, 8, [5, 128, 0, 77]),     # hd 120
+             # g 1 (moonshot) and g 5 (qwen2.5-32b) at hd 128, 8 slots
+             (8, 16, 16, 128, 16, 128, serving[:8].tolist()),
+             (8, 40, 8, 128, 16, 128, serving[:8].tolist())]
     out = []
     for i, (b, h, kv, hd, bl, mb, lengths) in enumerate(cases):
         q, kp, vp, table, ln, live = paged_case(dev, b, h, kv, hd, bl, mb,
@@ -2181,6 +2262,21 @@ def train_flops(cfg, b, s):
     return 3 * (mm + attn)
 
 
+def moe_train_flops(cfg, b, s):
+    """Model FLOPs of one MoE training step (3 x the forward, remat
+    recompute not counted), the active experts only: the attention
+    projections and causal attention, the router, the top-k experts'
+    three matmuls per token (the capacity's padding rows not counted),
+    and the untied head."""
+    d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    m = cfg.moe
+    per_layer = (d * (h + 2 * kv) * hd + h * hd * d + d * m.n_experts
+                 + m.top_k * 3 * d * m.d_ff_expert)
+    mm = 2.0 * b * s * (cfg.n_layers * per_layer + d * cfg.vocab)
+    attn = cfg.n_layers * 4.0 * hd * h * b * s * (s + 1) / 2
+    return 3 * (mm + attn)
+
+
 def ssd_work(b, s, h, p, n, q):
     """Bytes (xh, a_log, B, C read once, y written once, f32) and FLOPs of
     one SSD chunk scan: per (b, h, chunk) the causal half of the Q x Q
@@ -2220,9 +2316,10 @@ def train_argv(arch="qwen2-1.5b", steps=TRAIN_STEPS):
 
 
 def train_full_width(dev, tag, arch="qwen2-1.5b", steps=TRAIN_STEPS,
-                     n_layers=None):
+                     n_layers=None, flops_fn=train_flops):
     """The training main path: launch.train's runner at full width, cut
-    to ``n_layers`` if given (danube's depth cut, phase 4g)."""
+    to ``n_layers`` if given (danube's depth cut, phase 4g; moonshot's,
+    4m, whose model FLOPs are ``moe_train_flops``)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -2260,7 +2357,7 @@ def train_full_width(dev, tag, arch="qwen2-1.5b", steps=TRAIN_STEPS,
         fail(f"training launches {launches}, expected {want}")
     if any(plain.values()):
         fail(f"a plain version ran on the training path: {plain}")
-    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    flops = flops_fn(cfg, TRAIN_BATCH, TRAIN_SEQ)
     mfu = flops / rec["mean_step_s"] / BF16_FLOPS_PER_S
     print(f"train metrics: {rec['tokens_per_s']:.1f} tok/s, mean step "
           f"{rec['mean_step_s'] * 1e3:.2f} ms over "
@@ -3067,6 +3164,519 @@ def reduced_train_card_vs_cpu(dev, tag):
                 compressed_gap=gap)
 
 
+def counting_routes(chunk, n_layers, dev):
+    """Wrap ``models.moe.route`` to sum, on the device and layer by layer,
+    the choices routed and dropped by the calls of ``chunk`` tokens (the
+    prefill chunks, whose layers route in order).  Returns the [layer,
+    (routed, dropped)] counter and the function that undoes the wrap."""
+    from repro_torch.models import moe
+
+    route = moe.route
+    acc = torch.zeros((n_layers, 2), dtype=torch.long, device=dev)
+    calls = [0]
+
+    def counted(xf, router, cfg, cap):
+        out = route(xf, router, cfg, cap)
+        if xf.shape[0] == chunk:
+            row = acc[calls[0] % n_layers]
+            row[0] += out[1].numel()
+            row[1] += (~out[1]).sum()
+            calls[0] += 1
+        return out
+
+    def restore():
+        moe.route = route
+    moe.route = counted
+    return acc, restore
+
+
+def prefill_drops(model, params, scfg, prompts, dev, tag):
+    """The share of the prefill chunks' routed choices dropped at
+    capacity, from a pass of its own that only prefills ``prompts`` (the
+    count adds device work to every chunk, so it stays out of the timed
+    runs; a chunk's drops depend on its tokens alone, so they are those
+    of the timed runs)."""
+    from repro_torch.runtime.serve import Server
+
+    srv = Server(model, params, scfg)
+    acc, restore = counting_routes(scfg.prefill_chunk, model.cfg.n_layers,
+                                   dev)
+    try:
+        for slot, p in enumerate(prompts):
+            srv.admit(p, slot, max_new_tokens=1)
+    finally:
+        restore()
+    by_layer = acc.tolist()
+    routed, dropped = (sum(r[i] for r in by_layer) for i in (0, 1))
+    print(f"serve moe: prefill chunks dropped {dropped} of {routed} "
+          f"routed choices ({100 * dropped / max(routed, 1):.2f}%; by layer "
+          f"{[round(100 * d / max(r, 1), 1) for r, d in by_layer]}%) {tag}")
+    return dict(routed=routed, dropped=dropped,
+                dropped_by_layer=[d / max(r, 1) for r, d in by_layer])
+
+
+def serve_moe(dev, tag):
+    """Phase 4l: moonshot-v1-16b-a3b served at full width through
+    launch.serve.run_workload, on the linear tier and then the paged tier
+    (16-token blocks, no speculation) with the same requests.  Launches
+    exactly flash_fwd 48 a prefill chunk and flash_decode (linear) or
+    flash_paged_decode (paged) 48 a decode step, no plain call, no
+    non-finite logit; the paged streams equal the linear ones token for
+    token (the same MoE calls, so the same capacities).  Prints prefill
+    and decode tok/s, TTFT / ITL, the peak memory, the share of the
+    prefill chunks' routed choices dropped at capacity, and a decode
+    step's host and device ms.  Returns the record, the launches of both
+    tiers and (model, params, prompts, linear streams, serve config)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = get_arch(MOE_ARCH)
+    m = cfg.moe
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serve moe: {cfg.name} full width, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of hd "
+          f"{cfg.hd}, {m.n_experts} experts top-{m.top_k} of d_ff "
+          f"{m.d_ff_expert}, vocab {cfg.vocab}, {n_params / 1e9:.3f} B "
+          f"params bf16 ({2 * n_params / 1e9:.1f} GB), init "
+          f"{time.perf_counter() - t0:.1f}s {tag}")
+    scfg = ServeConfig(slots=MOE_SLOTS, max_len=MOE_MAX_LEN,
+                       prefill_chunk=MOE_CHUNK)
+    rng = np.random.default_rng(0)
+    lo, hi = MOE_PROMPT
+    prompts = [rng.integers(0, cfg.vocab,
+                            size=int(rng.integers(lo, hi + 1))).tolist()
+               for _ in range(MOE_REQUESTS)]
+    warm = Server(model, params, scfg)      # first launches, cuBLAS set-up
+    warm.admit(prompts[0][:300], 0, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+
+    L, ms = cfg.n_layers, 1e3
+    out, launches_all = {}, {}
+    for tier, extra in (("linear", {}),
+                        ("paged", dict(paged=True, block_len=16))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        srv = checked_server()(model, params,
+                               dataclasses.replace(scfg, **extra))
+        fa.reset_launches()
+        ops.reset_plain_calls()
+        rec = run_workload(srv, [(0.0, p) for p in prompts], gen=MOE_GEN)
+        launches = dict(fa.launches)
+        plain = dict(ops.plain_calls)
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = dict.fromkeys(launches, 0)
+        want["flash_fwd"] = L * srv.prefill_dispatches
+        kernel = "flash_paged_decode" if extra else "flash_decode"
+        want[kernel] = L * srv.decode_dispatches
+        reasons = set(srv.finished.values())
+        print(f"serve moe {tier}: {rec['requests']} requests, "
+              f"{rec['prompt_tokens']} prompt tokens, "
+              f"{rec['generated_tokens']} generated, "
+              f"{srv.prefill_dispatches} prefill chunks, "
+              f"{srv.decode_dispatches} decode dispatches; launches "
+              f"{launches} (want {want}), plain calls {plain}")
+        if rec["requests"] != MOE_REQUESTS or reasons != {"length"} or any(
+                len(srv.outputs[r]) != MOE_GEN for r in srv.finished):
+            fail(f"moe {tier}: not every request gave {MOE_GEN} tokens: "
+                 f"{srv.finished}")
+        if launches != want:
+            fail(f"moe {tier}: launches {launches}, expected {want}")
+        if any(plain.values()) or srv.nonfinite:
+            fail(f"moe {tier}: plain calls {plain}, {srv.nonfinite} "
+                 f"non-finite logits")
+        print(f"serve moe {tier} metrics: prefill "
+              f"{rec['prefill_tok_per_s']:.1f} tok/s, decode "
+              f"{rec['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{rec['ttft_p50_s'] * ms:.1f} ms p95 "
+              f"{rec['ttft_p95_s'] * ms:.1f} ms, ITL p50 "
+              f"{rec['itl_p50_s'] * ms:.2f} ms p95 "
+              f"{rec['itl_p95_s'] * ms:.2f} ms, wall {rec['wall_s']:.2f} s, "
+              f"peak memory {peak / 2**30:.2f} GiB {tag}")
+        slim = {k: v for k, v in rec.items() if k not in ("itl_s",
+                                                          "ttft_s")}
+        slim.update(prefill_dispatches=srv.prefill_dispatches,
+                    decode_dispatches=srv.decode_dispatches,
+                    peak_memory_bytes=peak, launches=launches,
+                    streams={r: list(t) for r, t in srv.outputs.items()})
+        if tier == "linear":
+            slim["decode_step"] = decode_step_times(srv, PLAN_STEPS, tag,
+                                                    "moonshot")
+        out[tier], launches_all[tier] = slim, launches
+        del srv
+        torch.cuda.empty_cache()
+    streams = out["linear"]["streams"]
+    if out["paged"]["streams"] != streams:
+        fail("moe: the paged tier's streams differ from the linear tier's")
+    out["drops"] = prefill_drops(model, params, scfg, prompts, dev, tag)
+    print(f"serve moe: the paged tier's streams equal the linear tier's "
+          f"token for token {tag}")
+    out["params"] = n_params
+    return out, launches_all, (model, params, prompts, streams, scfg)
+
+
+def reduced_moe_card_vs_cpu(dev, tag, plan=None, mesh=None):
+    """The reduced moonshot (4 experts top-2, hd 16) on the card against
+    the same bf16 weights on the CPU: two prefill chunks of 8 into 3
+    slots, then 6 decode steps with an inactive row.  Prints the worst
+    logits gap (LOGITS_ATOL) and the routing decisions that differ: for
+    every MoE call, the tokens whose top-k expert set differs between the
+    card and the CPU, beside the router logits' largest gap.  With
+    ``plan`` and ``mesh`` the card's side runs under the plan."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.common import whole
+    from repro_torch.models.model import LM
+    from repro_torch.models.sharding import (CACHE_RULES, place_tree,
+                                             zeros_tree)
+
+    cfg = get_arch(MOE_ARCH).reduced()
+    model = LM(cfg)
+    p_cpu = model.init(0, device="cpu")
+    models = {"cpu": model, dev: model}
+    params = {"cpu": p_cpu, dev: _to(p_cpu, dev)}
+    caches = {d: model.init_cache(3, 48, device=d) for d in ("cpu", dev)}
+    if plan is not None:
+        plan = plan.for_pool(3, dict(zip(mesh.mesh_dim_names,
+                                         mesh.mesh.shape)))
+        models[dev] = LM(cfg, plan=plan, mesh=mesh)
+        params[dev] = place_tree(params[dev], mesh, plan)
+        caches[dev] = zeros_tree(model.cache_shapes(3, 48), mesh, plan,
+                                 CACHE_RULES, device=dev)
+    sides = ("cpu", "card")
+    seen, side = {d: [] for d in sides}, ["cpu"]
+    route = moe.route
+
+    def recorded(xf, router, cfg_, cap):
+        logits = xf.float() @ router
+        seen[side[0]].append(
+            (logits.cpu(), torch.topk(logits, cfg_.moe.top_k).indices
+             .sort(-1).values.cpu()))
+        return route(xf, router, cfg_, cap)
+
+    def both(call):
+        """call(d) on the CPU, then on the card: the gathered logits."""
+        out = {}
+        for name, d in zip(sides, ("cpu", dev)):
+            side[0] = name
+            out[name] = whole(call(d)[0]).float().cpu()
+        return float((out["cpu"] - out["card"]).abs().max())
+    moe.route = recorded
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    try:
+        for slot, pr in enumerate(rng.integers(0, cfg.vocab, size=n)
+                                  for n in (5, 16, 11)):
+            for i in range(0, len(pr), 8):
+                chunk = np.pad(pr[i:i + 8], (0, max(0, 8 - len(pr[i:i + 8]))))
+                nv = min(8, len(pr) - i)
+                worst = max(worst, both(lambda d: models[d].prefill_chunk(
+                    params[d], caches[d], torch.as_tensor(chunk, device=d),
+                    slot, nv)))
+        for step in range(6):
+            toks = rng.integers(0, cfg.vocab, size=3)
+            act = np.array([True, True, step % 2 == 0])
+            worst = max(worst, both(lambda d: models[d].decode_step(
+                params[d], caches[d], torch.as_tensor(toks, device=d),
+                torch.as_tensor(act, device=d))))
+    finally:
+        moe.route = route
+    calls = list(zip(seen["cpu"], seen["card"]))
+    flips = sum(int((a[1] != b[1]).any(-1).sum()) for a, b in calls)
+    tokens = sum(a[1].shape[0] for a, _ in calls)
+    gap = max(float((a[0] - b[0]).abs().max()) for a, b in calls)
+    print(f"reduced moonshot{' under the plan' if plan is not None else ''}"
+          f", card vs CPU: max|dlogits|={worst:.4g} (band {LOGITS_ATOL}); "
+          f"routing: {flips} of {tokens} tokens in {len(calls)} MoE calls "
+          f"chose another expert set, router logits max gap {gap:.3g} "
+          f"{tag}")
+    if len(seen["cpu"]) != len(seen["card"]) or not worst <= LOGITS_ATOL:
+        fail("reduced moonshot on the card disagrees with the CPU")
+    return dict(max_abs_err=worst, routing_flips=flips, routed_tokens=tokens,
+                router_logit_gap=gap)
+
+
+def serve_moe_plan(base, dev, tag, mesh):
+    """Phase 4m, serving: 4l's first MOE_PLAN_REQS requests on 4l's
+    weights and pool under the solved (1, 1) decode plan, pinned by
+    normalize_moe_plan (params and cache as DTensors; the MoE layer's
+    global formula on the local experts, the kernels inside local_map).
+    They must give 4l's streams of those requests; launches exactly
+    flash_fwd 48 a chunk and flash_decode 48 a step, no fallback, no
+    all-to-all (serving routes globally), no plain call, no non-finite
+    logit.  Prints a decode step's host and device ms with the plan, then
+    the reduced moonshot under the plan against the CPU."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.compile import (normalize_moe_plan,
+                                            plan_from_record,
+                                            solve_cell_plan)
+    from repro_torch.launch.mesh import solver_axes
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import Server
+
+    model0, params, prompts, streams4l, scfg = base
+    cfg = model0.cfg
+    t0 = time.perf_counter()
+    prec = solve_cell_plan(cfg, ShapeConfig(*MOE_PLAN_SHAPE),
+                           solver_axes((1, 1)), "mesh1x1", use_cache=False)
+    plan = normalize_moe_plan(plan_from_record(prec), cfg)
+    print(f"moe plan: {cfg.name} {MOE_PLAN_SHAPE[0]} on the 1x1 mesh, "
+          f"solved in {time.perf_counter() - t0:.3f} s:")
+    print(plan.describe())
+    model = LM(cfg, plan=plan, mesh=mesh)
+    reqs = prompts[:MOE_PLAN_REQS]
+    warm = Server(model, params, scfg)
+    warm.admit(reqs[0][:8], 0, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = checked_server()(model, params, scfg)
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    rec = run_workload(srv, [(0.0, p) for p in reqs], gen=MOE_GEN)
+    launches = dict(fa.launches)
+    plain, fallbacks = dict(ops.plain_calls), dict(ops.plan_fallbacks)
+    a2a = dict(ops.all_to_all)
+    peak = torch.cuda.max_memory_allocated(dev)
+    streams = {r: list(t) for r, t in srv.outputs.items()}
+    L, ms = cfg.n_layers, 1e3
+    want = dict.fromkeys(launches, 0)
+    want["flash_fwd"] = L * srv.prefill_dispatches
+    want["flash_decode"] = L * srv.decode_dispatches
+    print(f"moe plan: {len(reqs)} requests, {srv.prefill_dispatches} "
+          f"prefill chunks, {srv.decode_dispatches} decode dispatches; "
+          f"launches {launches} (want {want}), plan fallbacks {fallbacks}, "
+          f"all-to-alls {a2a}, plain calls {plain}, non-finite logits "
+          f"{srv.nonfinite}")
+    print(f"moe plan metrics: prefill {rec['prefill_tok_per_s']:.1f} tok/s, "
+          f"decode {rec['decode_tok_per_s']:.1f} tok/s, ITL p50 "
+          f"{rec['itl_p50_s'] * ms:.2f} ms, wall {rec['wall_s']:.2f} s, "
+          f"peak memory {peak / 2**30:.2f} GiB {tag}")
+    if launches != want:
+        fail(f"moe plan: launches {launches}, want {want}")
+    if (any(fallbacks.values()) or any(a2a.values()) or any(plain.values())
+            or srv.nonfinite):
+        fail(f"moe plan: fallbacks {fallbacks}, all-to-alls {a2a}, plain "
+             f"calls {plain}, {srv.nonfinite} non-finite logits")
+    if streams != {r: streams4l[r] for r in range(len(reqs))}:
+        fail("moe plan: streams differ from phase 4l's")
+    print(f"moe plan: 4l's streams of its first {len(reqs)} requests under "
+          f"the (1, 1) plan; launches exact, 0 fallbacks, 0 plain calls "
+          f"{tag}")
+    out = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+    out.update(decode_dispatches=srv.decode_dispatches,
+               prefill_dispatches=srv.prefill_dispatches, launches=launches,
+               plan_fallbacks=fallbacks, peak_memory_bytes=peak,
+               decode_step=decode_step_times(srv, PLAN_STEPS, tag,
+                                             "moonshot plan"))
+    del srv
+    torch.cuda.empty_cache()
+    out["reduced_card_vs_cpu"] = reduced_moe_card_vs_cpu(dev, tag, plan,
+                                                         mesh)
+    return out, launches
+
+
+@contextlib.contextmanager
+def recording_aux():
+    """Record the aux loss of every training forward (one a microbatch),
+    as device tensors, read once at the end."""
+    from repro_torch.models.model import LM
+
+    auxes, forward = [], LM.forward
+
+    def recorded(self, params, tokens):
+        logits, aux = forward(self, params, tokens)
+        auxes.append(aux.detach())
+        return logits, aux
+    LM.forward = recorded
+    try:
+        yield auxes
+    finally:
+        LM.forward = forward
+
+
+def aux_per_step(auxes):
+    """The recorded aux losses as the mean of each step's microbatches."""
+    from repro_torch.models.common import whole
+    vals = [float(whole(a)) for a in auxes]
+    return [float(np.mean(vals[i:i + TRAIN_MICRO]))
+            for i in range(0, len(vals), TRAIN_MICRO)]
+
+
+def train_moe(dev, tag):
+    """Phase 4m, training: moonshot at full width cut to MOE_TRAIN_LAYERS
+    layers, launch.train's runner (4b's batch and optimizer, MOE_STEPS
+    steps): losses finite and falling, launches per step exactly
+    flash_fwd 4 x 2 x 2 (microbatches, forward and remat) and dq / dk/dv
+    4 x 2 each, no plain call; the aux of each step printed; the model-
+    FLOPs share counts the active experts only."""
+    with recording_aux() as auxes:
+        rec, launches = train_full_width(dev, tag, MOE_ARCH, MOE_STEPS,
+                                         MOE_TRAIN_LAYERS, moe_train_flops)
+    rec["aux"] = aux_per_step(auxes)
+    print(f"train moe: aux per step {[round(a, 4) for a in rec['aux']]} "
+          f"(0.01 x of it in each loss)")
+    if len(rec["aux"]) != MOE_STEPS or not np.isfinite(rec["aux"]).all():
+        fail(f"train moe: aux {rec['aux']}")
+    return rec, launches
+
+
+def train_moe_plan(dev, tag, ref_rec):
+    """Phase 4m, training under the plan: train_moe's run (its cut, batch,
+    optimizer, schedule) through launch.train's runner with --mesh 1x1
+    --plan auto (a world-1 NCCL group must be up; the plan pinned by
+    normalize_moe_plan): launches exactly train_moe's, 0 fallbacks, 0
+    plain calls, every loss within TRAIN_PLAN_LOSS_REL of train_moe's
+    (bit-equality printed); the all-to-alls 0, the expert axis being of
+    size 1."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    args = launch_train.build_argparser().parse_args(
+        train_argv(MOE_ARCH, MOE_STEPS) + ["--mesh", "1x1", "--plan",
+                                           "auto"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    with recording_aux() as auxes:
+        rec = launch_train.run(args, cfg=cfg)
+    launches = dict(fa.launches)
+    plain, fallbacks = dict(ops.plain_calls), dict(ops.plan_fallbacks)
+    a2a = dict(ops.all_to_all)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = ref_rec["launches"]
+    losses, ref = rec["losses"], ref_rec["losses"]
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, ref))
+    rec["aux"] = aux_per_step(auxes)
+    print(f"train moe plan: {cfg.name} cut to {cfg.n_layers} layers under "
+          f"the (1, 1) plan, {MOE_STEPS} steps, losses "
+          f"{[round(x, 4) for x in losses]}, aux "
+          f"{[round(x, 4) for x in rec['aux']]}")
+    print(f"train moe plan: launches {launches} (want {want}), plan "
+          f"fallbacks {fallbacks}, all-to-alls {a2a}, plain calls {plain}")
+    print(f"train moe plan: losses against the unplanned run's: bit-equal "
+          f"{losses == ref}, max relative gap {rel:.3g} (band "
+          f"{TRAIN_PLAN_LOSS_REL})")
+    if len(losses) != MOE_STEPS or not np.isfinite(losses).all():
+        fail(f"train moe plan: losses not all finite: {losses}")
+    if launches != want:
+        fail(f"train moe plan: launches {launches}, expected {want}")
+    if any(fallbacks.values()) or any(plain.values()) or any(a2a.values()):
+        fail(f"train moe plan: fallbacks {fallbacks}, plain {plain}, "
+             f"all-to-alls {a2a}")
+    if len(ref) != MOE_STEPS or not rel <= TRAIN_PLAN_LOSS_REL:
+        fail(f"train moe plan: losses {losses} against {ref}")
+    print(f"train moe plan metrics: {rec['tokens_per_s']:.1f} tok/s "
+          f"(unplanned {ref_rec['tokens_per_s']:.1f}), mean step "
+          f"{rec['mean_step_s'] * 1e3:.2f} ms (unplanned "
+          f"{ref_rec['mean_step_s'] * 1e3:.2f}), peak memory "
+          f"{peak / 2**30:.2f} GiB {tag}")
+    rec.update(launches=launches, plan_fallbacks=fallbacks,
+               peak_memory_bytes=peak, bit_equal=losses == ref,
+               max_rel_gap=rel)
+    return rec, launches
+
+
+def serve_qwen32(dev, tag):
+    """Phase 4n: qwen2.5-32b served at full width through
+    launch.serve.run_workload on the linear tier: launches exactly
+    flash_fwd 64 a prefill chunk and flash_decode 64 a decode step, no
+    plain call, no non-finite logit, and a peak memory under the card's
+    own.  Every earlier phase's tensors must be freed before it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = get_arch(QWEN32)
+    model = LM(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serve qwen32: {cfg.name} full width, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of hd "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{n_params / 1e9:.3f} B params bf16 ({2 * n_params / 1e9:.1f} "
+          f"GB), init {time.perf_counter() - t0:.1f}s {tag}")
+    scfg = ServeConfig(slots=MOE_SLOTS, max_len=MOE_MAX_LEN,
+                       prefill_chunk=MOE_CHUNK)
+    rng = np.random.default_rng(0)
+    lo, hi = QWEN32_PROMPT
+    prompts = [rng.integers(0, cfg.vocab,
+                            size=int(rng.integers(lo, hi + 1))).tolist()
+               for _ in range(QWEN32_REQUESTS)]
+    warm = Server(model, params, scfg)
+    warm.admit(prompts[0][:300], 0, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    srv = checked_server()(model, params, scfg)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in srv.cache["kv"].values())
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    rec = run_workload(srv, [(0.0, p) for p in prompts], gen=QWEN32_GEN)
+    launches = dict(fa.launches)
+    plain = dict(ops.plain_calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    L, ms = cfg.n_layers, 1e3
+    want = dict.fromkeys(launches, 0)
+    want["flash_fwd"] = L * srv.prefill_dispatches
+    want["flash_decode"] = L * srv.decode_dispatches
+    reasons = set(srv.finished.values())
+    print(f"serve qwen32: {rec['requests']} requests, {rec['prompt_tokens']} "
+          f"prompt tokens, {rec['generated_tokens']} generated, "
+          f"{srv.prefill_dispatches} prefill chunks, "
+          f"{srv.decode_dispatches} decode dispatches, cache "
+          f"{cache_bytes / 1e9:.2f} GB; launches {launches} (want {want}), "
+          f"plain calls {plain}")
+    if rec["requests"] != QWEN32_REQUESTS or reasons != {"length"} or any(
+            len(srv.outputs[r]) != QWEN32_GEN for r in srv.finished):
+        fail(f"qwen32: not every request gave {QWEN32_GEN} tokens: "
+             f"{srv.finished}")
+    if launches != want:
+        fail(f"qwen32 launches {launches}, expected {want}")
+    if any(plain.values()) or srv.nonfinite:
+        fail(f"qwen32: plain calls {plain}, {srv.nonfinite} non-finite "
+             f"logits")
+    if not peak < total:
+        fail(f"qwen32: peak memory {peak} is not under the card's {total}")
+    print(f"serve qwen32 metrics: prefill {rec['prefill_tok_per_s']:.1f} "
+          f"tok/s, decode {rec['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{rec['ttft_p50_s'] * ms:.1f} ms, ITL p50 "
+          f"{rec['itl_p50_s'] * ms:.2f} ms p95 {rec['itl_p95_s'] * ms:.2f} "
+          f"ms, wall {rec['wall_s']:.2f} s, peak memory "
+          f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB {tag}")
+    slim = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+    slim.update(prefill_dispatches=srv.prefill_dispatches,
+                decode_dispatches=srv.decode_dispatches,
+                peak_memory_bytes=peak, cache_bytes=cache_bytes,
+                params=n_params, launches=launches)
+    del srv, params, model
+    return slim, launches
+
+
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
@@ -3258,6 +3868,41 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB {tag}")
     print(f"phase 4k done at {time.perf_counter() - t_start:.1f}s")
 
+    # 4l. the MoE family: moonshot-v1-16b-a3b served at full width on both
+    # tiers, then the reduced moonshot against the CPU
+    t_moe = time.perf_counter()
+    moe_serve, moe_serve_launches, moe_base = serve_moe(dev, tag)
+    moe_reduced = reduced_moe_card_vs_cpu(dev, tag)
+    print(f"phase 4l done at {time.perf_counter() - t_start:.1f}s")
+
+    # 4m. on a world-1 NCCL group of its own: 4l's first requests under the
+    # solved (1, 1) decode plan, then moonshot cut in depth trained, and
+    # the same run under the (1, 1) train plan
+    init_distributed("cuda", 0, 1, free_port())
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    moe_plan_serve, moe_plan_serve_launches = serve_moe_plan(moe_base, dev,
+                                                             tag, mesh)
+    del moe_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train, moe_train_launches = train_moe(dev, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train_plan, moe_train_plan_launches = train_moe_plan(dev, tag,
+                                                             moe_train)
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4m done at {time.perf_counter() - t_start:.1f}s")
+
+    # 4n. qwen2.5-32b served at full width, every earlier tensor freed
+    qwen32_rec, qwen32_launches = serve_qwen32(dev, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_s = time.perf_counter() - t_moe
+    print(f"phases 4l-4n: {phase_moe_s:.1f} s {tag}")
+    print(f"phase 4n done at {time.perf_counter() - t_start:.1f}s")
+
     # 5. times
     times = time_kernels(dev, tag, timer, hybrid_serve["lengths"])
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
@@ -3265,8 +3910,9 @@ def main() -> int:
     # 6. the kernels line: launches are those of the main paths (linear
     # serving, the four paged runs, serving under the plan, the paged runs
     # under the plan, training, training under the plan, hybrid training,
-    # hybrid serving, and the hybrid family's serving and training under
-    # the plan)
+    # hybrid serving, the hybrid family's serving and training under the
+    # plan, the MoE family's serving on both tiers and under the plan, its
+    # training and training under the plan, and qwen2.5-32b's serving)
     fa_py = "src/repro/kernels/flash_attention.py"
     replaces = {"flash_fwd": f"{fa_py}:146 and {fa_py}:191",
                 "flash_decode": f"{fa_py}:280",
@@ -3287,7 +3933,10 @@ def main() -> int:
     runs = (serve_launches, paged_launches, plan_launches,
             paged_plan_launches, train_launches, train_plan_launches,
             hybrid_launches, hybrid_serve_launches,
-            hybrid_plan_serve_launches, hybrid_plan_train_launches)
+            hybrid_plan_serve_launches, hybrid_plan_train_launches,
+            moe_serve_launches["linear"], moe_serve_launches["paged"],
+            moe_plan_serve_launches, moe_train_launches,
+            moe_train_plan_launches, qwen32_launches)
     runs120 = (danube_launches, danube_plan_launches, danube_train_launches)
     kernels = []
     for k, hd120 in [(k, False) for k in replaces] + [
@@ -3322,6 +3971,10 @@ def main() -> int:
             reduced_danube_train_card_vs_cpu=danube_train_reduced,
             hybrid_serve=hybrid_serve, hybrid_plan_serve=hybrid_plan_serve,
             hybrid_plan_train=hybrid_plan_train, phase_4k_s=phase_4k_s,
+            moe_serve=moe_serve, reduced_moe_card_vs_cpu=moe_reduced,
+            moe_plan_serve=moe_plan_serve, moe_train=moe_train,
+            moe_train_plan=moe_train_plan, qwen32_serve=qwen32_rec,
+            phase_moe_s=phase_moe_s,
             kernels=kernels), indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))

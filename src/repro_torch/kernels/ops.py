@@ -14,7 +14,8 @@ device dispatch.  ``ssd_chunk_scan_diff`` is the counterpart of repro's
 the backward by autograd through the chunked ``ssd.ssd_scan``
 (repro's backward is ``jax.vjp`` of its XLA scan, not a kernel);
 ``bwd_recomputes`` counts those backward passes, ``plan_fallbacks`` the
-attention calls under a sharding plan that could not take the kernel."""
+calls under a sharding plan that could not run on local shards, and
+``all_to_all`` the MoE layer's expert-parallel exchanges."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -38,15 +39,22 @@ bwd_recomputes: Dict[str, int] = {"ssd_chunk_scan": 0}
 # the speculative re-score (both tiers); the copy-on-write of a pool
 # block whose blocks are cut across ranks (runtime/serve.py); and a
 # Mamba decode step whose state is cut on an axis other than batch
-# (models/mamba.py), whose update ran on the gathered state
+# (models/mamba.py), whose update ran on the gathered state; and an MoE
+# layer whose expert weights or activations are cut on an axis it cannot
+# run on locally (models/moe.py), which ran on the gathered tensors
 plan_fallbacks: Dict[str, int] = {"attend_cache": 0, "prefill_attention": 0,
                                   "attention": 0, "attend_paged": 0,
                                   "rescore": 0, "copy_block": 0,
-                                  "mamba_state": 0}
+                                  "mamba_state": 0, "moe": 0}
+# the MoE layer's expert-parallel all-to-alls under a training plan
+# (models/moe.py): one "dispatch" and one "combine" a layer a forward
+# (the remat recompute runs them again), counted per mesh axis they
+# cross; their backward twins are autograd's and are not counted
+all_to_all: Dict[str, int] = {"moe_dispatch": 0, "moe_combine": 0}
 
 
 def reset_plain_calls() -> None:
-    for counts in (plain_calls, bwd_recomputes, plan_fallbacks):
+    for counts in (plain_calls, bwd_recomputes, plan_fallbacks, all_to_all):
         for name in counts:
             counts[name] = 0
 

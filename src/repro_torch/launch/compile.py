@@ -1,6 +1,8 @@
 """Plan solve with an on-disk record cache (the port's counterpart of
 ``repro.launch.compile``'s ``plan_cache_path`` / ``solve_cell_plan`` /
-``plan_from_record``).
+``plan_from_record``, and of ``expert_parallel_axis`` /
+``normalize_moe_plan``, which pin an MoE plan's expert weights to the
+layout the MoE layer runs).
 
 A record holds the solved role cuts and the solver's byte and second
 totals (and, with a compute term, the plan's compute seconds).  It has no
@@ -80,3 +82,33 @@ def solve_cell_plan(cfg: ArchConfig, shape: ShapeConfig,
 def plan_from_record(rec: Dict[str, Any]) -> ShardingPlan:
     return ShardingPlan(tuple(rec["mesh_axes"]),
                         {r: dict(c) for r, c in rec["role_cuts"].items()})
+
+
+def expert_parallel_axis(cfg: ArchConfig,
+                         axis: str = "model") -> Optional[str]:
+    """Mesh axis the MoE layer cuts the expert dim on (expert
+    parallelism: the all-to-all of ``models/moe.moe_ffn_sharded``), or
+    None when the experts stay whole: at 16 experts or a multiple of 16
+    only (repro's rule)."""
+    if cfg.moe is not None and cfg.moe.n_experts % 16 == 0:
+        return axis
+    return None
+
+
+def normalize_moe_plan(plan: ShardingPlan, cfg: ArchConfig,
+                       axis: str = "model") -> ShardingPlan:
+    """``plan`` with the MoE roles pinned to the layout the MoE layer
+    runs (repro's ``normalize_moe_plan``): the experts' weights
+    (``moe_up`` / ``moe_down``) cut on ``expert`` over
+    ``expert_parallel_axis`` and whole elsewhere, the router
+    (``moe_gate``) whole.  A plan without experts is returned as it is."""
+    if cfg.moe is None:
+        return plan
+    full = {a: None for a in plan.mesh_axis_names}
+    ep = dict(full)
+    ep_axis = expert_parallel_axis(cfg, axis)
+    if ep_axis is not None:
+        ep[ep_axis] = "expert"
+    for role in ("moe_up", "moe_down"):
+        plan = plan.with_override(role, dict(ep))
+    return plan.with_override("moe_gate", dict(full))

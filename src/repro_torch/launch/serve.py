@@ -29,7 +29,8 @@ gloo ranks with ``--device cpu``, otherwise NCCL, one rank a card.  Under
 the module spawns the D*M ranks itself.  ``--plan auto`` solves the
 decode tiling of ``ShapeConfig(f"serve{tag}{slots}x{max_len}")`` for the
 mesh (``launch/compile.solve_cell_plan``, cached under
-``.cache/plans_torch/``) and places params and cache with it, on either
+``.cache/plans_torch/``; an MoE plan pinned by ``normalize_moe_plan``)
+and places params and cache with it, on either
 tier (``--paged``) and with ``--spec-k``; every rank runs the same
 scheduler, and rank 0 prints and writes the record."""
 from __future__ import annotations
@@ -213,7 +214,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         mesh = make_mesh(shape, names, device.type)
         if args.plan == "auto":
             from ..configs.base import ShapeConfig
-            from .compile import plan_from_record, solve_cell_plan
+            from .compile import (normalize_moe_plan, plan_from_record,
+                                  solve_cell_plan)
             tag = "r" if args.reduced else ""
             dshape = ShapeConfig(f"serve{tag}{args.slots}x{args.max_len}",
                                  args.max_len, args.slots, "decode")
@@ -221,7 +223,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             plan_rec = solve_cell_plan(cfg, dshape,
                                        solver_axes(shape, names),
                                        mesh_name=f"mesh{args.mesh}")
-            plan = plan_from_record(plan_rec)
+            plan = normalize_moe_plan(plan_from_record(plan_rec), cfg)
             if rank == 0:
                 print(f"decode plan ({time.time() - t0:.2f}s, solve "
                       f"{plan_rec['solve_time']:.2f}s):")

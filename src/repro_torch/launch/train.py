@@ -27,8 +27,9 @@ the module spawns the D*M ranks itself.  ``--plan auto`` solves the train
 tiling of ``ShapeConfig(f"train{tag}{batch}x{seq}")`` for the mesh, with
 the f32 master and error-feedback state in the graph as the flags say
 (``launch/compile.solve_cell_plan``, cached under
-``.cache/plans_torch/`` with ``_mp`` / ``_ef`` in the name), and places
-the state under it;
+``.cache/plans_torch/`` with ``_mp`` / ``_ef`` in the name), and the
+trainer places the state under it (an MoE plan's roles pinned by
+``normalize_moe_plan`` in ``runtime/train_loop.make_engine``);
 rank 0 prints and writes the record.  ``--mesh`` without ``--plan auto``
 trains unsharded, as repro does, and says so.  Not ported yet:
 ``--stages``, the trace / metrics / monitor flags and fault injection."""

@@ -94,13 +94,27 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return rot.to(x.dtype)
 
 
+# the largest f32 draw dense_init makes at once (4 GiB); a larger weight
+# (a stacked [L, ...] weight of qwen2.5-32b or moonshot's experts) is drawn
+# slice by slice along its leading axis, so the draw never doubles it in f32
+_DRAW_BYTES = 1 << 32
+
+
 def dense_init(shape: Sequence[int], generator: torch.Generator, *,
                in_axis: int = 0, dtype=torch.bfloat16,
                device="cpu") -> torch.Tensor:
     fan_in = shape[in_axis]
-    w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
-                    device=device)
-    return (w / math.sqrt(max(fan_in, 1))).to(dtype)
+    scale = math.sqrt(max(fan_in, 1))
+    shape = tuple(shape)
+    if math.prod(shape) * 4 <= _DRAW_BYTES:
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (w / scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for row in out:
+        row.copy_(torch.randn(shape[1:], generator=generator,
+                              dtype=torch.float32, device=device) / scale)
+    return out
 
 
 def embed_init(shape: Sequence[int], generator: torch.Generator, *,

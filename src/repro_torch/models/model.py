@@ -1,12 +1,14 @@
-"""The decoder LM (counterpart of ``repro.models.model.LM``, its dense
-and hybrid branches): for the dense family init, forward, loss, the
+"""The decoder LM (counterpart of ``repro.models.model.LM``, its dense,
+MoE and hybrid branches): for the dense family init, forward, loss, the
 linear slot cache and the paged block pool, decode, chunked prefill and
-the speculative re-score; for the hybrid family (zamba2: Mamba2 layers
-with one shared attention+MLP block applied after every ``attn_every``
-of them) init, forward, loss, the linear cache (each layer's Mamba
-state, and the shared block's ring of K/V per application), decode and
-the scan prefill.  As in repro the hybrid family has no paged pool
-(``paged_ok``) and no speculative re-score.
+the speculative re-score; the MoE family is the dense one with each
+layer's MLP replaced by ``models/moe.py``'s layer (its aux summed over
+the layers into the loss, as repro); for the hybrid family (zamba2:
+Mamba2 layers with one shared attention+MLP block applied after every
+``attn_every`` of them) init, forward, loss, the linear cache (each
+layer's Mamba state, and the shared block's ring of K/V per
+application), decode and the scan prefill.  As in repro the hybrid
+family has no paged pool (``paged_ok``) and no speculative re-score.
 
 Params are plain dicts of tensors with the same keys and shapes as repro's
 param tree: per-layer weights stacked on a leading ``[L]`` axis (the
@@ -37,8 +39,12 @@ local shards (``attention.attention_sharded`` around the training
 kernels; when serving, the ``*_sharded`` routes of
 ``models/attention.py`` with each layer's K/V write: the linear cache or
 the hybrid family's ring, the scan prefill's row, the paged pool and its
-table, the re-score).  The hybrid family's SSD scan and its decode
-step's state update run on local batch rows (``models/mamba.py``).
+table, the re-score).  The MoE layer routes each rank's tokens and
+trades the experts' rows by all-to-all in training
+(``moe.moe_ffn_sharded``) and runs the global formula on each rank's
+own experts when serving (``moe.moe_ffn_placed``), as repro's two
+routes do.  The hybrid family's SSD scan and its decode step's state
+update run on local batch rows (``models/mamba.py``).
 Plain tensors (lengths, write indices, the rotary tables) join the
 DTensor ops as replicated (``dist_scope``).  Without a plan every path
 runs as before."""
@@ -63,6 +69,8 @@ from .common import (dense_init, embed_init, local, resolve_device, rms_norm,
 from .sharding import global_offset
 from .mamba import (SSD_IMPLS, mamba_forward, mamba_shapes,
                     mamba_state_shapes, mamba_step)
+from .moe import (check_plan, moe_ffn, moe_ffn_placed, moe_ffn_sharded,
+                  moe_shapes)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -92,14 +100,13 @@ def is_hybrid(cfg: ArchConfig) -> bool:
 
 
 def _unsupported_family(cfg: ArchConfig) -> Optional[str]:
-    if cfg.moe is not None:
-        return "moe"
     if cfg.xlstm is not None:
         return "xlstm"
     if cfg.embed_stub:
         return "embed-stub"
     if is_hybrid(cfg):
-        return None
+        # no config puts experts in the shared block; not held to repro
+        return "hybrid-moe" if cfg.moe is not None else None
     if cfg.family == "hybrid" or cfg.attn_every:
         return "hybrid"
     if cfg.family == "ssm" or cfg.ssm is not None:
@@ -185,7 +192,7 @@ class LM:
         if fam is not None:
             raise NotImplementedError(
                 f"{self.cfg.name}: the {fam} family is not ported yet; the "
-                "port runs the dense and hybrid families")
+                "port runs the dense, MoE and hybrid families")
         if self.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"ssd_impl must be one of {SSD_IMPLS}, got "
                              f"{self.ssd_impl!r}")
@@ -193,6 +200,8 @@ class LM:
             raise ValueError(
                 f"{self.cfg.name}: {self.cfg.n_layers} layers are not a "
                 f"multiple of attn_every={self.cfg.attn_every}")
+        if self.cfg.moe is not None:
+            check_plan(self.plan)
 
     def _shard(self, x, role: str, dims: Sequence[str]):
         return shard(x, self.plan, role, dims)
@@ -239,10 +248,16 @@ class LM:
         if cfg.qkv_bias:
             attn.update(bq=(lead + (h * hd,), dt), bk=(lead + (kv * hd,), dt),
                         bv=(lead + (kv * hd,), dt))
-        return {"ln1": (lead + (d,), f32), "ln2": (lead + (d,), f32),
-                "attn": attn,
-                "mlp": {"wg": (lead + (d, f), dt), "wu": (lead + (d, f), dt),
-                        "wd": (lead + (f, d), dt)}}
+        tree = {"ln1": (lead + (d,), f32), "ln2": (lead + (d,), f32),
+                "attn": attn}
+        if cfg.moe is not None:
+            tree["moe"] = {k: (lead + shape, t)
+                           for k, (shape, t) in moe_shapes(cfg, dt).items()}
+        else:
+            tree["mlp"] = {"wg": (lead + (d, f), dt),
+                           "wu": (lead + (d, f), dt),
+                           "wd": (lead + (f, d), dt)}
+        return tree
 
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random params from ``torch.Generator(seed)`` on ``device``:
@@ -297,17 +312,38 @@ class LM:
         return q, k, v
 
     # -- forward (train) -----------------------------------------------------
-    def _layer(self, p: Params, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
-        """One dense layer of the training forward.  Under a plan it runs
-        in ``dist_scope()`` itself (the remat calls it again in the backward)
-        and constrains the activations at repro's sites: the post-norm
-        activations, q on ``wq.out`` and ``x`` after each residual add."""
+    def _ffn(self, p: Params, xn: torch.Tensor, train: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The layer's feed-forward on the normed activations ``xn`` [B, S,
+        d] or [B, d] (a decode step, a re-score: routed as [B, 1, d], as
+        repro): the MLP, or the MoE layer and its aux (None for the MLP).
+        Under a plan the MoE's route is repro's: local routing (and
+        expert parallelism) in the training forward (``train``), the
+        global formula when serving."""
+        if "moe" not in p:
+            return _mlp_forward(p["mlp"], xn), None
+        x3 = xn.unsqueeze(1) if xn.ndim == 2 else xn
+        if self.plan is None:
+            y, aux = moe_ffn(p["moe"], x3, self.cfg)
+        elif train:
+            y, aux = moe_ffn_sharded(p["moe"], x3, self.cfg, self.mesh)
+        else:
+            y, aux = moe_ffn_placed(p["moe"], x3, self.cfg)
+        return (y.squeeze(1) if xn.ndim == 2 else y), aux
+
+    def _layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One dense layer of the training forward -> (x, the MoE aux or
+        None).  Under a plan it runs in ``dist_scope()`` itself (the remat
+        calls it again in the backward) and constrains the activations at
+        repro's sites: the post-norm activations, q on ``wq.out`` and
+        ``x`` after each residual add."""
         with self.dist_scope():
             return self._layer_body(p, x, positions)
 
     def _layer_body(self, p: Params, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.cfg
         hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         b, s, _ = x.shape
@@ -323,7 +359,8 @@ class LM:
         x = self._shard(x + o.reshape(b, s, h * hd) @ p["attn"]["wo"], "x",
                         bsd)
         xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bsd)
-        return self._shard(x + _mlp_forward(p["mlp"], xn), "x", bsd)
+        y, aux = self._ffn(p, xn, train=True)
+        return self._shard(x + y, "x", bsd), aux
 
     def _mamba_layer(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         """One Mamba layer of the training forward, constrained at repro's
@@ -339,10 +376,12 @@ class LM:
 
     def forward(self, params: Params,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B, S] -> (logits [B, S, V], aux_loss 0).  Under autograd
-        each layer (each Mamba layer and each application of the hybrid
-        family's shared block) is rematerialised in the backward.  Under
-        a plan params and tokens are DTensors and so are the logits."""
+        """tokens [B, S] -> (logits [B, S, V], aux_loss: the sum of the MoE
+        layers' aux, 0 without experts).  Under autograd each layer (each
+        Mamba layer and each application of the hybrid family's shared
+        block) is rematerialised in the backward, its aux carried out of
+        it.  Under a plan params and tokens are DTensors and so are the
+        logits and the aux."""
         with self.dist_scope():
             return self._forward(params, tokens)
 
@@ -367,6 +406,7 @@ class LM:
                                   preserve_rng_state=False)
             return fn(*args)
 
+        auxs = []
         if is_hybrid(self.cfg):
             # groups of attn_every Mamba layers, each followed by the shared
             # block; autograd sums the shared weights' grads over the groups
@@ -375,12 +415,15 @@ class LM:
             for g0 in range(0, len(mamba), period):
                 for p in mamba[g0:g0 + period]:
                     x = run(self._mamba_layer, p, x)
-                x = run(self._layer, params["shared"], x, positions)
+                x, _ = run(self._layer, params["shared"], x, positions)
         else:
             for p in _unbind(params["layers"]):
-                x = run(self._layer, p, x, positions)
+                x, aux = run(self._layer, p, x, positions)
+                auxs.append(aux)
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
-        return self._head(params, x), torch.zeros((), device=x.device)
+        aux_total = (sum(auxs[1:], auxs[0]) if self.cfg.moe is not None
+                     else torch.zeros((), device=x.device))
+        return self._head(params, x), aux_total
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
@@ -553,7 +596,7 @@ class LM:
         o = attend(li, q, k, v)
         x = self._shard(x + o.reshape(b, h * hd) @ pa["wo"], "x", bd)
         xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bd)
-        return self._shard(x + _mlp_forward(p["mlp"], xn), "x", bd)
+        return self._shard(x + self._ffn(p, xn)[0], "x", bd)
 
     def _hybrid_layers_decode(self, params: Params, state: Cache,
                               x: torch.Tensor, attend, rpos: torch.Tensor,
@@ -780,7 +823,7 @@ class LM:
             o = attend(li, q, k, v)
             x = self._shard(x + o.reshape(1, c, h * hd) @ pa["wo"], "x", bsd)
             xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bsd)
-            x = self._shard(x + _mlp_forward(p["mlp"], xn), "x", bsd)
+            x = self._shard(x + self._ffn(p, xn)[0], "x", bsd)
         # only the last valid row's logits are returned, so only that row
         # goes through the final norm and the head
         last = rms_norm(x[0, n_valid - 1], params["ln_f"], cfg.norm_eps)
@@ -911,6 +954,6 @@ class LM:
             o = attend(li, q)
             x = self._shard(x + o.reshape(n, h * hd) @ pa["wo"], "x", bd)
             xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bd)
-            x = self._shard(x + _mlp_forward(p["mlp"], xn), "x", bd)
+            x = self._shard(x + self._ffn(p, xn)[0], "x", bd)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return self._head(params, x)

@@ -173,7 +173,9 @@ def batch_placements(plan, mesh_axis_names: Sequence[str],
 def place_tree(tree: Tree, mesh, plan, rules=RULES) -> Tree:
     """Every leaf of ``tree`` as a DTensor on ``mesh`` under ``plan``.
     A leaf that is a DTensor already is taken as it stands, so callers
-    may pass full tensors (the same on every rank) or placed ones."""
+    may pass full tensors (the same on every rank) or placed ones.  On a
+    mesh of more than one rank every leaf takes rank 0's values; on one
+    rank the DTensor holds the leaf's own storage (``place``)."""
     pl = tree_placements(plan, tree, mesh.mesh_dim_names, rules)
 
     def go(t: Tree, p: Tree) -> Tree:
@@ -183,16 +185,32 @@ def place_tree(tree: Tree, mesh, plan, rules=RULES) -> Tree:
                 out[k] = go(v, p[k])
             elif isinstance(v, torch.distributed.tensor.DTensor):
                 out[k] = v
+            elif mesh.size() == 1:
+                out[k] = place(v, mesh, p[k])
             else:
                 out[k] = distribute_tensor(v, mesh, p[k])
         return out
     return go(tree, pl)
 
 
+def _whole_locally(placements: Sequence, mesh) -> bool:
+    """Whether every cut of ``placements`` is of a mesh dim of size 1, so
+    that each rank's shard is the whole tensor."""
+    return all(not isinstance(p, Shard) or mesh.size(j) == 1
+               for j, p in enumerate(placements))
+
+
 def place(t: torch.Tensor, mesh, placements: Sequence):
     """``t``, the same full tensor on every rank, as a DTensor under
     ``placements``: each rank keeps its own slice and nothing moves
-    between ranks."""
+    between ranks.  Where that slice is all of ``t`` (every cut on a mesh
+    dim of size 1: one card's (1, 1) mesh) the DTensor holds ``t``'s own
+    storage, as a replicated one does; ``distribute_tensor`` would copy
+    it (a 17.7 GB copy of moonshot's stacked experts under a plan that
+    cuts them on "model")."""
+    if _whole_locally(placements, mesh):
+        d = from_local(t.detach().contiguous(), mesh, placements, t.shape)
+        return d.requires_grad_(t.requires_grad)
     return distribute_tensor(t, mesh, placements, src_data_rank=None)
 
 

@@ -56,9 +56,12 @@ class TrainConfig:
 def make_engine(model: LM, tcfg: TrainConfig, device="cuda", mesh=None,
                 plan=None) -> TrainEngine:
     """The engine for ``tcfg``; with ``plan`` (and ``mesh``) the model
-    runs under that plan and the state is placed under it."""
+    runs under that plan, its MoE roles pinned by ``normalize_moe_plan``,
+    and the state is placed under it."""
     if plan is not None:
-        model = dataclasses.replace(model, plan=plan, mesh=mesh)
+        from ..launch.compile import normalize_moe_plan
+        model = dataclasses.replace(
+            model, plan=normalize_moe_plan(plan, model.cfg), mesh=mesh)
     return TrainEngine(
         model,
         EngineConfig(microbatches=tcfg.microbatches, buckets=tcfg.buckets,

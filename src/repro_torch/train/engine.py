@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -52,8 +53,8 @@ from ..checkpoint import ckpt
 from ..models.common import resolve_device
 from ..models.mamba import SSD_IMPLS
 from ..models.model import LM
-from ..models.sharding import (batch_placements, from_local, like_placed,
-                               place, tree_placements, zeros_placed)
+from ..models.sharding import (batch_placements, like_placed, place,
+                               tree_placements, zeros_placed)
 from ..optim import adamw
 from ..optim.adamw import AdamWConfig, apply_updates
 from ..optim.compression import (bucket_slices, compress_bucketed,
@@ -288,41 +289,26 @@ class TrainEngine:
     # -- the step under a plan -----------------------------------------------
     def _micro_batches(self, batch: Dict[str, Any], n: int
                        ) -> List[Dict[str, Any]]:
-        """The batch placed under the train batch placements, cut into
-        ``n`` microbatches on each rank's local rows (rank r's rows i*m to
-        (i+1)*m go to microbatch i), so no row moves between ranks.  With
-        the batch dim uncut that is the contiguous split of the one-card
-        path; with it cut, each microbatch takes rows from every data
-        shard, which sums to the same full-batch gradient."""
-        from torch.distributed.tensor import DTensor
+        """The batch cut into ``n`` microbatches as one card and repro cut
+        it (microbatch i is the global rows i*B/n to (i+1)*B/n), each
+        placed under the train batch placements.  An MoE model's routing,
+        capacity and aux depend on which rows share a data shard, so this
+        split is the one that gives repro's result for every family."""
+        from torch.distributed.tensor import DTensor, Shard
         mesh, want = self.mesh, self.batch_placements()
-        placed = {}
-        for k, v in batch.items():
-            pl = want[k]
-            if not isinstance(v, DTensor):
-                v = place(torch.as_tensor(v, device=self.device), mesh, pl)
-            elif tuple(v.placements) != tuple(pl):
-                v = v.redistribute(mesh, pl)
-            placed[k] = v
-        b = placed["tokens"].shape[0]
-        if b % n:
-            raise ValueError(f"batch {b} is not divisible by "
-                             f"{n} microbatches")
-        if n == 1:
-            return [placed]
-        parts: List[Dict[str, Any]] = [{} for _ in range(n)]
-        for k, v in placed.items():
-            lt = v.to_local()
-            if lt.shape[0] % n:
-                raise ValueError(
-                    f"{k}: this rank's {lt.shape[0]} rows do not split into "
-                    f"{n} microbatches")
-            m = lt.shape[0] // n
-            shape = (b // n,) + tuple(v.shape[1:])
-            for i in range(n):
-                parts[i][k] = from_local(lt[i * m:(i + 1) * m], mesh,
-                                         v.placements, shape)
-        return parts
+        full = {k: v.full_tensor() if isinstance(v, DTensor)
+                else torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}
+        b = full["tokens"].shape[0]
+        shards = math.prod(mesh.size(j) for j, p in
+                           enumerate(want["tokens"]) if isinstance(p, Shard))
+        if b % n or (b // n) % shards:
+            raise ValueError(f"batch {b} does not split into {n} "
+                             f"microbatches that split evenly over {shards} "
+                             "data shards")
+        mb = b // n
+        return [{k: place(v[i * mb:(i + 1) * mb], mesh, want[k])
+                 for k, v in full.items()} for i in range(n)]
 
     def _reshard(self, grads: List, placements: List) -> List:
         """Each grad into its placements, in f32 (reducing the pending

@@ -32,7 +32,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models.common import rms_norm, rope
 from repro_torch.models.model import LM
 
-ARCHS = ["qwen2-1.5b", "llama3.2-3b", "h2o-danube-3-4b"]
+ARCHS = ["qwen2-1.5b", "llama3.2-3b", "h2o-danube-3-4b", "qwen2.5-32b"]
 DTYPES = ["float32", "bfloat16"]
 BAND = {"float32": 1e-3, "bfloat16": LOGITS_ATOL}
 
@@ -197,13 +197,60 @@ def test_reset_slot_zeroes_only_that_row():
     assert cache["pos"].tolist() == [6, 0, 0]
 
 
+def _port_cfg(jcfg):
+    """repro's config as the port's ArchConfig (the port registers only
+    the configs it runs), field for field."""
+    from repro_torch.configs import ArchConfig, SSMCfg, XLSTMCfg
+    kw = {f.name: getattr(jcfg, f.name)
+          for f in dataclasses.fields(ArchConfig)}
+    for key, cls in (("moe", MoECfg), ("ssm", SSMCfg), ("xlstm", XLSTMCfg)):
+        if kw[key] is not None:
+            kw[key] = cls(**dataclasses.asdict(kw[key]))
+    return ArchConfig(**kw)
+
+
 def test_unported_families_raise():
+    """xLSTM, the embedding-stub frontends (VLM, audio) and a pure SSM
+    config are refused; the MoE family is built (its layer is ported)."""
     cfg = get_arch("qwen2-1.5b").reduced()
-    moe = dataclasses.replace(cfg, family="moe", moe=MoECfg(4, 2, 64))
-    with pytest.raises(NotImplementedError, match="moe"):
-        LM(moe)
+    for name, fam in (("xlstm-125m", "xlstm"),
+                      ("internvl2-76b", "embed-stub"),
+                      ("musicgen-large", "embed-stub")):
+        with pytest.raises(NotImplementedError, match=fam):
+            LM(_port_cfg(jax_arch(name)))
+    pure_ssm = dataclasses.replace(_port_cfg(jax_arch("zamba2-2.7b")),
+                                   family="ssm", attn_every=0)
+    with pytest.raises(NotImplementedError, match="ssm"):
+        LM(pure_ssm)
     with pytest.raises(NotImplementedError, match="embed-stub"):
         LM(dataclasses.replace(cfg, embed_stub=True))
+    moe = dataclasses.replace(cfg, family="moe", moe=MoECfg(4, 2, 64))
+    assert "moe" in LM(moe).param_shapes()["layers"]
+    for name in ("moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b",
+                 "qwen2.5-32b"):
+        LM(get_arch(name))
+
+
+def test_moe_plan_cutting_more_than_experts_raises():
+    """The MoE layer runs whole rows on whole experts: a plan cutting the
+    experts' hidden dim (``e_ff``) or the router is refused; the plan
+    ``normalize_moe_plan`` pins is accepted."""
+    from repro_torch.core.plan import manual_megatron_plan
+    from repro_torch.launch.compile import normalize_moe_plan
+    cfg = get_arch("moonshot-v1-16b-a3b")
+    plan = manual_megatron_plan(("data", "model"), ["data"], "model")
+    LM(cfg, plan=plan)
+    for role in ("moe_up", "moe_down"):
+        with pytest.raises(ValueError, match=role):
+            LM(cfg, plan=plan.with_override(role, {"data": None,
+                                                   "model": "e_ff"}))
+    with pytest.raises(ValueError, match="moe_gate"):
+        LM(cfg, plan=plan.with_override("moe_gate", {"data": "d_model",
+                                                     "model": None}))
+    bad = plan.with_override("moe_up", {"data": "d_model", "model": "e_ff"})
+    fixed = normalize_moe_plan(bad, cfg)
+    assert fixed.role_cuts["moe_up"] == {"data": None, "model": "expert"}
+    LM(cfg, plan=fixed)
 
 
 def test_entry_points_default_to_the_card():

@@ -23,7 +23,7 @@ from repro.models.model import LM as JaxLM
 from repro.runtime.serve import ServeConfig as JaxServeConfig
 from repro.runtime.serve import Server as JaxServer
 from repro.verify.numerics import LOGITS_ATOL
-from repro_torch.configs import MoECfg, get_arch
+from repro_torch.configs import MoECfg, XLSTMCfg, get_arch
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.model import LM
@@ -221,14 +221,16 @@ class TestRetirement:
         assert srv.finished[ok] == "length"
 
     def test_unported_options_raise(self):
-        """The paged tier and speculative decoding are ported; the model
-        families beyond the dense one are not, and say so."""
+        """The paged tier, speculative decoding and the MoE family are
+        ported; a family that is not (xLSTM, a hybrid without its Mamba
+        layers) says so."""
         assert ServeConfig(paged=True).paged
         assert ServeConfig(spec_k=4).spec_k == 4
         cfg = get_arch("qwen2-1.5b").reduced()
         moe = dataclasses.replace(cfg, family="moe", moe=MoECfg(4, 2, 64))
-        with pytest.raises(NotImplementedError, match="moe"):
-            LM(moe)
+        assert "moe" in LM(moe).param_shapes()["layers"]
+        with pytest.raises(NotImplementedError, match="xlstm"):
+            LM(dataclasses.replace(cfg, xlstm=XLSTMCfg()))
         with pytest.raises(NotImplementedError, match="hybrid"):
             LM(dataclasses.replace(cfg, family="hybrid", attn_every=2))
 

@@ -89,7 +89,7 @@ def _batch(cfg, b=4, s=12, seed=0):
 # forward and in the backward (the ids of the 12-token cases are the
 # architectures' names alone)
 LOSS_CASES = [(a, 12) for a in ("qwen2-1.5b", "llama3.2-3b",
-                                "h2o-danube-3-4b")] + \
+                                "h2o-danube-3-4b", "qwen2.5-32b")] + \
     [(a, 40) for a in ("qwen2-1.5b", "llama3.2-3b", "h2o-danube-3-4b")]
 
 

@@ -569,7 +569,7 @@ def test_attention_fallbacks(runs):
     assert out["fallback"]["fallbacks"] == {
         "attend_cache": 0, "prefill_attention": 0,
         "attention": 2 * L * MICRO * 2, "attend_paged": 0, "rescore": 0,
-        "copy_block": 0, "mamba_state": 0}
+        "copy_block": 0, "mamba_state": 0, "moe": 0}
 
 
 def test_int8_compression_under_the_plan(runs):
@@ -931,6 +931,43 @@ def test_unplanned_engine_keeps_its_mesh_out():
     with pytest.raises(ValueError, match="mesh"):
         TrainEngine(LM(_cfg(), plan=ShardingPlan(NAMES, {})),
                     EngineConfig(optim=OPT), device="cpu")
+
+
+def test_micro_batches_split_the_global_batch_contiguously():
+    """Under a plan microbatch i is the global rows i*B/n to (i+1)*B/n
+    (one card's and repro's split), placed on the data cut; a split whose
+    microbatches do not divide over the data shards raises.  Rank 0 of a
+    (2, 1) mesh on torch's fake process group."""
+    import types
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = init_device_mesh("cpu", (2, 1), mesh_dim_names=NAMES)
+        pl = [Shard(0), Replicate()]
+        eng = types.SimpleNamespace(
+            mesh=mesh, device=torch.device("cpu"),
+            batch_placements=lambda: {"tokens": pl, "labels": pl})
+        toks = torch.arange(24).reshape(8, 3)
+        batch = {"tokens": toks, "labels": toks + 100}
+        parts = TrainEngine._micro_batches(eng, batch, 2)
+        for i, part in enumerate(parts):
+            for k, v in part.items():
+                assert tuple(v.shape) == (4, 3)
+                assert tuple(v.placements) == tuple(pl)
+                assert torch.equal(v.to_local(),
+                                   batch[k][4 * i:4 * i + 2]), (i, k)
+        for b, n in ((8, 8), (6, 4)):
+            with pytest.raises(ValueError, match="split evenly"):
+                TrainEngine._micro_batches(
+                    eng, {"tokens": toks[:b], "labels": toks[:b]}, n)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":
