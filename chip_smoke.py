@@ -87,7 +87,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      flash_decode launched as often as in phase 4, no plan fallback, no
      plain call, no non-finite logit; a decode step's host and device ms
      with and without the plan; then the gathered route (the cache's cut
-     on seq_kv, which has no local-shard rule) on 4 requests: the
+     on seq_kv, which has no local-shard rule) on 2 requests: the
      kernels launched on the gathered cache, every call counted in
      plan_fallbacks, the streams of the same requests with no plan;
   4b. train: qwen2-1.5b at full width, f32 master weights, global batch
@@ -111,7 +111,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   4f. danube serve: h2o-danube-3-4b at full width (24 layers, d 3840,
      32 heads of hd 120 on 8 KV heads, window 4096, untied vocab 32000,
      bf16, random weights from torch.Generator(0)), 8 slots x 2048 (a ring
-     of 2048 positions), 4 requests of 128-512 prompt tokens, 32 greedy
+     of 2048 positions), 2 requests of 128-512 prompt tokens, 32 greedy
      tokens each, through launch.serve.run_workload; every prompt token is
      a batch-1 scan step, so flash_decode launches exactly 24 x (decode
      dispatches + prompt tokens), flash_fwd and the paged kernel never,
@@ -125,10 +125,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      counters and launches of flash_paged_decode / flash_fwd /
      flash_decode exactly, no plan fallback, no plain call, no non-finite
      logit; a paged decode step's host and device ms with and without the
-     plan; then the pool's cut moved to blocks on 4 requests: every
+     plan; then the pool's cut moved to blocks on 2 requests: every
      paged call gathered, counted in plan_fallbacks, its kernel launched,
      the unplanned streams; then danube at full width under its solved
-     (1, 1) decode plan and with no plan, 1 request of 128 tokens and
+     (1, 1) decode plan and with no plan, 1 request of 64 tokens and
      32 greedy tokens on 8 slots x 2048 through the scan prefill: equal
      streams, flash_decode exactly 24 x (decode dispatches + prompt
      tokens) on both, flash_fwd never; the reduced danube under the plan
@@ -154,7 +154,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   4j. hybrid serve: zamba2-2.7b at full width (4d's weights' shapes,
      from torch.Generator(0)), 16 slots x 2048 (the shared block's rings
      hold all 2048 positions; the rings take 3.0 GB and the Mamba state
-     1.16 GB), 4 requests of 64-192 prompt tokens, 32 greedy tokens each,
+     1.16 GB), 2 requests of 32-96 prompt tokens, 32 greedy tokens each,
      through launch.serve.run_workload; every prompt token is a batch-1
      scan step (54 mamba_steps, 9 shared blocks), so flash_decode
      launches exactly 9 x (decode dispatches + prompt tokens), flash_fwd
@@ -172,7 +172,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      4 steps and schedule) under the solved train plan through
      launch.train --mesh 1x1 --plan auto: 4d's launches exactly, 0
      fallbacks, 0 plain calls, each loss within 1e-3 relative of 4d's;
-     the peak memory, and a step's host and device ms with and without
+     the peak memory, and (with --profile) a step's host and device ms
+     with and without
      the plan;
   4l. MoE serve: moonshot-v1-16b-a3b at full width (48 layers, d 2048,
      16 / 16 heads of hd 128, 64 experts top-6 of d_ff 1408, vocab
@@ -207,6 +208,34 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      GB), 4 requests of 256-1024 prompt tokens, 16 greedy tokens each;
      launches exactly flash_fwd 64 a chunk and flash_decode 64 a step, the
      peak memory under the card's;
+  4o. xLSTM serve: xlstm-125m at full width (6 sLSTM + 6 mLSTM blocks,
+     d 768, 4 heads, vocab 50304, 0.14 B params bf16, random weights from
+     torch.Generator(0)), 16 slots x 2048 (each slot's state: C 6 x 4 x
+     384 x 384 f32 = 14.2 MB, h / c / n), 4 requests of 64-192 prompt
+     tokens, 32 greedy tokens each, through run_workload; every prompt
+     token a batch-1 scan step; no kernel launches (the family runs none:
+     mLSTM's scan is the chunked PyTorch scan, as repro's is XLA's), no
+     plain call, no non-finite logit; TTFT and ITL p50 / p95, a scan
+     step's and a decode step's host and device ms, the peak memory; the
+     reduced xlstm on the card against the CPU; then, on a world-1 NCCL
+     group, its first request under the solved (1, 1) decode plan: 4o's
+     stream token for token, 0 fallbacks, 0 plain calls, the step times
+     under the plan, the reduced xlstm under the plan against the CPU;
+  4p. xLSTM train: xlstm-125m at full width, 4 x 512 tokens a step in one
+     microbatch, f32 master, AdamW, 3 steps through launch.train's
+     runner (the sLSTM recurrence a Python loop of 512 steps a block, as
+     repro's lax.scan); losses finite and falling, no launch, no plain
+     call; tok/s, step ms, the model-FLOPs share, the peak memory; then
+     the same run with --mesh 1x1 --plan auto on the same group: each
+     loss within 1e-3 relative of the unplanned run's, 0 fallbacks;
+  4q. the pure-Mamba branch (no config has it: zamba2-2.7b's widths with
+     family "ssm" and no shared block, 8 of 54 layers): one engine step
+     of 4 x 1024 in 2 microbatches and 8 decode steps of 4 rows;
+     ssd_chunk_scan exactly 8 x 2 x 2 = 32 (forward and remat), 16
+     backward recomputes, no other kernel, no plain call; the kernel
+     route against the chunked route on the same weights: the bf16 loss
+     within 0.05, an f32 copy's logits within 0.25; the reduced branch on
+     the card against the CPU;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch, the stream held by a spin kernel so the interval is device
      time; the forward and both decode kernels also without the hold,
@@ -290,31 +319,34 @@ TRAIN_PLAN_SHAPE = ("train4x1024", 1024, 4, "train")
 # host and device ms a step, with and without the plan: steps timed after
 # one warm step (host: each step()'s enqueue; wall: the steps ended by a
 # sync), and steps under torch.profiler (device: its kernels' time)
-STEP_TIMED, STEP_PROFILED = 3, 2
+STEP_TIMED, STEP_PROFILED = 2, 1
 # the hybrid (zamba2-2.7b) run: 4 steps of the same batch, 2 of them warmup
 # (4k trains it again under the plan, on the same cosine schedule)
 HYBRID_ARCH, HYBRID_STEPS = "zamba2-2.7b", 4
 # zamba2-2.7b served at full width (4j): 16 slots x 2048 (the shared
-# block's ring holds all 2048 positions), 4 requests of 64-192 prompt
+# block's ring holds all 2048 positions), 2 requests of 32-96 prompt
 # tokens (each a batch-1 scan step: no parallel prefill for a recurrent
 # state), 32 greedy tokens each; 4k serves the first under the solved
 # (1, 1) decode plan and with none, and trains 4d's run under the (1, 1)
 # train plan, each loss within TRAIN_PLAN_LOSS_REL of 4d's (8 and 2
-# requests until the MoE phases needed the time)
-HYBRID_SLOTS, HYBRID_MAX_LEN, HYBRID_REQUESTS = 16, 2048, 4
-HYBRID_PROMPT, HYBRID_GEN, HYBRID_PLAN_REQS = (64, 192), 32, 1
+# requests until the MoE phases needed the time, 4 and 1 of 64-192
+# tokens until the SSM phases did)
+HYBRID_SLOTS, HYBRID_MAX_LEN, HYBRID_REQUESTS = 16, 2048, 2
+HYBRID_PROMPT, HYBRID_GEN, HYBRID_PLAN_REQS = (32, 96), 32, 1
 HYBRID_PLAN_SHAPE = ("serve16x2048", HYBRID_MAX_LEN, HYBRID_SLOTS, "decode")
-# 4k's training steps timed with and without the plan (a zamba2 step
-# takes seconds): one warm step, 1 timed, 1 under the profiler
+# 4k's training steps timed with and without the plan, with --profile
+# only (a zamba2 step takes seconds): one warm step, 1 timed, 1 under the
+# profiler
 HYBRID_STEP_TIMED, HYBRID_STEP_PROFILED = 1, 1
 # h2o-danube-3-4b (hd 120, window 4096): served at full width, 8 slots x
-# 2048 (a ring of min(2048, 4096) positions), 4 requests of 128-512
-# prompt tokens (each a batch-1 scan step), 32 greedy tokens each; trained
+# 2048 (a ring of min(2048, 4096) positions), 2 requests of 128-512
+# prompt tokens (each a batch-1 scan step; 4 until the SSM phases needed
+# the time), 32 greedy tokens each; trained
 # at full width cut to 12 of its 24 layers (full depth holds ~71 GB of
 # params, master weights, moments and grads before activations), 8 steps
 # of the dense run's batch, 2 of them warmup
 DANUBE = "h2o-danube-3-4b"
-DANUBE_SLOTS, DANUBE_MAX_LEN, DANUBE_REQUESTS = 8, 2048, 4
+DANUBE_SLOTS, DANUBE_MAX_LEN, DANUBE_REQUESTS = 8, 2048, 2
 DANUBE_PROMPT, DANUBE_GEN = (128, 512), 32
 DANUBE_TRAIN_LAYERS, DANUBE_STEPS = 12, 8
 HD120 = "(hd 120, danube)"     # the suffix of its rows in phase 5 and 6
@@ -339,6 +371,27 @@ MOE_PLAN_SHAPE = ("serve8x2048", MOE_MAX_LEN, MOE_SLOTS, "decode")
 # = 4.29 GB), 4 requests of 256-1024 prompt tokens, 16 greedy tokens each
 QWEN32, QWEN32_REQUESTS, QWEN32_PROMPT, QWEN32_GEN = ("qwen2.5-32b", 4,
                                                       (256, 1024), 16)
+# xlstm-125m (arXiv:2405.04517; 6 sLSTM + 6 mLSTM blocks, d 768, 4 heads,
+# vocab 50304, 0.14 B params): 4o serves it at full width, 16 slots x 2048
+# (an mLSTM state of 6 x 4 x 384 x 384 f32 = 14.2 MB a slot), 4 requests of
+# 64-192 prompt tokens (each a batch-1 scan step: a recurrent state has no
+# parallel prefill), 32 greedy tokens each, and its first request again
+# under the solved (1, 1) decode plan; 4p trains it at full width (the
+# model is small: no depth cut), 4 x 512 tokens a step in one microbatch
+# (mLSTM's scan over two chunks of 256), 3 steps (2 of them warmup: the
+# sLSTM recurrence is a Python loop of 512 steps a block and a
+# microbatch, ~11 s of host time a step), then the same run under the (1, 1)
+# train plan, each loss within TRAIN_PLAN_LOSS_REL of the unplanned run's
+XLSTM = "xlstm-125m"
+XLSTM_SLOTS, XLSTM_MAX_LEN, XLSTM_REQUESTS = 16, 2048, 4
+XLSTM_PROMPT, XLSTM_GEN, XLSTM_PLAN_REQS = (64, 192), 32, 1
+XLSTM_PLAN_SHAPE = ("serve16x2048", XLSTM_MAX_LEN, XLSTM_SLOTS, "decode")
+XLSTM_STEPS, XLSTM_BATCH, XLSTM_SEQ, XLSTM_MICRO = 3, 4, 512, 1
+# the pure-Mamba branch of LM (4q): no config has it, so a test-built one,
+# zamba2-2.7b's widths with family "ssm" and no shared block, cut to 8 of
+# its 54 layers; one training step of the dense run's batch (4 x 1024 in 2
+# microbatches) and 8 decode steps of 4 rows
+SSM_LAYERS, SSM_DECODE_STEPS, SSM_ROWS = 8, 8, 4
 # SSD kernel vs its plain version: y is f32 on both sides, the sequential
 # recurrence against the chunked form, so the same terms summed in another
 # order (up to a chunk of 256 in one sum): |err| <= 2e-4 x max(1, max|ref|).
@@ -1666,9 +1719,12 @@ def serve_paged(base, lin_decode, dev, tag):
 # and the meshes whose plans are printed (solved only: one card here).
 PLAN_SHAPE = ("serve16x2048", 2048, 16, "decode")
 PLAN_MESHES = ((1, 1), (4, 2), (2, 4))
-PLAN_STEPS = 8          # decode steps timed with and without the plan
+# decode steps timed with and without the plan (8 until the SSM phases
+# needed the time)
+PLAN_STEPS = 4
 # the gathered route: requests, prompt tokens and tokens generated each
-FALLBACK_REQS, FALLBACK_PROMPT, FALLBACK_GEN = 4, 600, 8
+# (4 requests until the SSM phases needed the time)
+FALLBACK_REQS, FALLBACK_PROMPT, FALLBACK_GEN = 2, 600, 8
 
 
 def decode_step_times(srv, n, tag, label):
@@ -1911,7 +1967,8 @@ def serve_fallback(lin_model, params, prompts, fb_plan, mesh, scfg, tag,
 # 4i: serving's remaining tiers under the solved (1, 1) decode plan: 4c's
 # P1 and P2, the paged fallback route, and danube's scan prefill
 DANUBE_PLAN_SHAPE = ("serve8x2048", DANUBE_MAX_LEN, DANUBE_SLOTS, "decode")
-DANUBE_PLAN_REQS, DANUBE_PLAN_PROMPT = 1, 128
+# (128 prompt tokens until the SSM phases needed the time)
+DANUBE_PLAN_REQS, DANUBE_PLAN_PROMPT = 1, 64
 
 
 def serve_paged_plan(base, paged_rec, plan, mesh, dev, tag):
@@ -2308,10 +2365,11 @@ def hybrid_train_flops(cfg, b, s):
     return 3 * (mm + attn + ssd)
 
 
-def train_argv(arch="qwen2-1.5b", steps=TRAIN_STEPS):
+def train_argv(arch="qwen2-1.5b", steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, micro=TRAIN_MICRO):
     return ["--arch", arch, "--steps", str(steps),
-            "--warmup", "2", "--batch", str(TRAIN_BATCH), "--seq",
-            str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--buckets",
+            "--warmup", "2", "--batch", str(batch), "--seq",
+            str(seq), "--microbatches", str(micro), "--buckets",
             "4", "--lr", "3e-4", "--log-every", "5", "--seed", "0"]
 
 
@@ -2371,7 +2429,7 @@ def train_full_width(dev, tag, arch="qwen2-1.5b", steps=TRAIN_STEPS,
 
 
 def train_step_times(dev, cfg, plan, mesh, tag, label, profile=False,
-                     timed=STEP_TIMED, profiled=STEP_PROFILED):
+                     timed=STEP_TIMED, profiled=STEP_PROFILED, argv=None):
     """Host, wall and device ms of a full-width training step of phase
     4b's engine (``plan``/``mesh`` None: unplanned), fed by BatchFeed as
     the training loop feeds it: one warm step, ``timed`` steps whose
@@ -2388,7 +2446,7 @@ def train_step_times(dev, cfg, plan, mesh, tag, label, profile=False,
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.train_loop import TrainConfig, make_engine
 
-    args = launch_train.build_argparser().parse_args(train_argv())
+    args = launch_train.build_argparser().parse_args(argv or train_argv())
     tcfg = TrainConfig(microbatches=args.microbatches, buckets=args.buckets,
                        optim=AdamWConfig(lr=args.lr, warmup_steps=2,
                                          total_steps=args.steps))
@@ -2882,6 +2940,8 @@ def train_hybrid_plan(dev, tag, ref_rec, mesh, profile=False):
     rec.update(launches=launches, bwd_recomputes=recomputes,
                plan_fallbacks=fallbacks, peak_memory_bytes=peak,
                bit_equal=losses == ref, max_rel_gap=rel)
+    if not profile:
+        return rec, launches
     plan = plan_from_record(rec["plan"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -2889,7 +2949,7 @@ def train_hybrid_plan(dev, tag, ref_rec, mesh, profile=False):
     for label, p in (("without the plan", None), ("with the plan", plan)):
         steps[label] = train_step_times(
             dev, cfg, p, None if p is None else mesh, tag,
-            f"zamba2 {label}", profile and p is not None,
+            f"zamba2 {label}", p is not None,
             timed=HYBRID_STEP_TIMED, profiled=HYBRID_STEP_PROFILED)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2999,7 +3059,7 @@ def serve_danube(dev, tag, profile=False):
 
 
 def reduced_scan_card_vs_cpu(dev, tag, plan=None, mesh=None,
-                             arch=DANUBE):
+                             arch=DANUBE, cfg=None, name=None):
     """The reduced h2o-danube-3-4b (window 16, hd 16) on the card against
     the same bf16 weights on the CPU: a scan prefill of 20 tokens into
     slot 0 (its ring of 16 wraps) and of 10 into slot 1, then 40 decode
@@ -3007,14 +3067,16 @@ def reduced_scan_card_vs_cpu(dev, tag, plan=None, mesh=None,
     window.  With ``plan`` and ``mesh`` the card's side runs under the
     plan (params and ring cache placed as the Server places them).
     ``arch`` zamba2-2.7b: the reduced hybrid the same way (each Mamba
-    layer's state and the shared block's ring of 64, 4f's band)."""
+    layer's state and the shared block's ring of 64, 4f's band); ``cfg``
+    (printed as ``name``) in place of ``arch``'s reduced config: a
+    recurrent family with no ring (xLSTM, the pure-SSM branch)."""
     from repro_torch.configs import get_arch
     from repro_torch.models.common import whole
     from repro_torch.models.model import LM
     from repro_torch.models.sharding import (CACHE_RULES, place_tree,
                                              zeros_tree)
 
-    cfg = get_arch(arch).reduced()
+    cfg = cfg or get_arch(arch).reduced()
     model = LM(cfg)
     p_cpu = model.init(0, device="cpu")
     models = {"cpu": model, dev: model}
@@ -3042,13 +3104,15 @@ def reduced_scan_card_vs_cpu(dev, tag, plan=None, mesh=None,
               for d in ("cpu", dev)}
         worst = max(worst, float((lg["cpu"].float()
                                   - lg[dev].float().cpu()).abs().max()))
-    name = "danube" if arch == DANUBE else "zamba2"
-    ring = caches[dev]["kv" if arch == DANUBE else "shared"]["k"].shape[2]
+    name = name or ("danube" if arch == DANUBE else "zamba2")
+    kv = caches[dev].get("kv", caches[dev].get("shared"))
+    ring = None if kv is None else kv["k"].shape[2]
     pos = whole(caches[dev]["pos"]).tolist()
     print(f"reduced {name}{' under the plan' if plan is not None else ''}, "
-          f"card vs CPU, ring of {ring} positions, rows at positions {pos}: "
-          f"max|dlogits|={worst:.4g} (band {LOGITS_ATOL}) {tag}")
-    if ring != (cfg.swa_window or 64) or pos != [60, 50]:
+          f"card vs CPU, {'' if kv is None else f'ring of {ring} positions, '}"
+          f"rows at positions {pos}: max|dlogits|={worst:.4g} (band "
+          f"{LOGITS_ATOL}) {tag}")
+    if (kv is not None and ring != (cfg.swa_window or 64)) or pos != [60, 50]:
         fail(f"reduced {name}'s ring {ring} / positions {pos}")
     if not worst <= LOGITS_ATOL:
         fail(f"reduced {name} on the card disagrees with the CPU")
@@ -3677,6 +3741,401 @@ def serve_qwen32(dev, tag):
     return slim, launches
 
 
+def xlstm_train_flops(cfg, b, s):
+    """Model FLOPs of one xLSTM training step (3 x the forward, remat
+    recompute not counted): each sLSTM block's input gates, recurrent
+    product and up / down projection, each mLSTM block's fused projection,
+    out-projection and chunked scan (heads folded into the batch: one
+    head of P = N = 2 d / H a row, chunk min(256, S)), and the untied
+    head."""
+    d, h = cfg.d_model, cfg.n_heads
+    dm = int(d * cfg.xlstm.proj_factor_mlstm)
+    df = int(d * cfg.xlstm.proj_factor_slstm)
+    hds, hdm = d // h, dm // h
+    pairs = cfg.n_layers // 2
+    per_tok = (d * 4 * d + h * hds * 4 * hds + 2 * d * df
+               + d * (4 * dm + 2 * h) + dm * d)
+    mm = 2.0 * b * s * (pairs * per_tok + d * cfg.vocab)
+    scan = pairs * ssd_work(b * h, s, 1, hdm, hdm, min(256, s))[1]
+    return 3 * (mm + scan)
+
+
+def serve_xlstm(dev, tag):
+    """Phase 4o: xlstm-125m served at full width through
+    launch.serve.run_workload.  Every prompt token is a batch-1 decode
+    step (the scan prefill): each pair an sLSTM step on its h, c, n and
+    an mLSTM step on its C, in place.  No kernel launches (the family
+    runs none), no plain call, no non-finite logit, every request
+    retired by length with XLSTM_GEN tokens.  Prints TTFT and ITL p50 /
+    p95, a scan step's and a decode step's host and device ms, the peak
+    memory; then the reduced xlstm on the card against the CPU.  Returns
+    the record, the launches and what the plan part serves again."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = get_arch(XLSTM)
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serve xlstm: {cfg.name} full width, {cfg.n_layers // 2} sLSTM + "
+          f"{cfg.n_layers // 2} mLSTM blocks, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, vocab {cfg.vocab}, {n_params / 1e9:.3f} B "
+          f"params bf16, init {time.perf_counter() - t0:.1f}s {tag}")
+    scfg = ServeConfig(slots=XLSTM_SLOTS, max_len=XLSTM_MAX_LEN,
+                       prefill_chunk=256)
+    rng = np.random.default_rng(0)
+    lo, hi = XLSTM_PROMPT
+    prompts = [rng.integers(0, cfg.vocab,
+                            size=int(rng.integers(lo, hi + 1))).tolist()
+               for _ in range(XLSTM_REQUESTS)]
+    warm = Server(model, params, scfg)
+    warm.admit(prompts[0][:8], 0, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = checked_server()(model, params, scfg)
+    state_b = sum(t.numel() * t.element_size() for k, sub in srv.cache.items()
+                  if k != "pos" for t in sub.values())
+    fa.reset_launches()
+    ssd.reset_launches()
+    ops.reset_plain_calls()
+    t0 = time.perf_counter()
+    rec = run_workload(srv, [(0.0, p) for p in prompts], gen=XLSTM_GEN)
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches, **ssd.launches)
+    plain = dict(ops.plain_calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = XLSTM_REQUESTS
+    scan_steps = sum(len(p) for p in prompts)
+    reasons = set(srv.finished.values())
+    want = dict.fromkeys(launches, 0)       # the family runs no kernel
+    print(f"serve xlstm: {rec['requests']} requests, {rec['prompt_tokens']} "
+          f"prompt tokens ({scan_steps} batch-1 scan steps), "
+          f"{rec['generated_tokens']} generated, {srv.decode_dispatches} "
+          f"decode dispatches, retire reasons {sorted(reasons)}; state "
+          f"{state_b / 1e9:.3f} GB ({state_b / XLSTM_SLOTS / 1e6:.2f} MB a "
+          f"slot)")
+    print(f"serve xlstm: launches {launches} (want {want}), plain calls "
+          f"{plain}")
+    if rec["requests"] != n or len(srv.finished) != n or reasons != {
+            "length"}:
+        fail(f"not every xlstm request retired by length: {srv.finished}")
+    if any(len(srv.outputs[r]) != XLSTM_GEN for r in srv.finished):
+        fail(f"an xlstm request did not produce {XLSTM_GEN} tokens")
+    if launches != want or any(plain.values()) or srv.nonfinite:
+        fail(f"xlstm serving: launches {launches}, plain calls {plain}, "
+             f"{srv.nonfinite} non-finite logits")
+    ms = 1e3
+    print(f"serve xlstm metrics: prefill {rec['prefill_tok_per_s']:.1f} "
+          f"tok/s, decode {rec['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{rec['ttft_p50_s'] * ms:.1f} ms p95 {rec['ttft_p95_s'] * ms:.1f} "
+          f"ms, ITL p50 {rec['itl_p50_s'] * ms:.2f} ms p95 "
+          f"{rec['itl_p95_s'] * ms:.2f} ms, scan step "
+          f"{rec['prefill_s'] / scan_steps * ms:.2f} ms, wall {wall:.2f} s, "
+          f"peak memory {peak / 2**30:.2f} GiB {tag}")
+    slim = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+    slim.update(decode_dispatches=srv.decode_dispatches,
+                scan_steps=scan_steps, state_bytes=state_b, wall_s=wall,
+                peak_memory_bytes=peak, params=n_params)
+    streams = {r: list(t) for r, t in srv.outputs.items()}
+    del srv
+    torch.cuda.empty_cache()
+    srv = Server(model, params, scfg)
+    slim["decode_step"] = decode_step_times(srv, PLAN_STEPS, tag,
+                                            "xlstm no plan")
+    slim["scan_step"] = scan_step_times(srv, PLAN_STEPS, tag,
+                                        "xlstm no plan")
+    del srv
+    torch.cuda.empty_cache()
+    slim["reduced_card_vs_cpu"] = reduced_scan_card_vs_cpu(
+        dev, tag, cfg=cfg.reduced(), name="xlstm")
+    return slim, launches, (params, prompts, streams, scfg)
+
+
+def serve_xlstm_plan(base, dev, tag, mesh):
+    """Phase 4o under the plan (a world-1 NCCL group must be up): 4o's
+    first XLSTM_PLAN_REQS requests on 4o's weights and slots under the
+    solved (1, 1) decode plan (params and every layer's C, h, c, n as
+    DTensors; each block's state update in a local_map region on the
+    state's rows, in place).  They must give 4o's streams of those
+    requests token for token, with no launch, 0 plan fallbacks, 0 plain
+    calls; a decode step's and a scan step's host and device ms under
+    the plan; then the reduced xlstm under the plan against the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.launch.compile import plan_from_record, solve_cell_plan
+    from repro_torch.launch.mesh import solver_axes
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import Server
+
+    params, prompts, streams4o, scfg = base
+    cfg = get_arch(XLSTM)
+    t0 = time.perf_counter()
+    plan = plan_from_record(solve_cell_plan(
+        cfg, ShapeConfig(*XLSTM_PLAN_SHAPE), solver_axes((1, 1)), "mesh1x1",
+        use_cache=False))
+    print(f"xlstm plan: {cfg.name} {XLSTM_PLAN_SHAPE[0]} on the 1x1 mesh, "
+          f"solved in {time.perf_counter() - t0:.3f} s:")
+    print(plan.describe())
+    model = LM(cfg, plan=plan, mesh=mesh)
+    reqs = prompts[:XLSTM_PLAN_REQS]
+    scan_steps = sum(len(p) for p in reqs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = checked_server()(model, params, scfg)
+    fa.reset_launches()
+    ssd.reset_launches()
+    ops.reset_plain_calls()
+    rec = run_workload(srv, [(0.0, p) for p in reqs], gen=XLSTM_GEN)
+    launches = dict(fa.launches, **ssd.launches)
+    plain, fallbacks = dict(ops.plain_calls), dict(ops.plan_fallbacks)
+    peak = torch.cuda.max_memory_allocated(dev)
+    streams = {r: list(t) for r, t in srv.outputs.items()}
+    ms = 1e3
+    print(f"xlstm plan: {len(reqs)} requests, {scan_steps} scan steps, "
+          f"{srv.decode_dispatches} decode dispatches; launches {launches}, "
+          f"plan fallbacks {fallbacks}, plain calls {plain}, non-finite "
+          f"logits {srv.nonfinite}")
+    print(f"xlstm plan metrics: scan step "
+          f"{rec['prefill_s'] / scan_steps * ms:.2f} ms, ITL p50 "
+          f"{rec['itl_p50_s'] * ms:.2f} ms, wall {rec['wall_s']:.2f} s, "
+          f"peak memory {peak / 2**30:.2f} GiB {tag}")
+    if any(launches.values()):
+        fail(f"xlstm plan: launches {launches}")
+    if any(fallbacks.values()) or any(plain.values()) or srv.nonfinite:
+        fail(f"xlstm plan: fallbacks {fallbacks}, plain calls {plain}, "
+             f"{srv.nonfinite} non-finite logits")
+    if streams != {r: streams4o[r] for r in range(len(reqs))}:
+        fail("xlstm plan: streams differ from phase 4o's")
+    out = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+    out.update(decode_dispatches=srv.decode_dispatches,
+               scan_step_ms=rec["prefill_s"] / scan_steps * ms,
+               launches=launches, plan_fallbacks=fallbacks,
+               peak_memory_bytes=peak)
+    del srv
+    torch.cuda.empty_cache()
+    srv = Server(model, params, scfg)
+    out["decode_step"] = decode_step_times(srv, PLAN_STEPS, tag,
+                                           "xlstm plan")
+    out["scan_step"] = scan_step_times(srv, PLAN_STEPS, tag, "xlstm plan")
+    del srv
+    torch.cuda.empty_cache()
+    print(f"xlstm plan: 4o's streams of its first {len(reqs)} requests "
+          f"under the (1, 1) plan; 0 fallbacks, 0 plain calls {tag}")
+    out["reduced_card_vs_cpu"] = reduced_scan_card_vs_cpu(
+        dev, tag, plan, mesh, cfg=cfg.reduced(), name="xlstm")
+    return out, launches
+
+
+def train_xlstm(dev, tag, ref_rec=None, profile=False):
+    """Phase 4p: xlstm-125m trained at full width through launch.train's
+    runner (XLSTM_BATCH x XLSTM_SEQ tokens a step in XLSTM_MICRO
+    microbatches, AdamW, f32 master, XLSTM_STEPS steps); with ``ref_rec`` (the
+    unplanned run's record) the same run with --mesh 1x1 --plan auto (a
+    world-1 NCCL group must be up), each loss within TRAIN_PLAN_LOSS_REL
+    of the unplanned run's.  No kernel launches (the family runs none),
+    no plain call, no plan fallback; losses finite (falling, unplanned);
+    tok/s, step ms, the model-FLOPs share and the peak memory; with
+    ``profile`` (unplanned) also a step's host and device ms."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_arch(XLSTM)
+    planned = ref_rec is not None
+    argv = train_argv(XLSTM, XLSTM_STEPS, XLSTM_BATCH, XLSTM_SEQ,
+                      XLSTM_MICRO)
+    if planned:
+        argv += ["--mesh", "1x1", "--plan", "auto"]
+    args = launch_train.build_argparser().parse_args(argv)
+    label = "xlstm train plan" if planned else "xlstm train"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    ssd.reset_launches()
+    ops.reset_plain_calls()
+    rec = launch_train.run(args)
+    launches = dict(fa.launches, **ssd.launches)
+    plain, fallbacks = dict(ops.plain_calls), dict(ops.plan_fallbacks)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = rec["losses"]
+    print(f"{label}: {cfg.name} full width, {XLSTM_STEPS} steps of "
+          f"{XLSTM_BATCH} x {XLSTM_SEQ} tokens in {XLSTM_MICRO} "
+          f"microbatch(es), losses {[round(x, 4) for x in losses]}")
+    print(f"{label}: launches {launches}, plan fallbacks {fallbacks}, plain "
+          f"calls {plain}")
+    if len(losses) != XLSTM_STEPS or not np.isfinite(losses).all():
+        fail(f"{label}: losses not all finite: {losses}")
+    if any(launches.values()) or any(plain.values()) or any(
+            fallbacks.values()):
+        fail(f"{label}: launches {launches}, plain {plain}, fallbacks "
+             f"{fallbacks}")
+    if not planned and not losses[-1] < losses[0]:
+        fail(f"xlstm: last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    flops = xlstm_train_flops(cfg, XLSTM_BATCH, XLSTM_SEQ)
+    mfu = flops / rec["mean_step_s"] / BF16_FLOPS_PER_S
+    print(f"{label} metrics: {rec['tokens_per_s']:.1f} tok/s, mean step "
+          f"{rec['mean_step_s'] * 1e3:.2f} ms over "
+          f"{rec['meta']['measured_steps']} steps, model FLOPs "
+          f"{flops / 1e12:.4f} TFLOP/step = {100 * mfu:.3f}% of 989 "
+          f"TFLOP/s, peak memory {peak / 2**30:.2f} GiB, breakdown "
+          f"{rec['breakdown_s']} {tag}")
+    rec.update(launches=launches, plan_fallbacks=fallbacks,
+               peak_memory_bytes=peak, model_flops_per_step=flops, mfu=mfu)
+    if planned:
+        ref = ref_rec["losses"]
+        rel = max(abs(a - b) / max(abs(b), 1e-12)
+                  for a, b in zip(losses, ref))
+        print(f"{label}: losses against 4p's: bit-equal {losses == ref}, "
+              f"max relative gap {rel:.3g} (band {TRAIN_PLAN_LOSS_REL}); "
+              f"mean step {rec['mean_step_s'] * 1e3:.2f} ms (4p "
+              f"{ref_rec['mean_step_s'] * 1e3:.2f}) {tag}")
+        if len(ref) != XLSTM_STEPS or not rel <= TRAIN_PLAN_LOSS_REL:
+            fail(f"{label}: losses {losses} against 4p's {ref}")
+        rec.update(bit_equal=losses == ref, max_rel_gap=rel)
+    elif profile:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["step"] = train_step_times(dev, cfg, None, None, tag, "xlstm",
+                                       True, timed=1, profiled=1,
+                                       argv=argv)
+    return rec, launches
+
+
+def ssm_branch(dev, tag):
+    """Phase 4q: the pure-Mamba branch of LM on the card, on a test-built
+    config (zamba2-2.7b's widths, family "ssm", no shared block, cut to
+    SSM_LAYERS layers; no config of the repo has the branch).  One
+    training step of the engine (f32 master, AdamW, TRAIN_BATCH x
+    TRAIN_SEQ in 2 microbatches) and SSM_DECODE_STEPS decode steps of
+    SSM_ROWS rows: ssd_chunk_scan launches exactly layers x microbatches
+    x 2 (the forward and the remat recompute; the backward recomputes by
+    the chunked scan, counted apart), the decode steps none (each layer a
+    mamba_step on its state), no attention kernel, no plain call; the
+    loss and logits finite.  Then, outside the counted run, the forward
+    pass of the kernel route (ssd_impl "auto") against the chunked
+    route's on the same weights: the bf16 loss within LOSS_ATOL (4d's
+    band), the logits of an f32 copy of the weights within LOGITS_ATOL;
+    then the reduced branch on the card against the CPU.  Returns the record and
+    the launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.engine import EngineConfig, TrainEngine
+
+    base = get_arch(HYBRID_ARCH)
+    cfg = dataclasses.replace(base, name="zamba2-2.7b-ssm-8l",
+                              family="ssm", attn_every=0,
+                              n_layers=SSM_LAYERS)
+    model = LM(cfg)
+    print(f"pure SSM: a test-built config, not a registered one: "
+          f"{HYBRID_ARCH}'s widths (d {cfg.d_model}, {cfg.d_inner // cfg.ssm.head_dim} "
+          f"SSM heads of P {cfg.ssm.head_dim} / N {cfg.ssm.state_dim}, chunk "
+          f"{cfg.ssm.chunk}, vocab {cfg.vocab}), family 'ssm', no shared "
+          f"block, {SSM_LAYERS} of {base.n_layers} layers {tag}")
+    eng = TrainEngine(model, EngineConfig(
+        microbatches=TRAIN_MICRO, optim=AdamWConfig(
+            lr=3e-4, warmup_steps=2, total_steps=100)), device=dev)
+    state = eng.init_state(0)
+    dcfg = DataConfig(seed=0, vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batch = host_batch(dcfg, 0)
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (SSM_DECODE_STEPS, SSM_ROWS)), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    ssd.reset_launches()
+    ops.reset_plain_calls()
+    t0 = time.perf_counter()
+    state, m = eng.step(state, batch)
+    loss = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    params = state["params"]
+    cache = model.init_cache(SSM_ROWS, 64, device=dev)
+    nonfinite = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(SSM_DECODE_STEPS):
+            lg, _ = model.decode_step(params, cache, toks[i])
+            nonfinite += int((~torch.isfinite(lg)).sum())
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / SSM_DECODE_STEPS
+    launches = dict(fa.launches, **ssd.launches)
+    recomputes = dict(ops.bwd_recomputes)
+    plain = dict(ops.plain_calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+    L, m_ = cfg.n_layers, TRAIN_MICRO
+    want = dict.fromkeys(launches, 0)
+    want["ssd_chunk_scan"] = L * m_ * 2
+    print(f"pure SSM: one training step, loss {loss:.4f}, {step_s * 1e3:.1f} "
+          f"ms (first step: includes cuBLAS set-up); {SSM_DECODE_STEPS} "
+          f"decode steps of {SSM_ROWS} rows, {decode_ms:.2f} ms a step; peak "
+          f"memory {peak / 2**30:.2f} GiB {tag}")
+    print(f"pure SSM: launches {launches} (want {want}), SSD backward "
+          f"recomputes {recomputes} (want {L * m_}), plain calls {plain}, "
+          f"non-finite logits {nonfinite}")
+    if launches != want or recomputes != {"ssd_chunk_scan": L * m_}:
+        fail(f"pure SSM: launches {launches}, recomputes {recomputes}")
+    if any(plain.values()) or nonfinite or not np.isfinite(loss):
+        fail(f"pure SSM: plain calls {plain}, {nonfinite} non-finite "
+             f"logits, loss {loss}")
+    # the kernel route against the chunked route on the same weights: in
+    # bf16 (the main path's dtype) the loss, and in f32 (a copy of the
+    # weights, so that bf16 roundings of the activations, which 8 layers
+    # amplify, do not hide the scans' own gap) the logits
+    chunked = dataclasses.replace(model, ssd_impl="chunked")
+    one = {k: torch.as_tensor(v[:1], device=dev) for k, v in batch.items()}
+    with torch.no_grad():
+        lk16 = model.forward(params, one["tokens"])[0]
+        lc16 = chunked.forward(params, one["tokens"])[0]
+        gap16 = float((lk16.float() - lc16.float()).abs().max())
+        dloss = abs(float(model.loss(params, one))
+                    - float(chunked.loss(params, one)))
+        del lk16, lc16
+        p32 = {k: v.float() if torch.is_tensor(v) else
+               {n: t.float() for n, t in v.items()}
+               for k, v in params.items()}
+        lk = model.forward(p32, one["tokens"])[0]
+        lc = chunked.forward(p32, one["tokens"])[0]
+        gap = float((lk - lc).abs().max())
+        finite = bool(torch.isfinite(lk).all())
+    print(f"pure SSM: forward [1, {TRAIN_SEQ}] tokens, the kernel route "
+          f"against the chunked route on the same weights: bf16 |dloss| "
+          f"{dloss:.4g} (band {LOSS_ATOL}), max|dlogits| {gap16:.4g}; f32 "
+          f"copy max|dlogits| {gap:.4g} (band {LOGITS_ATOL}) {tag}")
+    if not dloss <= LOSS_ATOL or not gap <= LOGITS_ATOL or not finite:
+        fail(f"pure SSM: the kernel route is {dloss} (loss) / {gap} (f32 "
+             "logits) from the chunked route")
+    del state, eng, params, cache, lk, lc, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    red = dataclasses.replace(get_arch(HYBRID_ARCH).reduced(),
+                              family="ssm", attn_every=0)
+    rec = dict(loss=loss, step_s=step_s, decode_step_ms=decode_ms,
+               launches=launches, bwd_recomputes=recomputes,
+               peak_memory_bytes=peak, logits_gap_f32=gap,
+               logits_gap_bf16=gap16, loss_gap_bf16=dloss,
+               reduced_card_vs_cpu=reduced_scan_card_vs_cpu(
+                   dev, tag, cfg=red, name="pure SSM"))
+    return rec, launches
+
+
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
@@ -3903,6 +4362,40 @@ def main() -> int:
     print(f"phases 4l-4n: {phase_moe_s:.1f} s {tag}")
     print(f"phase 4n done at {time.perf_counter() - t_start:.1f}s")
 
+    # 4o / 4p. the SSM family: xlstm-125m served at full width, then trained
+    # at full width, each again under its solved (1, 1) plan on a world-1
+    # NCCL group of its own; 4q. the pure-Mamba branch (a test-built
+    # config) trained a step and decoded
+    t_ssm = time.perf_counter()
+    xlstm_serve, xlstm_serve_launches, xlstm_base = serve_xlstm(dev, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4o (unplanned) done at {time.perf_counter() - t_start:.1f}s")
+    xlstm_train, xlstm_train_launches = train_xlstm(dev, tag,
+                                                    profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4p (unplanned) done at {time.perf_counter() - t_start:.1f}s")
+    init_distributed("cuda", 0, 1, free_port())
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    xlstm_plan_serve, xlstm_plan_serve_launches = serve_xlstm_plan(
+        xlstm_base, dev, tag, mesh)
+    del xlstm_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    xlstm_plan_train, xlstm_plan_train_launches = train_xlstm(
+        dev, tag, xlstm_train)
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phases 4o-4p done at {time.perf_counter() - t_start:.1f}s")
+    ssm_rec, ssm_launches = ssm_branch(dev, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_ssm_s = time.perf_counter() - t_ssm
+    print(f"phases 4o-4q: {phase_ssm_s:.1f} s {tag}")
+    print(f"phase 4q done at {time.perf_counter() - t_start:.1f}s")
+
     # 5. times
     times = time_kernels(dev, tag, timer, hybrid_serve["lengths"])
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
@@ -3912,7 +4405,10 @@ def main() -> int:
     # under the plan, training, training under the plan, hybrid training,
     # hybrid serving, the hybrid family's serving and training under the
     # plan, the MoE family's serving on both tiers and under the plan, its
-    # training and training under the plan, and qwen2.5-32b's serving)
+    # training and training under the plan, qwen2.5-32b's serving, and the
+    # SSM family's: xlstm-125m served and trained, each with and without
+    # its plan (no kernel launches), the pure-Mamba branch's training step
+    # and decode steps)
     fa_py = "src/repro/kernels/flash_attention.py"
     replaces = {"flash_fwd": f"{fa_py}:146 and {fa_py}:191",
                 "flash_decode": f"{fa_py}:280",
@@ -3936,7 +4432,9 @@ def main() -> int:
             hybrid_plan_serve_launches, hybrid_plan_train_launches,
             moe_serve_launches["linear"], moe_serve_launches["paged"],
             moe_plan_serve_launches, moe_train_launches,
-            moe_train_plan_launches, qwen32_launches)
+            moe_train_plan_launches, qwen32_launches, xlstm_serve_launches,
+            xlstm_plan_serve_launches, xlstm_train_launches,
+            xlstm_plan_train_launches, ssm_launches)
     runs120 = (danube_launches, danube_plan_launches, danube_train_launches)
     kernels = []
     for k, hd120 in [(k, False) for k in replaces] + [
@@ -3974,8 +4472,10 @@ def main() -> int:
             moe_serve=moe_serve, reduced_moe_card_vs_cpu=moe_reduced,
             moe_plan_serve=moe_plan_serve, moe_train=moe_train,
             moe_train_plan=moe_train_plan, qwen32_serve=qwen32_rec,
-            phase_moe_s=phase_moe_s,
-            kernels=kernels), indent=1, default=str))
+            phase_moe_s=phase_moe_s, xlstm_serve=xlstm_serve,
+            xlstm_plan_serve=xlstm_plan_serve, xlstm_train=xlstm_train,
+            xlstm_plan_train=xlstm_plan_train, ssm_branch=ssm_rec,
+            phase_ssm_s=phase_ssm_s, kernels=kernels), indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

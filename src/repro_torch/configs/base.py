@@ -4,9 +4,9 @@ Every architecture gets a ``configs/<id>.py`` exporting CONFIG with the
 published numbers.  ``reduced()`` derives the CPU-test variant (same
 family, tiny sizes).  ``ShapeConfig`` / ``SHAPES`` name the solver's
 cells (sequence length, global batch, kind), and ``param_count`` is
-repro's approximate count.  The port runs the dense, MoE and hybrid
-(zamba2) families; the other families' fields stay so that a config
-reads the same in both packages."""
+repro's approximate count.  The port runs the dense, MoE, hybrid
+(zamba2) and SSM (xLSTM, pure Mamba2) families; the embedding-stub
+fields stay so that a config reads the same in both packages."""
 from __future__ import annotations
 
 import dataclasses
@@ -181,5 +181,5 @@ def load_all() -> None:
     import importlib
     for mod in ("zamba2_2p7b", "qwen2_1p5b", "llama3p2_3b",
                 "h2o_danube3_4b", "qwen2p5_32b", "moonshot_16b_a3b",
-                "phi3p5_moe"):
+                "phi3p5_moe", "xlstm_125m"):
         importlib.import_module(f"repro_torch.configs.{mod}")

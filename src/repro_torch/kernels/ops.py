@@ -41,11 +41,14 @@ bwd_recomputes: Dict[str, int] = {"ssd_chunk_scan": 0}
 # Mamba decode step whose state is cut on an axis other than batch
 # (models/mamba.py), whose update ran on the gathered state; and an MoE
 # layer whose expert weights or activations are cut on an axis it cannot
-# run on locally (models/moe.py), which ran on the gathered tensors
+# run on locally (models/moe.py), which ran on the gathered tensors; and an
+# xLSTM block whose fused projection is cut on its output axis or whose
+# decode state is cut on an axis other than batch (models/xlstm.py), which
+# ran on the gathered tensor
 plan_fallbacks: Dict[str, int] = {"attend_cache": 0, "prefill_attention": 0,
                                   "attention": 0, "attend_paged": 0,
                                   "rescore": 0, "copy_block": 0,
-                                  "mamba_state": 0, "moe": 0}
+                                  "mamba_state": 0, "moe": 0, "xlstm": 0}
 # the MoE layer's expert-parallel all-to-alls under a training plan
 # (models/moe.py): one "dispatch" and one "combine" a layer a forward
 # (the remat recompute runs them again), counted per mesh axis they

@@ -33,10 +33,11 @@ batch rows through ``local_map``:
   ``w_in``'s cut of x, and an ``inner`` / ``sdim`` cut of the SSM state
   splits a head's update over ranks, so a state cut on anything but
   ``batch`` is gathered whole on its other axes for the update and cut
-  back after (counted in ``ops.plan_fallbacks["mamba_state"]``)."""
+  back after (counted in ``ops.plan_fallbacks["mamba_state"]``;
+  ``sharding.step_rows``)."""
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -76,19 +77,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for i in range(k):
         out = out + xp[:, i:i + s, :].float() * w[i].float()
     return out.to(x.dtype)
-
-
-def _batch_axes_placements(plan, mesh, b: int) -> List:
-    """``_mixer_sharded``'s placements for a [B, ...] tensor: Shard(0)
-    on the mesh dims of the batch entry of ``plan.pspec("ssm_h",
-    ("batch", "seq", "inner"))`` (else of role ``x``), Replicate
-    elsewhere; a cut whose degree does not divide ``b`` is dropped
-    (``even_placements``)."""
-    from .sharding import even_placements, spec_placements
-    role = "ssm_h" if plan.has_role("ssm_h") else "x"
-    spec = plan.pspec(role, ("batch", "seq", "inner"))
-    pl = spec_placements(spec[:1], mesh.mesh_dim_names)
-    return even_placements(pl, (b,), mesh)
 
 
 def ssd_dispatch(xh, a_log, bb, cc, chunk: int, impl: str) -> torch.Tensor:
@@ -179,25 +167,13 @@ def _mixer(cfg: ArchConfig, impl: str, dtype: torch.dtype, zx, bcdt, conv_w,
 def _mixer_sharded(cfg: ArchConfig, impl: str, dtype: torch.dtype, zx, bcdt,
                    small, plan, mesh):
     """``_mixer`` under a plan, in one ``local_map`` region on the rows of
-    ``ssd_dispatch``'s batch cut (``_batch_axes_placements``), the
-    block's small params whole.  Their gradient on a rank is its rows'
-    share: a pending sum over the batch cut (``in_grad_placements``),
-    reduced where the trainer places it.  Nothing between the
-    projections is a DTensor op: slicing a DTensor on its last dim gave
-    the gradient a malformed placement under the card's torch 2.11."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    rows = _batch_axes_placements(plan, mesh, zx.shape[0])
-    whole = [Replicate()] * mesh.ndim
-    summed = [Partial() if isinstance(p, Shard) else Replicate()
-              for p in rows]
-    n = len(small)
-    region = local_map(
-        lambda *a: _mixer(cfg, impl, dtype, *a), out_placements=list(rows),
-        in_placements=(rows, rows) + (whole,) * n,
-        in_grad_placements=(rows, rows) + (summed,) * n,
-        device_mesh=mesh, redistribute_inputs=True)
-    return region(zx, bcdt, *small)
+    ``ssd_dispatch``'s batch cut (``sharding.rows_region``), the block's
+    small params whole.  Nothing between the projections is a DTensor
+    op: slicing a DTensor on its last dim gave the gradient a malformed
+    placement under the card's torch 2.11."""
+    from .sharding import rows_region
+    return rows_region(lambda *a: _mixer(cfg, impl, dtype, *a), (zx, bcdt),
+                       small, plan, mesh)
 
 
 # -- the stepwise decode ------------------------------------------------------
@@ -266,7 +242,8 @@ def mamba_step(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
     Without a plan the scan prefill steps a batch-1 view of the state."""
     ssm, conv = state["ssm"], state["conv"]
     if layer is not None:
-        ssm, conv = _layer(ssm, layer), _layer(conv, layer)
+        from .sharding import layer_of
+        ssm, conv = layer_of(ssm, layer), layer_of(conv, layer)
     zx = x @ params["w_in"]
     bcdt = x @ params["w_bcdt"]
     small = (params["conv_w"], params["A_log"], params["D"],
@@ -280,72 +257,14 @@ def mamba_step(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
     return y @ params["w_out"]
 
 
-def _layer(t, layer: int):
-    """Layer ``layer`` of a stacked [L, ...] state: a view, and for a
-    DTensor a DTensor view of this rank's shard (the layer axis is never
-    cut), so writes to it land in the cache."""
-    from torch.distributed.tensor import DTensor, Shard
-    if not isinstance(t, DTensor):
-        return t[layer]
-    from .sharding import from_local
-    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
-          for p in t.placements]
-    return from_local(t.to_local()[layer], t.device_mesh, pl, t.shape[1:])
-
-
 def _step_update_sharded(cfg: ArchConfig, zx, bcdt, small, ssm, conv,
                          slot: Optional[int] = None):
-    """``_step_update`` under a plan: the rows of the state's batch cut on
-    each rank, in one ``local_map`` region that writes the local state
-    (DTensors [B, ...]) in place.  A state cut on another axis is
-    gathered whole there for the update, and its local part copied back
-    after (``ops.plan_fallbacks["mamba_state"]``).  ``slot``: zx and bcdt
-    are one row, replicated; the ranks whose shard holds row ``slot``
-    step it and the others give zeros, which the batch mesh dims sum."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    from .sharding import global_offset
-    mesh = ssm.device_mesh
-
-    # the rows each rank steps: the state's batch cut (one role, so the
-    # same for both states), every other cut gathered
-    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
-            for p in ssm.placements]
-    work = []
-    for t in (ssm, conv):
-        if list(t.placements) == rows:
-            work.append(t)
-        else:
-            kops.plan_fallbacks["mamba_state"] += 1
-            work.append(t.redistribute(mesh, rows))
-    rep = [Replicate()] * mesh.ndim
-    if slot is None:
-        xin, out = rows, rows
-
-        def region(*a):
-            return _step_update(cfg, *a)
-    else:
-        # one row: replicated in, a Partial sum out on the batch mesh dims
-        xin = rep
-        out = [Partial() if isinstance(p, Shard) else p for p in rows]
-        b0 = global_offset(work[0])[0]
-
-        def region(zx_l, bcdt_l, *rest):
-            *small_l, ssm_l, conv_l = rest
-            r = slot - b0
-            if not ssm_l.numel() or not 0 <= r < ssm_l.shape[0]:
-                return torch.zeros((1, cfg.d_inner), dtype=torch.float32,
-                                   device=zx_l.device)
-            return _step_update(cfg, zx_l, bcdt_l, *small_l,
-                                ssm_l[r:r + 1], conv_l[r:r + 1])
-    y = local_map(region, out_placements=list(out),
-                  in_placements=(xin, xin) + (tuple(rep),) * 4 + (rows, rows),
-                  device_mesh=mesh, redistribute_inputs=True)(
-                      zx, bcdt, *small, *work)
-    for t, w in zip((ssm, conv), work):
-        if w is not t:
-            t.to_local().copy_(w.redistribute(mesh, t.placements).to_local())
-    if slot is not None:
-        y = y.redistribute(mesh, rep)
-    return y
+    """``_step_update`` under a plan (``sharding.step_rows``): the rows of
+    the state's batch cut on each rank, the state (DTensors [B, ...])
+    written in place; a state cut on another axis is gathered for the
+    update (``ops.plan_fallbacks["mamba_state"]``).  ``slot``: zx and
+    bcdt are one row, replicated, stepped on the ranks that hold row
+    ``slot``."""
+    from .sharding import step_rows
+    return step_rows(lambda *a: _step_update(cfg, *a), (zx, bcdt), small,
+                     (ssm, conv), cfg.d_inner, "mamba_state", slot)

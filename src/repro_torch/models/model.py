@@ -1,19 +1,26 @@
 """The decoder LM (counterpart of ``repro.models.model.LM``, its dense,
-MoE and hybrid branches): for the dense family init, forward, loss, the
-linear slot cache and the paged block pool, decode, chunked prefill and
-the speculative re-score; the MoE family is the dense one with each
+MoE, hybrid, xLSTM and pure-SSM branches): for the dense family init,
+forward, loss, the linear slot cache and the paged block pool, decode,
+chunked prefill and the speculative re-score; the MoE family is the dense one with each
 layer's MLP replaced by ``models/moe.py``'s layer (its aux summed over
 the layers into the loss, as repro); for the hybrid family (zamba2:
 Mamba2 layers with one shared attention+MLP block applied after every
 ``attn_every`` of them) init, forward, loss, the linear cache (each
 layer's Mamba state, and the shared block's ring of K/V per
-application), decode and the scan prefill.  As in repro the hybrid
-family has no paged pool (``paged_ok``) and no speculative re-score.
+application), decode and the scan prefill; for the SSM family either
+xLSTM (``models/xlstm.py``: L / 2 pairs of an sLSTM and an mLSTM block,
+each block after its own norm ``ln``, the cache each layer's sLSTM state
+h, c, n and mLSTM state C) or, with no ``xlstm`` and no shared block,
+the pure-Mamba branch (the hybrid family's Mamba layers alone, the cache
+their states), each with init, forward, loss, the linear cache, decode
+and the scan prefill.  As in repro the recurrent families have no paged
+pool (``paged_ok``) and no speculative re-score.
 
 Params are plain dicts of tensors with the same keys and shapes as repro's
 param tree: per-layer weights stacked on a leading ``[L]`` axis (the
-hybrid family's ``mamba``; its ``shared`` layer is one unstacked dense
-layer), ``ln*`` and the Mamba scalars and norm in f32, the rest in
+hybrid and pure-SSM families' ``mamba``, xLSTM's ``slstm`` and ``mlstm``
+of L / 2 each; the hybrid family's ``shared`` layer is one unstacked
+dense layer), ``ln*``, the norms and the Mamba scalars in f32, the rest in
 ``cfg.dtype``, weights ``[in, out]`` used as ``x @ w``.  Layers run as
 a Python loop over per-layer views.  ``forward``
 (training) takes the views with ``torch.unbind`` on every call, so the
@@ -44,7 +51,8 @@ trades the experts' rows by all-to-all in training
 (``moe.moe_ffn_sharded``) and runs the global formula on each rank's
 own experts when serving (``moe.moe_ffn_placed``), as repro's two
 routes do.  The hybrid family's SSD scan and its decode step's state
-update run on local batch rows (``models/mamba.py``).
+update run on local batch rows (``models/mamba.py``), and so do the
+xLSTM blocks' recurrences and state updates (``models/xlstm.py``).
 Plain tensors (lengths, write indices, the rotary tables) join the
 DTensor ops as replicated (``dist_scope``).  Without a plan every path
 runs as before."""
@@ -69,6 +77,9 @@ from .common import (dense_init, embed_init, local, resolve_device, rms_norm,
 from .sharding import global_offset
 from .mamba import (SSD_IMPLS, mamba_forward, mamba_shapes,
                     mamba_state_shapes, mamba_step)
+from .xlstm import (mlstm_forward, mlstm_shapes, mlstm_state_shapes,
+                    mlstm_step, slstm_forward, slstm_shapes,
+                    slstm_state_shapes, slstm_step)
 from .moe import (check_plan, moe_ffn, moe_ffn_placed, moe_ffn_sharded,
                   moe_shapes)
 
@@ -99,18 +110,38 @@ def is_hybrid(cfg: ArchConfig) -> bool:
             and cfg.ssm is not None)
 
 
+def is_xlstm(cfg: ArchConfig) -> bool:
+    """The xLSTM layout (xlstm-125m): sLSTM / mLSTM pairs."""
+    return cfg.xlstm is not None
+
+
+def is_pure_ssm(cfg: ArchConfig) -> bool:
+    """repro's pure-``ssm`` branch: Mamba2 layers, no shared block, no
+    xLSTM (no config has it; tests build one)."""
+    return (cfg.family == "ssm" and cfg.ssm is not None
+            and cfg.xlstm is None and not cfg.attn_every)
+
+
+def is_recurrent(cfg: ArchConfig) -> bool:
+    """A family whose state replaces (or joins) the KV cache."""
+    return is_hybrid(cfg) or is_xlstm(cfg) or is_pure_ssm(cfg)
+
+
 def _unsupported_family(cfg: ArchConfig) -> Optional[str]:
-    if cfg.xlstm is not None:
-        return "xlstm"
     if cfg.embed_stub:
         return "embed-stub"
+    hybrid = cfg.family == "hybrid" or bool(cfg.attn_every)
+    if cfg.xlstm is not None:
+        # repro takes its hybrid branch first for such a config; no config
+        # has one, and it is not held to repro
+        return "hybrid-xlstm" if hybrid else None
     if is_hybrid(cfg):
         # no config puts experts in the shared block; not held to repro
         return "hybrid-moe" if cfg.moe is not None else None
-    if cfg.family == "hybrid" or cfg.attn_every:
+    if hybrid:
         return "hybrid"
     if cfg.family == "ssm" or cfg.ssm is not None:
-        return "ssm"
+        return None if is_pure_ssm(cfg) else "ssm"
     return None
 
 
@@ -192,7 +223,8 @@ class LM:
         if fam is not None:
             raise NotImplementedError(
                 f"{self.cfg.name}: the {fam} family is not ported yet; the "
-                "port runs the dense, MoE and hybrid families")
+                "port runs the dense, MoE, hybrid and SSM (xLSTM, pure "
+                "Mamba2) families")
         if self.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"ssd_impl must be one of {SSD_IMPLS}, got "
                              f"{self.ssd_impl!r}")
@@ -200,6 +232,9 @@ class LM:
             raise ValueError(
                 f"{self.cfg.name}: {self.cfg.n_layers} layers are not a "
                 f"multiple of attn_every={self.cfg.attn_every}")
+        if is_xlstm(self.cfg) and self.cfg.n_layers % 2:
+            raise ValueError(f"{self.cfg.name}: xLSTM pairs an sLSTM and an "
+                             f"mLSTM block, {self.cfg.n_layers} layers is odd")
         if self.cfg.moe is not None:
             check_plan(self.plan)
 
@@ -223,12 +258,18 @@ class LM:
         d, L = cfg.d_model, cfg.n_layers
         dt, f32 = torch_dtype(cfg), torch.float32
         tree: Params = {"embed": ((cfg.vocab, d), dt), "ln_f": ((d,), f32)}
-        if is_hybrid(cfg):
-            mamba = {k: ((L,) + shape, t)
-                     for k, (shape, t) in mamba_shapes(cfg, dt).items()}
-            mamba["ln"] = ((L, d), f32)
-            tree["mamba"] = mamba
-            tree["shared"] = self._dense_layer_shapes(())
+
+        def stacked(shapes, n):
+            out = {k: ((n,) + shape, t) for k, (shape, t) in shapes.items()}
+            out["ln"] = ((n, d), f32)
+            return out
+        if is_xlstm(cfg):
+            tree["slstm"] = stacked(slstm_shapes(cfg, dt), L // 2)
+            tree["mlstm"] = stacked(mlstm_shapes(cfg, dt), L // 2)
+        elif is_hybrid(cfg) or is_pure_ssm(cfg):
+            tree["mamba"] = stacked(mamba_shapes(cfg, dt), L)
+            if is_hybrid(cfg):
+                tree["shared"] = self._dense_layer_shapes(())
         else:
             tree["layers"] = self._dense_layer_shapes((L,))
         if not cfg.tie_embeddings:
@@ -261,7 +302,8 @@ class LM:
 
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random params from ``torch.Generator(seed)`` on ``device``:
-        normal/sqrt(fan_in) weights, 0.02-normal embedding, zero biases,
+        normal/sqrt(fan_in) weights (fan-in: the axis before the last, hd
+        for sLSTM's ``r_gates``), 0.02-normal embedding, zero biases,
         unit norms; for the Mamba layers a conv of zeros with its last tap
         1, ``A_log`` and ``dt_bias`` 0, ``D`` and ``norm`` 1 (repro's init
         rules; the values differ, the PRNGs do)."""
@@ -289,12 +331,21 @@ class LM:
         return {k: make(k, v) for k, v in self.param_shapes().items()}
 
     def _layers(self, params: Params) -> List[Params]:
-        """Per-layer views of the stacked layers (the hybrid family's Mamba
-        layers), built once for a params tree."""
-        stack = params["mamba" if is_hybrid(self.cfg) else "layers"]
+        """Per-layer views of the stacked layers (the Mamba layers of the
+        hybrid and pure-SSM families; xLSTM's pairs, each {"slstm",
+        "mlstm"}), built once for a params tree."""
+        cfg = self.cfg
+        if is_xlstm(cfg):
+            stack = params["slstm"]
+        else:
+            stack = params["mamba" if is_recurrent(cfg) else "layers"]
         src, views = self._views
         if src is not stack:
-            views = [_index(stack, i) for i in range(self.cfg.n_layers)]
+            if is_xlstm(cfg):
+                views = [{k: _index(params[k], i) for k in ("slstm", "mlstm")}
+                         for i in range(cfg.n_layers // 2)]
+            else:
+                views = [_index(stack, i) for i in range(cfg.n_layers)]
             self._views = (stack, views)
         return views
 
@@ -374,13 +425,26 @@ class LM:
                               mesh=self.mesh)
             return self._shard(x + y, "x", bsd)
 
+    def _xlstm_pair(self, ps: Params, pm: Params,
+                    x: torch.Tensor) -> torch.Tensor:
+        """One sLSTM / mLSTM pair of the training forward (repro's
+        ``pair_body``), constrained at repro's one site under a plan (the
+        pair's output), in ``dist_scope()`` itself as ``_layer``."""
+        cfg = self.cfg
+        with self.dist_scope():
+            x = x + slstm_forward(ps, rms_norm(x, ps["ln"], cfg.norm_eps),
+                                  cfg, self.plan, self.mesh)
+            x = x + mlstm_forward(pm, rms_norm(x, pm["ln"], cfg.norm_eps),
+                                  cfg, self.plan, self.mesh)
+            return self._shard(x, "x", ("batch", "seq", "d_model"))
+
     def forward(self, params: Params,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens [B, S] -> (logits [B, S, V], aux_loss: the sum of the MoE
         layers' aux, 0 without experts).  Under autograd each layer (each
         Mamba layer and each application of the hybrid family's shared
-        block) is rematerialised in the backward, its aux carried out of
-        it.  Under a plan params and tokens are DTensors and so are the
+        block, each xLSTM pair) is rematerialised in the backward, its aux
+        carried out of it.  Under a plan params and tokens are DTensors and so are the
         logits and the aux."""
         with self.dist_scope():
             return self._forward(params, tokens)
@@ -416,6 +480,13 @@ class LM:
                 for p in mamba[g0:g0 + period]:
                     x = run(self._mamba_layer, p, x)
                 x, _ = run(self._layer, params["shared"], x, positions)
+        elif is_xlstm(self.cfg):
+            for ps, pm in zip(_unbind(params["slstm"]),
+                              _unbind(params["mlstm"])):
+                x = run(self._xlstm_pair, ps, pm, x)
+        elif is_pure_ssm(self.cfg):
+            for p in _unbind(params["mamba"]):
+                x = run(self._mamba_layer, p, x)
         else:
             for p in _unbind(params["layers"]):
                 x, aux = run(self._layer, p, x, positions)
@@ -445,10 +516,25 @@ class LM:
         [L, B, K-1, d_inner + 2N] bf16}, "shared": {"k", "v": [L /
         attn_every, B, win, KV, hd] bf16}}, the shared block's ring one
         per application, ``win = min(max_len, swa_window or 4096)`` past
-        65,536 positions and ``max_len`` below.  K/V are bf16 whatever the
-        model dtype, as in repro."""
+        65,536 positions and ``max_len`` below; for xLSTM {"pos", "slstm":
+        {"h", "c", "n" [L/2, B, H, d/H] f32}, "mlstm": {"C" [L/2, B, H, hd,
+        hd] f32}}, and for the pure-SSM branch {"pos", "mamba"}, neither
+        with K/V.  K/V are bf16 whatever the model dtype, as in repro."""
         cfg = self.cfg
         tree: Cache = {"pos": ((batch,), torch.int32)}
+
+        def stacked(shapes, n):
+            return {k: ((n,) + shape, dt) for k, (shape, dt) in shapes.items()}
+        if is_xlstm(cfg):
+            tree["slstm"] = stacked(slstm_state_shapes(cfg, batch),
+                                    cfg.n_layers // 2)
+            tree["mlstm"] = stacked(mlstm_state_shapes(cfg, batch),
+                                    cfg.n_layers // 2)
+            return tree
+        if is_pure_ssm(cfg):
+            tree["mamba"] = stacked(mamba_state_shapes(cfg, batch),
+                                    cfg.n_layers)
+            return tree
         if is_hybrid(cfg):
             tree["mamba"] = {k: ((cfg.n_layers,) + shape, dt)
                              for k, (shape, dt)
@@ -502,8 +588,8 @@ class LM:
                       resolve_device(device))
 
     def reset_slot(self, cache: Cache, slot: int) -> Cache:
-        """Zero one slot's rows (K/V, the hybrid family's Mamba state) and
-        position, in place.  For a paged cache only the slot's position
+        """Zero one slot's rows (K/V, the Mamba state, xLSTM's C, h, c and
+        n) and position, in place.  For a paged cache only the slot's position
         and table row are cleared: the pool blocks are recycled by the
         host allocator, and a zeroed table row points at the null
         block."""
@@ -539,8 +625,8 @@ class LM:
 
         ``active`` [B] bool: inactive rows keep their cache row and
         position (repro drops their write with an out-of-range index); a
-        hybrid row's Mamba state still churns, as in repro, and
-        ``reset_slot`` clears it at the next admission."""
+        recurrent row's state (Mamba, xLSTM) still churns, as in repro,
+        and ``reset_slot`` clears it at the next admission."""
         with self.dist_scope():
             return self._decode_step(params, cache, tokens, active)
 
@@ -550,24 +636,27 @@ class LM:
                      ) -> Tuple[torch.Tensor, Cache]:
         """``slot``: a batch-1 step of that row of a planned linear cache
         (the scan prefill; ``tokens`` [1]), which advances its position
-        and steps its Mamba state alone."""
+        and steps its recurrent state alone."""
         cfg = self.cfg
         pos = local(cache["pos"])
         if slot is not None:
             pos = pos[slot:slot + 1]                    # a view: += lands
         x = self._shard(params["embed"][tokens], "x", ("batch", "d_model"))
         b = x.shape[0]
-        if "pages" in cache:
-            attend = self._paged_writer(cache, pos, active, b)
-        else:
-            attend = self._linear_writer(
-                cache["shared" if is_hybrid(cfg) else "kv"], pos, active, b,
-                slot)
         rpos = pos[:, None]
-        if is_hybrid(cfg):
-            x = self._hybrid_layers_decode(params, cache["mamba"], x, attend,
-                                           rpos, slot)
+        if is_xlstm(cfg):
+            x = self._xlstm_decode(params, cache, x, slot)
+        elif is_recurrent(cfg):
+            attend = (self._linear_writer(cache["shared"], pos, active, b,
+                                          slot) if is_hybrid(cfg) else None)
+            x = self._mamba_layers_decode(params, cache["mamba"], x, attend,
+                                          rpos, slot)
         else:
+            if "pages" in cache:
+                attend = self._paged_writer(cache, pos, active, b)
+            else:
+                attend = self._linear_writer(cache["kv"], pos, active, b,
+                                             slot)
             for li, p in enumerate(self._layers(params)):
                 x = self._block_decode(p, x, attend, li, rpos)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -598,22 +687,40 @@ class LM:
         xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bd)
         return self._shard(x + self._ffn(p, xn)[0], "x", bd)
 
-    def _hybrid_layers_decode(self, params: Params, state: Cache,
-                              x: torch.Tensor, attend, rpos: torch.Tensor,
-                              slot: Optional[int]) -> torch.Tensor:
-        """The hybrid family's decode layers (repro's hybrid branch):
-        groups of ``attn_every`` Mamba steps on the stacked ``state``, each
-        followed by the shared block, whose application g writes and
-        attends ring g (``pos % S``, up to ``min(pos + 1, S)``)."""
+    def _mamba_layers_decode(self, params: Params, state: Cache,
+                             x: torch.Tensor, attend, rpos: torch.Tensor,
+                             slot: Optional[int]) -> torch.Tensor:
+        """The Mamba decode layers, each a step of its layer of the stacked
+        ``state``: repro's pure-SSM branch, or its hybrid branch, where
+        each group of ``attn_every`` steps is followed by the shared block,
+        whose application g writes and attends ring g (``pos % S``, up to
+        ``min(pos + 1, S)``)."""
         cfg = self.cfg
         period = cfg.attn_every
         for li, p in enumerate(self._layers(params)):
             y = mamba_step(p, rms_norm(x, p["ln"], cfg.norm_eps), state, cfg,
                            self.plan, self.mesh, layer=li, slot=slot)
             x = self._shard(x + y, "x", ("batch", "d_model"))
-            if (li + 1) % period == 0:
+            if attend is not None and (li + 1) % period == 0:
                 x = self._block_decode(params["shared"], x, attend,
                                        li // period, rpos)
+        return x
+
+    def _xlstm_decode(self, params: Params, cache: Cache, x: torch.Tensor,
+                      slot: Optional[int]) -> torch.Tensor:
+        """xLSTM's decode layers (repro's xLSTM branch): each pair an sLSTM
+        step on its layer of ``cache["slstm"]``, then an mLSTM step on its
+        layer of ``cache["mlstm"]``, each after its own norm."""
+        cfg = self.cfg
+        for li, pair in enumerate(self._layers(params)):
+            ps, pm = pair["slstm"], pair["mlstm"]
+            x = x + slstm_step(ps, rms_norm(x, ps["ln"], cfg.norm_eps),
+                               cache["slstm"], cfg, self.plan, self.mesh,
+                               layer=li, slot=slot)
+            x = x + mlstm_step(pm, rms_norm(x, pm["ln"], cfg.norm_eps),
+                               cache["mlstm"], cfg, self.plan, self.mesh,
+                               layer=li, slot=slot)
+            x = self._shard(x, "x", ("batch", "d_model"))
         return x
 
     def _linear_writer(self, kv: Cache, pos: torch.Tensor,
@@ -702,8 +809,8 @@ class LM:
 
         ``impl``: "auto" runs the chunk in parallel (offset flash attention
         against the slot's cache) where prefill_parallel_ok allows, else
-        (the hybrid family, a ring-buffer window) steps decode_step over
-        it; "scan" forces the stepwise path; "parallel" forces the
+        (the recurrent families, a ring-buffer window) steps decode_step
+        over it; "scan" forces the stepwise path; "parallel" forces the
         parallel one, and raises where it does not apply."""
         with self.dist_scope():
             return self._prefill_chunk(params, cache, tokens, slot, n_valid,
@@ -906,8 +1013,8 @@ class LM:
         caches are gathered and attended, as the reference does.  Under a
         plan each rank attends the rows it owns (``rescore_sharded``).
         Dense families only: a recurrent state cannot be re-scored read
-        only (repro's ``Server`` never verifies the hybrid family)."""
-        if is_hybrid(self.cfg):
+        only (repro's ``Server`` never verifies a recurrent family)."""
+        if is_recurrent(self.cfg):
             raise ValueError(
                 f"speculative re-score unsupported for {self.cfg.name} "
                 "(recurrent state): drafts are accepted as they are")

@@ -328,3 +328,114 @@ def redistribute(t, placements: Sequence):
             for p in placements]
     return t.squeeze(0).redistribute(mesh, down).unsqueeze(0)
 
+
+
+def moves(src: Sequence, dst: Sequence, mesh) -> bool:
+    """Whether redistributing from ``src`` to ``dst`` moves data: some
+    mesh dim of more than one rank changes its placement."""
+    return any(a != b and mesh.size(j) > 1
+               for j, (a, b) in enumerate(zip(src, dst)))
+
+
+def batch_rows(plan, mesh, b: int) -> List:
+    """Placements of a [B, ...] activation on the rows a per-row region
+    runs on: ``Shard(0)`` on the mesh dims of the batch entry of
+    ``plan.pspec("ssm_h", ("batch", "seq", "inner"))`` (repro's
+    shard_map rule for the SSD scan), else of the activations' role
+    ``x``, which holds the same rows; ``Replicate()`` elsewhere.  A cut
+    whose degree does not divide ``b`` is dropped."""
+    role = "ssm_h" if plan.has_role("ssm_h") else "x"
+    spec = plan.pspec(role, ("batch", "seq", "inner"))
+    pl = spec_placements(spec[:1], mesh.mesh_dim_names)
+    return even_placements(pl, (b,), mesh)
+
+
+def rows_region(fn, acts: Sequence, small: Sequence, plan, mesh):
+    """``fn(*acts, *small)`` in one ``local_map`` region on each rank's
+    batch rows (``batch_rows``): the activations [B, ...] in and the
+    output [B, ...] on those rows, the small params whole.  A small
+    param's gradient on a rank is its rows' share: a pending sum over the
+    batch cut (``in_grad_placements``), reduced where the trainer places
+    it.  Nothing in the region is a DTensor op."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    rows = batch_rows(plan, mesh, acts[0].shape[0])
+    whole = [Replicate()] * mesh.ndim
+    summed = [Partial() if isinstance(p, Shard) else Replicate()
+              for p in rows]
+    na, ns = len(acts), len(small)
+    region = local_map(
+        fn, out_placements=list(rows),
+        in_placements=(rows,) * na + (whole,) * ns,
+        in_grad_placements=(rows,) * na + (summed,) * ns,
+        device_mesh=mesh, redistribute_inputs=True)
+    return region(*acts, *small)
+
+
+def step_rows(fn, acts: Sequence, small: Sequence, states: Sequence,
+              width: int, key: str, slot: Optional[int] = None):
+    """A decode step's per-row state update under a plan: ``fn(*acts,
+    *small, *states) -> y [b, width]`` f32, writing the states in place,
+    run in one ``local_map`` region on the rows of the states' batch cut
+    (DTensors [B, ...], one role, so one cut), the activations on the
+    same rows and the small params whole.  A state cut on another axis
+    (an ``inner`` cut splits a head's update over ranks) is gathered
+    whole on its other axes for the update and its local part copied back
+    after, counted in ``ops.plan_fallbacks[key]``.  ``slot``: the
+    activations are one row, replicated; the ranks whose shard holds row
+    ``slot`` step it and the others give zeros, which the batch mesh dims
+    sum."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..kernels import ops as kops
+    mesh = states[0].device_mesh
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in states[0].placements]
+    work = []
+    for t in states:
+        if list(t.placements) == rows:
+            work.append(t)
+            continue
+        if moves(t.placements, rows, mesh):
+            kops.plan_fallbacks[key] += 1
+        work.append(t.redistribute(mesh, rows))
+    rep = [Replicate()] * mesh.ndim
+    na, ns = len(acts), len(small)
+    if slot is None:
+        xin, out, region = rows, rows, fn
+    else:
+        xin = rep
+        out = [Partial() if isinstance(p, Shard) else p for p in rows]
+        b0 = global_offset(work[0])[0]
+
+        def region(*a):
+            st = a[na + ns:]
+            r = slot - b0
+            if not st[0].numel() or not 0 <= r < st[0].shape[0]:
+                return torch.zeros((1, width), dtype=torch.float32,
+                                   device=a[0].device)
+            return fn(*a[:na + ns], *(s[r:r + 1] for s in st))
+    y = local_map(region, out_placements=list(out),
+                  in_placements=((xin,) * na + (tuple(rep),) * ns
+                                 + (rows,) * len(states)),
+                  device_mesh=mesh, redistribute_inputs=True)(
+                      *acts, *small, *work)
+    for t, w in zip(states, work):
+        if w is not t:
+            t.to_local().copy_(w.redistribute(mesh, t.placements).to_local())
+    if slot is not None:
+        y = y.redistribute(mesh, rep)
+    return y
+
+
+def layer_of(t, layer: int):
+    """Layer ``layer`` of a stacked [L, ...] state: a view, and for a
+    DTensor a DTensor view of this rank's shard (the layer axis is never
+    cut), so writes to it land in the cache."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t[layer]
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+          for p in t.placements]
+    return from_local(t.to_local()[layer], t.device_mesh, pl, t.shape[1:])

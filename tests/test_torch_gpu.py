@@ -790,3 +790,91 @@ def test_danube_reduced_card_matches_cpu_past_the_window(cuda):
     assert caches[1]["kv"]["k"].shape[2] == 16
     assert caches[1]["pos"].tolist() == [40, 50]
     assert worst <= LOGITS_ATOL
+
+
+# -- the SSM family: the pure-Mamba branch and xlstm-125m ----------------
+
+def _pure_ssm_cfg():
+    """The pure-Mamba branch (no config has it): the reduced zamba2-2.7b
+    with family "ssm" and no shared block."""
+    import dataclasses
+    return dataclasses.replace(get_arch("zamba2-2.7b").reduced(),
+                               family="ssm", attn_every=0)
+
+
+def test_pure_ssm_train_steps_on_card_use_only_the_kernel(cuda):
+    """The pure-SSM branch's engine steps on the card: ssd_chunk_scan
+    twice a layer a microbatch (the forward and the remat), the backward
+    by the chunked scan, no attention kernel, no plain call."""
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import ssd
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.engine import EngineConfig, TrainEngine
+
+    cfg = _pure_ssm_cfg()
+    eng = TrainEngine(LM(cfg), EngineConfig(
+        microbatches=2, optim=AdamWConfig(lr=2e-3, warmup_steps=2)),
+        device=cuda)
+    state = eng.init_state(0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    fa.reset_launches()
+    ssd.reset_launches()
+    ops.reset_plain_calls()
+    losses = []
+    for step in range(4):
+        state, m = eng.step(state, host_batch(dcfg, step))
+        losses.append(float(m["loss"]))
+    L = cfg.n_layers
+    assert ssd.launches["ssd_chunk_scan"] == 4 * 2 * 2 * L
+    assert ops.bwd_recomputes["ssd_chunk_scan"] == 4 * 2 * L
+    assert not any(fa.launches.values())
+    assert not any(ops.plain_calls.values())
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("arch", ["pure-ssm", "xlstm-125m"])
+def test_recurrent_families_on_card_match_cpu(cuda, arch):
+    """The reduced pure-SSM branch and xlstm-125m on the card against the
+    same bf16 weights on the CPU: the forward's logits (the pure-SSM
+    branch's kernel route also against its chunked route on the card),
+    then a scan prefill and 10 decode steps; xLSTM launches no kernel."""
+    import dataclasses
+
+    from repro_torch.kernels import ssd
+    cfg = _pure_ssm_cfg() if arch == "pure-ssm" else get_arch(arch).reduced()
+    model = LM(cfg)
+    p_cpu = model.init(0, device="cpu")
+    p_gpu = _tree_to(p_cpu, cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 24))
+    fa.reset_launches()
+    ssd.reset_launches()
+    ops.reset_plain_calls()
+    with torch.no_grad():
+        lc = model.forward(p_cpu, torch.as_tensor(toks))[0].float()
+        lg = model.forward(p_gpu, torch.as_tensor(toks, device=cuda))[0]
+        assert float((lc - lg.float().cpu()).abs().max()) <= LOGITS_ATOL
+        if arch == "pure-ssm":
+            assert ssd.launches["ssd_chunk_scan"] == cfg.n_layers
+            lk = dataclasses.replace(model, ssd_impl="chunked").forward(
+                p_gpu, torch.as_tensor(toks, device=cuda))[0]
+            assert float((lk.float() - lg.float()).abs().max()) \
+                <= LOGITS_ATOL
+        else:
+            assert not any(ssd.launches.values())
+        caches = [model.init_cache(2, 32, device=d) for d in ("cpu", cuda)]
+        out = []
+        for p, c in zip((p_cpu, p_gpu), caches):
+            dev = c["pos"].device
+            lp, _ = model.prefill_chunk(
+                p, c, torch.as_tensor(toks[0, :9], device=dev), 1, 9)
+            rows = [lp.float().cpu()]
+            for i in range(10):
+                ld, _ = model.decode_step(
+                    p, c, torch.as_tensor(toks[:, 9 + i], device=dev))
+                rows.append(ld.float().cpu())
+            out.append(rows)
+    for a, b in zip(*out):
+        assert float((a - b).abs().max()) <= LOGITS_ATOL
+    assert caches[1]["pos"].tolist() == [10, 19]
+    assert not any(fa.launches.values())
+    assert not any(ops.plain_calls.values())     # "auto" is chunked on the CPU

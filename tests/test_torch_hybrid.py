@@ -274,7 +274,9 @@ def test_repro_checkpoint_restores_into_the_port(tmp_path):
 def test_serving_paths_raise_for_the_hybrid_family():
     """What stays refused now that the hybrid family serves on the linear
     tier (tests/test_torch_hybrid_serve.py): the paged tier and the
-    speculative re-score, as in repro; and the families not ported yet."""
+    speculative re-score, as in repro, for it and for the other recurrent
+    families (xLSTM, the pure-SSM branch, which now build); and what is
+    not ported: the hybrid layout with xlstm or with experts."""
     _, tcfg = _cfgs()
     model = LM(tcfg)
     params = model.init(0, device="cpu")
@@ -290,13 +292,23 @@ def test_serving_paths_raise_for_the_hybrid_family():
     with pytest.raises(ValueError, match="recurrent state"):
         model.prefill_chunk(params, cache, torch.zeros(4, dtype=torch.long),
                             0, 4, impl="parallel")
-    # the families not ported yet keep raising
+    # the combinations not ported keep raising
     for other in (dict(xlstm=XLSTMCfg()), dict(moe=MoECfg(4, 2, 64))):
         with pytest.raises(NotImplementedError, match="not ported"):
             LM(dataclasses.replace(tcfg, **other))
-    ssm_only = dataclasses.replace(tcfg, family="ssm", attn_every=0)
-    with pytest.raises(NotImplementedError, match="ssm"):
-        LM(ssm_only)
+    # the pure-SSM branch and xLSTM build, with the same refusals
+    for rec in (dataclasses.replace(tcfg, family="ssm", attn_every=0),
+                get_arch("xlstm-125m").reduced()):
+        m = LM(rec)
+        p = m.init(0, device="cpu")
+        with pytest.raises(ValueError, match="paged KV cache unsupported"):
+            m.init_cache_paged(1, 16, 3, 8, device="cpu")
+        c = m.init_cache(1, 16, device="cpu")
+        assert "kv" not in c and "shared" not in c
+        with pytest.raises(ValueError, match="re-score unsupported"):
+            m.decode_rescore(p, c, torch.zeros(1, dtype=torch.long),
+                             torch.zeros(1, dtype=torch.long),
+                             torch.zeros(1, dtype=torch.long))
 
 
 def test_launch_train_hybrid_on_cpu(tmp_path):

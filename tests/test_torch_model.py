@@ -210,20 +210,26 @@ def _port_cfg(jcfg):
 
 
 def test_unported_families_raise():
-    """xLSTM, the embedding-stub frontends (VLM, audio) and a pure SSM
-    config are refused; the MoE family is built (its layer is ported)."""
+    """What stays refused: the embedding-stub frontends (VLM, audio), and a
+    config that sets both the hybrid layout and xlstm (repro takes its
+    hybrid branch first for it; no config has one, and it is not held to
+    repro).  xlstm-125m, a pure SSM config (zamba2's widths, family "ssm",
+    no shared block) and the MoE family are built."""
     cfg = get_arch("qwen2-1.5b").reduced()
-    for name, fam in (("xlstm-125m", "xlstm"),
-                      ("internvl2-76b", "embed-stub"),
-                      ("musicgen-large", "embed-stub")):
-        with pytest.raises(NotImplementedError, match=fam):
+    for name in ("internvl2-76b", "musicgen-large"):
+        with pytest.raises(NotImplementedError, match="embed-stub"):
             LM(_port_cfg(jax_arch(name)))
-    pure_ssm = dataclasses.replace(_port_cfg(jax_arch("zamba2-2.7b")),
-                                   family="ssm", attn_every=0)
-    with pytest.raises(NotImplementedError, match="ssm"):
-        LM(pure_ssm)
     with pytest.raises(NotImplementedError, match="embed-stub"):
         LM(dataclasses.replace(cfg, embed_stub=True))
+    hybrid = _port_cfg(jax_arch("zamba2-2.7b"))
+    with pytest.raises(NotImplementedError, match="hybrid-xlstm"):
+        LM(dataclasses.replace(hybrid, xlstm=_port_cfg(
+            jax_arch("xlstm-125m")).xlstm))
+    xl = LM(_port_cfg(jax_arch("xlstm-125m"))).param_shapes()
+    assert {"slstm", "mlstm"} <= set(xl) and "layers" not in xl
+    pure_ssm = dataclasses.replace(hybrid, family="ssm", attn_every=0)
+    ps = LM(pure_ssm).param_shapes()
+    assert "mamba" in ps and "shared" not in ps
     moe = dataclasses.replace(cfg, family="moe", moe=MoECfg(4, 2, 64))
     assert "moe" in LM(moe).param_shapes()["layers"]
     for name in ("moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b",

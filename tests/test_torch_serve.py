@@ -221,18 +221,26 @@ class TestRetirement:
         assert srv.finished[ok] == "length"
 
     def test_unported_options_raise(self):
-        """The paged tier, speculative decoding and the MoE family are
-        ported; a family that is not (xLSTM, a hybrid without its Mamba
-        layers) says so."""
+        """The paged tier, speculative decoding, the MoE family and xLSTM
+        are ported: xlstm set on a dense config builds an xLSTM model, as
+        in repro (whose init takes its xLSTM branch before the dense
+        one), which serves on the linear tier only.  A family that is not
+        ported (a hybrid without its Mamba layers, the hybrid layout with
+        xlstm) says so."""
         assert ServeConfig(paged=True).paged
         assert ServeConfig(spec_k=4).spec_k == 4
         cfg = get_arch("qwen2-1.5b").reduced()
         moe = dataclasses.replace(cfg, family="moe", moe=MoECfg(4, 2, 64))
         assert "moe" in LM(moe).param_shapes()["layers"]
-        with pytest.raises(NotImplementedError, match="xlstm"):
-            LM(dataclasses.replace(cfg, xlstm=XLSTMCfg()))
+        xl = LM(dataclasses.replace(cfg, xlstm=XLSTMCfg()))
+        assert {"slstm", "mlstm"} <= set(xl.param_shapes())
+        with pytest.raises(ValueError, match="paged KV cache unsupported"):
+            xl.init_cache_paged(1, 16, 3, 8, device="cpu")
         with pytest.raises(NotImplementedError, match="hybrid"):
             LM(dataclasses.replace(cfg, family="hybrid", attn_every=2))
+        with pytest.raises(NotImplementedError, match="not ported"):
+            LM(dataclasses.replace(cfg, family="hybrid", attn_every=2,
+                                   xlstm=XLSTMCfg()))
 
 
 class TestChunkedPrefill:

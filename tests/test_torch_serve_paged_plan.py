@@ -507,7 +507,7 @@ def test_pool_cut_on_blocks_falls_back_and_counts(runs):
         "attend_paged": (want["plain"]["flash_attention_paged_decode_ref"]
                          - rescores),
         "rescore": rescores, "copy_block": 2 * want["copies"], "mamba_state": 0,
-        "moe": 0}
+        "moe": 0, "xlstm": 0}
     assert got["fallbacks"]["attend_paged"] > 0 and want["copies"] >= 1
     assert got["plain"] == want["plain"]
 

@@ -327,7 +327,7 @@ def test_seq_kv_cut_falls_back(runs):
                                 "attend_cache": L * ref["decode"],
                                 "attention": 0, "attend_paged": 0,
                                 "rescore": 0, "copy_block": 0,
-                                "mamba_state": 0, "moe": 0}
+                                "mamba_state": 0, "moe": 0, "xlstm": 0}
 
 
 def test_own_plan_cuts_batch_only(plans, runs):
@@ -372,7 +372,7 @@ def test_kv_heads_cut_that_does_not_divide_falls_back(runs):
                                 "attend_cache": L * ref["decode"],
                                 "attention": 0, "attend_paged": 0,
                                 "rescore": 0, "copy_block": 0,
-                                "mamba_state": 0, "moe": 0}
+                                "mamba_state": 0, "moe": 0, "xlstm": 0}
     # megatron's model axis cuts the heads of wq
     assert got["params"]["layers/attn/wq"][0] == ("R",
                                                   "S(2)")

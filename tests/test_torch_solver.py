@@ -35,11 +35,11 @@ from repro_torch.launch import mesh as tmesh
 
 REL = 1e-9
 ARCHS = ["qwen2-1.5b", "llama3.2-3b", "zamba2-2.7b", "h2o-danube-3-4b",
-         "qwen2.5-32b", "moonshot-v1-16b-a3b"]
+         "qwen2.5-32b", "moonshot-v1-16b-a3b", "xlstm-125m"]
 # the train_4k cell for the configs whose solves take seconds: the 64-
 # layer qwen2.5-32b's took ~20 s and moonshot's ~40 s on a CPU core, so
 # those two are held on the decode shapes alone
-TRAIN_ARCHS = ARCHS[:4]
+TRAIN_ARCHS = ARCHS[:4] + ["xlstm-125m"]
 SERVE = ("serve16x2048", 2048, 16, "decode")
 CASES = ([(a, s, m) for a in ARCHS for s in ("decode_32k", SERVE)
           for m in ((4, 2), (2, 4), (16, 16))]

@@ -569,7 +569,7 @@ def test_attention_fallbacks(runs):
     assert out["fallback"]["fallbacks"] == {
         "attend_cache": 0, "prefill_attention": 0,
         "attention": 2 * L * MICRO * 2, "attend_paged": 0, "rescore": 0,
-        "copy_block": 0, "mamba_state": 0, "moe": 0}
+        "copy_block": 0, "mamba_state": 0, "moe": 0, "xlstm": 0}
 
 
 def test_int8_compression_under_the_plan(runs):
@@ -908,13 +908,17 @@ def test_launch_train_plan_refusals():
 
 
 def test_hybrid_model_refuses_a_plan():
-    """What a plan still refuses: the families not ported yet (xLSTM,
-    MoE); the hybrid family takes one (it trains and serves under it:
-    tests/test_torch_hybrid_plan.py)."""
+    """What a plan still refuses: the combinations not ported (the hybrid
+    layout with xlstm or with experts); the hybrid family, xLSTM and the
+    pure-SSM branch take one (they train and serve under it:
+    tests/test_torch_hybrid_plan.py, tests/test_torch_xlstm_plan.py)."""
     from repro_torch.configs import MoECfg, XLSTMCfg
     plan = manual_megatron_plan(NAMES, ["data"], "model")
     hyb = get_arch("zamba2-2.7b").reduced()
     assert LM(hyb, plan=plan).plan is plan
+    for cfg in (get_arch("xlstm-125m").reduced(),
+                dataclasses.replace(hyb, family="ssm", attn_every=0)):
+        assert LM(cfg, plan=plan).plan is plan
     for other in (dict(xlstm=XLSTMCfg()), dict(moe=MoECfg(4, 2, 64))):
         with pytest.raises(NotImplementedError, match="not ported"):
             LM(dataclasses.replace(hyb, **other), plan=plan)
