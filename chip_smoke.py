@@ -69,8 +69,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   4c. paged serve on the same weights, 16-token blocks: P1, 16 slots on a
      740-block pool with the prefix cache, phase 4's prompts, must preempt;
      P2, 16 slots with spec_k 4; both must give phase 4's streams token
-     for token.  P3, 32 slots on 2049 blocks (phase 4's cache bytes), 64
-     requests sharing a 512-token prefix: at least 63 x 512 prompt tokens
+     for token.  P3, 32 slots on 2049 blocks (phase 4's cache bytes), 32
+     requests sharing a 512-token prefix: at least 31 x 512 prompt tokens
      re-linked, and the streams of a run without the prefix cache.  Exact
      launch identities (paged decode = 28 x (decode steps + re-scores),
      flash_fwd = 28 x parallel prefill chunks, flash_decode = 0), no plain
@@ -81,10 +81,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      solver (H100 constants)
      solves qwen2-1.5b's 16 x 2048 decode shape for the (1, 1), (4, 2)
      and (2, 4) meshes and prints each plan and its solve time (the last
-     two solved only); phase 4's workload on phase 4's weights under the
-     (1, 1) plan (params and cache as DTensors, attention through
-     local_map): phase 4's streams token for token, flash_fwd and
-     flash_decode launched as often as in phase 4, no plan fallback, no
+     two solved only); phase 4's first 16 requests on phase 4's weights
+     under the (1, 1) plan (params and cache as DTensors, attention
+     through local_map): phase 4's streams token for token, flash_fwd and
+     flash_decode launched 28 a chunk and a step, no plan fallback, no
      plain call, no non-finite logit; a decode step's host and device ms
      with and without the plan; then the gathered route (the cache's cut
      on seq_kv, which has no local-shard rule) on 2 requests: the
@@ -111,8 +111,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   4f. danube serve: h2o-danube-3-4b at full width (24 layers, d 3840,
      32 heads of hd 120 on 8 KV heads, window 4096, untied vocab 32000,
      bf16, random weights from torch.Generator(0)), 8 slots x 2048 (a ring
-     of 2048 positions), 2 requests of 128-512 prompt tokens, 32 greedy
-     tokens each, through launch.serve.run_workload; every prompt token is
+     of 2048 positions), 1 request of 128-512 prompt tokens, 32 greedy
+     tokens, through launch.serve.run_workload; every prompt token is
      a batch-1 scan step, so flash_decode launches exactly 24 x (decode
      dispatches + prompt tokens), flash_fwd and the paged kernel never,
      no plain call, no non-finite logit; then the reduced danube (window
@@ -138,7 +138,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      80 SSM heads of P 64 / N 64, chunk 256; the shared attention+MLP
      block, 32 heads of hd 80, after every 6 layers), f32 master weights,
      global batch 4 x 1024 in 2 microbatches, AdamW lr 3e-4 with 2 warmup
-     steps, 4 steps through launch.train's runner; every loss finite, the
+     steps, 3 steps through launch.train's runner; every loss finite, the
      last below the first, launches per step exactly ssd_chunk_scan 216
      (54 layers x 2 microbatches x forward and remat recompute), flash_fwd
      36, flash_bwd_dq / flash_bwd_dkv 18 each, no decode kernel, 108 SSD
@@ -169,7 +169,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      tokens) exactly, no fallback, no plain call; a decode step's and a
      scan step's host and device ms with and without the plan; the
      reduced zamba2 under the plan against the CPU; then 4d's run (its
-     4 steps and schedule) under the solved train plan through
+     3 steps and schedule) under the solved train plan through
      launch.train --mesh 1x1 --plan auto: 4d's launches exactly, 0
      fallbacks, 0 plain calls, each loss within 1e-3 relative of 4d's;
      the peak memory, and (with --profile) a step's host and device ms
@@ -190,7 +190,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      dropped at capacity printed; then the reduced moonshot on the card
      against the CPU (0.25 band) with the count of routing decisions that
      differ;
-  4m. on a world-1 NCCL group of its own: 4l's first 2 requests under
+  4m. on a world-1 NCCL group of its own: 4l's first request under
      the solved (1, 1) decode plan pinned by normalize_moe_plan (4l's
      streams, launches exact, no fallback, no all-to-all, the reduced
      moonshot under the plan against the CPU); moonshot cut to 4 of its 48
@@ -211,7 +211,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   4o. xLSTM serve: xlstm-125m at full width (6 sLSTM + 6 mLSTM blocks,
      d 768, 4 heads, vocab 50304, 0.14 B params bf16, random weights from
      torch.Generator(0)), 16 slots x 2048 (each slot's state: C 6 x 4 x
-     384 x 384 f32 = 14.2 MB, h / c / n), 4 requests of 64-192 prompt
+     384 x 384 f32 = 14.2 MB, h / c / n), 2 requests of 64-192 prompt
      tokens, 32 greedy tokens each, through run_workload; every prompt
      token a batch-1 scan step; no kernel launches (the family runs none:
      mLSTM's scan is the chunked PyTorch scan, as repro's is XLA's), no
@@ -222,7 +222,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      stream token for token, 0 fallbacks, 0 plain calls, the step times
      under the plan, the reduced xlstm under the plan against the CPU;
   4p. xLSTM train: xlstm-125m at full width, 4 x 512 tokens a step in one
-     microbatch, f32 master, AdamW, 3 steps through launch.train's
+     microbatch, f32 master, AdamW, 2 steps through launch.train's
      runner (the sLSTM recurrence a Python loop of 512 steps a block, as
      repro's lax.scan); losses finite and falling, no launch, no plain
      call; tok/s, step ms, the model-FLOPs share, the peak memory; then
@@ -236,6 +236,39 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      route against the chunked route on the same weights: the bf16 loss
      within 0.05, an f32 copy's logits within 0.25; the reduced branch on
      the card against the CPU;
+  4r. the embedding-stub backbones, musicgen-large at full width and
+     depth (48 layers, d 2048, 32 / 32 heads of hd 64, d_ff 8192, vocab
+     2048; 3.23 B params bf16, random weights from torch.Generator(0)),
+     served from token ids through its embed table (as repro's Server
+     feeds it) on both tiers: 8 slots x 2048, 4 requests of 256-1024
+     prompt tokens in chunks of 256, 32 greedy tokens each; launches
+     exactly 48 a chunk and 48 a decode step, the paged streams equal to
+     the linear ones; one decode step of 8 rows fed the embed table's rows
+     as [B, D] embeds bit-equal to the step fed the token ids; on a
+     world-1 NCCL group of its own (up until 4s is done) the first
+     request again under the solved (1, 1) decode plan (the same stream,
+     0 fallbacks); then trained by the engine from audio_frame_embeds
+     batches (4 x 512 in one microbatch, the same batch every step, f32
+     master, AdamW), 3 steps, and again under the solved (1, 1) train plan:
+     launches per step exactly flash_fwd 96 and flash_bwd_dq /
+     flash_bwd_dkv 48 each, losses finite and falling, the planned losses
+     bit-equal to the unplanned; the peak memory (~58 GB of state);
+  4s. internvl2-76b at full width (d 8192, 64 / 8 heads of hd 128, d_ff
+     28672, vocab 128256, rope 1e6) cut to 32 of its 80 layers (60 GB of
+     bf16 weights) served on the linear tier, 2 requests of 256-1024
+     tokens, 16 greedy tokens each, and its first request again under the
+     (1, 1) plan; cut to 1 layer (the embed and head are 38 GB of
+     training state) trained from vision_patch_embeds batches, 2 steps,
+     with and without the (1, 1) train plan (losses within 1e-3
+     relative, bit-equality printed); the reduced musicgen-large and
+     internvl2-76b on the card against the CPU (the forward from embeds,
+     decode steps on [B, D] embeds, the loss);
+  4t. the pipeline runner (runtime/pipeline_parallel.py) at S = 1 over 4
+     of the port's dense decoder blocks at qwen2-1.5b's widths (4 x 1024
+     bf16 activations in 2 microbatches, 3 steps): PipelineTrainer's
+     losses and gnorms equal TrainEngine's on the same stack bit for bit,
+     each run launching flash_fwd, flash_bwd_dq and flash_bwd_dkv exactly
+     4 x 2 a step, no plain call;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch, the stream held by a spin kernel so the interval is device
      time; the forward and both decode kernels also without the hold,
@@ -320,9 +353,10 @@ TRAIN_PLAN_SHAPE = ("train4x1024", 1024, 4, "train")
 # one warm step (host: each step()'s enqueue; wall: the steps ended by a
 # sync), and steps under torch.profiler (device: its kernels' time)
 STEP_TIMED, STEP_PROFILED = 2, 1
-# the hybrid (zamba2-2.7b) run: 4 steps of the same batch, 2 of them warmup
-# (4k trains it again under the plan, on the same cosine schedule)
-HYBRID_ARCH, HYBRID_STEPS = "zamba2-2.7b", 4
+# the hybrid (zamba2-2.7b) run: 3 steps of the same batch, 2 of them warmup
+# (4k trains it again under the plan, on the same cosine schedule; 4 steps
+# until the embedding-stub phases needed the time)
+HYBRID_ARCH, HYBRID_STEPS = "zamba2-2.7b", 3
 # zamba2-2.7b served at full width (4j): 16 slots x 2048 (the shared
 # block's ring holds all 2048 positions), 2 requests of 32-96 prompt
 # tokens (each a batch-1 scan step: no parallel prefill for a recurrent
@@ -339,14 +373,15 @@ HYBRID_PLAN_SHAPE = ("serve16x2048", HYBRID_MAX_LEN, HYBRID_SLOTS, "decode")
 # profiler
 HYBRID_STEP_TIMED, HYBRID_STEP_PROFILED = 1, 1
 # h2o-danube-3-4b (hd 120, window 4096): served at full width, 8 slots x
-# 2048 (a ring of min(2048, 4096) positions), 2 requests of 128-512
+# 2048 (a ring of min(2048, 4096) positions), 1 request of 128-512
 # prompt tokens (each a batch-1 scan step; 4 until the SSM phases needed
-# the time), 32 greedy tokens each; trained
+# the time, 2 until the embedding-stub phases did), 32 greedy tokens;
+# trained
 # at full width cut to 12 of its 24 layers (full depth holds ~71 GB of
 # params, master weights, moments and grads before activations), 8 steps
 # of the dense run's batch, 2 of them warmup
 DANUBE = "h2o-danube-3-4b"
-DANUBE_SLOTS, DANUBE_MAX_LEN, DANUBE_REQUESTS = 8, 2048, 2
+DANUBE_SLOTS, DANUBE_MAX_LEN, DANUBE_REQUESTS = 8, 2048, 1
 DANUBE_PROMPT, DANUBE_GEN = (128, 512), 32
 DANUBE_TRAIN_LAYERS, DANUBE_STEPS = 12, 8
 HD120 = "(hd 120, danube)"     # the suffix of its rows in phase 5 and 6
@@ -355,14 +390,15 @@ HD120 = "(hd 120, danube)"     # the suffix of its rows in phase 5 and 6
 # 56.1 GB bf16): 4l serves it at full width, 8 slots x 2048 (a linear cache
 # of 48 x 2 x 8 x 2048 x 16 x 128 x 2 B = 6.44 GB), 8 requests of 128-512
 # prompt tokens in chunks of 256, 32 greedy tokens each, on both tiers; 4m
-# serves the first 2 under the solved (1, 1) decode plan, and trains it
+# serves the first under the solved (1, 1) decode plan (2 until the
+# embedding-stub phases needed the time), and trains it
 # cut to 4 of its 48 layers (2.95 B params: ~53 GB of bf16 params, f32
 # master, moments and grads at 18 B a param; full depth would hold ~505
 # GB), 4 steps of the dense run's batch, 2 of them warmup, and the same
 # run under the (1, 1) train plan
 MOE_ARCH, MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS = ("moonshot-v1-16b-a3b", 8,
                                                   2048, 8)
-MOE_PROMPT, MOE_GEN, MOE_CHUNK, MOE_PLAN_REQS = (128, 512), 32, 256, 2
+MOE_PROMPT, MOE_GEN, MOE_CHUNK, MOE_PLAN_REQS = (128, 512), 32, 256, 1
 MOE_TRAIN_LAYERS, MOE_STEPS = 4, 4
 MOE_PLAN_SHAPE = ("serve8x2048", MOE_MAX_LEN, MOE_SLOTS, "decode")
 # qwen2.5-32b (64 layers, d 5120, 40 / 8 heads of hd 128, d_ff 27648,
@@ -373,25 +409,58 @@ QWEN32, QWEN32_REQUESTS, QWEN32_PROMPT, QWEN32_GEN = ("qwen2.5-32b", 4,
                                                       (256, 1024), 16)
 # xlstm-125m (arXiv:2405.04517; 6 sLSTM + 6 mLSTM blocks, d 768, 4 heads,
 # vocab 50304, 0.14 B params): 4o serves it at full width, 16 slots x 2048
-# (an mLSTM state of 6 x 4 x 384 x 384 f32 = 14.2 MB a slot), 4 requests of
+# (an mLSTM state of 6 x 4 x 384 x 384 f32 = 14.2 MB a slot), 2 requests of
 # 64-192 prompt tokens (each a batch-1 scan step: a recurrent state has no
 # parallel prefill), 32 greedy tokens each, and its first request again
 # under the solved (1, 1) decode plan; 4p trains it at full width (the
 # model is small: no depth cut), 4 x 512 tokens a step in one microbatch
-# (mLSTM's scan over two chunks of 256), 3 steps (2 of them warmup: the
+# (mLSTM's scan over two chunks of 256), 2 steps (4 requests and 3 steps
+# until the embedding-stub phases needed the time; the first a warmup: the
 # sLSTM recurrence is a Python loop of 512 steps a block and a
 # microbatch, ~11 s of host time a step), then the same run under the (1, 1)
 # train plan, each loss within TRAIN_PLAN_LOSS_REL of the unplanned run's
 XLSTM = "xlstm-125m"
-XLSTM_SLOTS, XLSTM_MAX_LEN, XLSTM_REQUESTS = 16, 2048, 4
+XLSTM_SLOTS, XLSTM_MAX_LEN, XLSTM_REQUESTS = 16, 2048, 2
 XLSTM_PROMPT, XLSTM_GEN, XLSTM_PLAN_REQS = (64, 192), 32, 1
 XLSTM_PLAN_SHAPE = ("serve16x2048", XLSTM_MAX_LEN, XLSTM_SLOTS, "decode")
-XLSTM_STEPS, XLSTM_BATCH, XLSTM_SEQ, XLSTM_MICRO = 3, 4, 512, 1
+XLSTM_STEPS, XLSTM_BATCH, XLSTM_SEQ, XLSTM_MICRO = 2, 4, 512, 1
 # the pure-Mamba branch of LM (4q): no config has it, so a test-built one,
 # zamba2-2.7b's widths with family "ssm" and no shared block, cut to 8 of
 # its 54 layers; one training step of the dense run's batch (4 x 1024 in 2
 # microbatches) and 8 decode steps of 4 rows
 SSM_LAYERS, SSM_DECODE_STEPS, SSM_ROWS = 8, 8, 4
+# the embedding-stub backbones (PR 27): musicgen-large (arXiv:2306.05284;
+# 48 layers, d 2048, 32 / 32 heads of hd 64, d_ff 8192, vocab 2048; 3.23 B
+# params = 6.46 GB bf16) in 4r at full width and depth: served on both
+# tiers, 8 slots x 2048, 4 requests of 256-1024 prompt tokens in chunks of
+# 256, 32 greedy tokens each, the first again under the solved (1, 1)
+# decode plan; trained from audio_frame_embeds batches of 4 x 512 in one
+# microbatch, 3 steps with and without the (1, 1) train plan (18 B a
+# param of bf16 params, f32 master, moments and grads: ~58 GB before
+# activations, so no depth cut).  internvl2-76b (arXiv:2404.16821; 80
+# layers, d 8192, 64 / 8 heads of hd 128, d_ff 28672, vocab 128256, rope
+# 1e6; 70.55 B params) in 4s at full width cut in depth: served with 32 of
+# its 80 layers (55.8 GB of layers + 4.2 GB of embed and head), 2
+# requests of 256-1024 tokens, 16 greedy tokens each, the first again
+# under the (1, 1) plan; trained from vision_patch_embeds batches with 1
+# layer (the embed and head alone are 2.1 B params, 38 GB of training
+# state; a second layer's 15.7 GB and the optimizer's per-leaf f32
+# temporaries would pass the card's 80 GB), 2 steps with and without the
+# (1, 1) train plan
+MUSICGEN, INTERNVL = "musicgen-large", "internvl2-76b"
+STUB_SLOTS, STUB_MAX_LEN, STUB_CHUNK = 8, 2048, 256
+STUB_PROMPT, STUB_PLAN_REQS = (256, 1024), 1
+MUSICGEN_REQUESTS, MUSICGEN_GEN, MUSICGEN_STEPS = 4, 32, 3
+INTERNVL_SERVE_LAYERS, INTERNVL_REQUESTS, INTERNVL_GEN = 32, 2, 16
+INTERNVL_TRAIN_LAYERS, INTERNVL_STEPS = 1, 2
+STUB_BATCH, STUB_SEQ = 4, 512
+STUB_PLAN_SHAPE = ("serve8x2048", STUB_MAX_LEN, STUB_SLOTS, "decode")
+STUB_TRAIN_SHAPE = (f"train{STUB_BATCH}x{STUB_SEQ}", STUB_SEQ, STUB_BATCH,
+                    "train")
+# 4t: the pipeline runner at S = 1 over a stack of PIPE_LAYERS of the
+# port's dense decoder blocks at qwen2-1.5b's widths, PIPE_BATCH x
+# TRAIN_SEQ activations in PIPE_MICRO microbatches, PIPE_STEPS steps
+PIPE_LAYERS, PIPE_BATCH, PIPE_MICRO, PIPE_STEPS = 4, 4, 2, 3
 # SSD kernel vs its plain version: y is f32 on both sides, the sequential
 # recurrence against the chunked form, so the same terms summed in another
 # order (up to a chunk of 256 in one sum): |err| <= 2e-4 x max(1, max|ref|).
@@ -679,6 +748,13 @@ FWD_CASES = [
     (1, 256, 2048, 40, 8, 128, 0, True, None, "bf16"),
     (1, 256, 2048, 40, 8, 128, 768, True, None, "bf16"),
     (1, 1000, 1000, 40, 8, 128, 0, True, None, "bf16"),
+    # the embedding-stub backbones: hd 64 at g 1 (musicgen-large, 32 / 32
+    # heads) and hd 128 at g 8 (internvl2-76b, 64 / 8): each one's training
+    # microbatch and a prefill chunk at an offset
+    (STUB_BATCH, STUB_SEQ, STUB_SEQ, 32, 32, 64, 0, True, None, "bf16"),
+    (1, STUB_CHUNK, STUB_MAX_LEN, 32, 32, 64, 300, True, None, "bf16"),
+    (STUB_BATCH, STUB_SEQ, STUB_SEQ, 64, 8, 128, 0, True, None, "bf16"),
+    (1, STUB_CHUNK, STUB_MAX_LEN, 64, 8, 128, 300, True, None, "bf16"),
 ]
 
 
@@ -763,7 +839,11 @@ DEC_CASES = [(16, 2048, 12, 2, 128, None, None, "bf16"),
              (MOE_SLOTS, MOE_MAX_LEN, 16, 16, 128, None, None, "bf16"),
              (MOE_SLOTS, MOE_MAX_LEN, 40, 8, 128, None, None, "bf16"),
              (8, 2048, 40, 8, 128, None,
-              [128, 129, 1, 256, 257, 2048, 0, 1000], "bf16")]
+              [128, 129, 1, 256, 257, 2048, 0, 1000], "bf16"),
+             # g 1 at hd 64 (musicgen-large) and g 8 at hd 128
+             # (internvl2-76b): their serving steps (8 slots x 2048)
+             (STUB_SLOTS, STUB_MAX_LEN, 32, 32, 64, None, None, "bf16"),
+             (STUB_SLOTS, STUB_MAX_LEN, 64, 8, 128, None, None, "bf16")]
 # the decode kernels' key positions per block that phase 5 times; phase
 # 3 runs every decode case at each, twice
 DEC_SPLITS = (64, 128, 256, 512)
@@ -888,6 +968,11 @@ def check_kernels(dev, tag):
         # (qwen2.5-32b: dk/dv at splits 1 and 5), ragged S
         (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 16, 16, 128, True, None, bf),
         (1, 1000, 40, 8, 128, True, None, bf),
+        # the embedding-stub backbones' training microbatches: hd 64 at g
+        # 1 (musicgen-large), hd 128 at g 8 (internvl2-76b: dk/dv at splits
+        # 1, 2, 4 and 8)
+        (STUB_BATCH, STUB_SEQ, 32, 32, 64, True, None, bf),
+        (STUB_BATCH, STUB_SEQ, 64, 8, 128, True, None, bf),
     ]
     for i, (b, s, h, kv, hd, causal, window, dt) in enumerate(bwd_cases):
         q, do = (rnd((b, s, h, hd), 200 + 4 * i, dt),
@@ -1074,7 +1159,11 @@ def check_paged(dev, tag):
              (4, 32, 8, 120, 16, 8, [5, 128, 0, 77]),     # hd 120
              # g 1 (moonshot) and g 5 (qwen2.5-32b) at hd 128, 8 slots
              (8, 16, 16, 128, 16, 128, serving[:8].tolist()),
-             (8, 40, 8, 128, 16, 128, serving[:8].tolist())]
+             (8, 40, 8, 128, 16, 128, serving[:8].tolist()),
+             # g 1 at hd 64 (musicgen-large) and g 8 at hd 128
+             # (internvl2-76b), 8 slots
+             (8, 32, 32, 64, 16, 128, serving[:8].tolist()),
+             (8, 64, 8, 128, 16, 128, serving[:8].tolist())]
     out = []
     for i, (b, h, kv, hd, bl, mb, lengths) in enumerate(cases):
         q, kp, vp, table, ln, live = paged_case(dev, b, h, kv, hd, bl, mb,
@@ -1551,7 +1640,7 @@ def serve_full_width(dev, tag, profile=False):
 # scheduler on the CPU (its choices depend on the prompt and output
 # lengths only), is 760, and 740 preempts twice.
 P1_BLOCKS = 740
-P3_PREFIX, P3_REQUESTS = 512, 64
+P3_PREFIX, P3_REQUESTS = 512, 32
 
 
 def counting_lm(cfg, dev):
@@ -1597,10 +1686,10 @@ def serve_paged(base, lin_decode, dev, tag):
     P1: 16 slots on a pool of P1_BLOCKS blocks with the prefix cache,
     phase 4's 32 prompts; it must preempt.  P2: 16 slots on the default
     pool (2049 blocks) with spec_k = 4.  Both must give phase 4's
-    streams.  P3: 32 slots on 2049 blocks (phase 4's cache bytes), 64
-    requests sharing a 512-token system prefix, once with the prefix
-    cache and once without; equal streams, and the 63 later requests
-    re-link the prefix."""
+    streams.  P3: 32 slots on 2049 blocks (phase 4's cache bytes),
+    P3_REQUESTS requests sharing a 512-token system prefix, once with the
+    prefix cache and once without; equal streams, and every request after
+    the first re-links the prefix."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import run_workload
@@ -1718,6 +1807,9 @@ def serve_paged(base, lin_decode, dev, tag):
 # 4e: the plan path.  The decode shape the serving harness solves for,
 # and the meshes whose plans are printed (solved only: one card here).
 PLAN_SHAPE = ("serve16x2048", 2048, 16, "decode")
+# 4e serves the first PLAN_SERVE_REQS of phase 4's requests under the
+# (1, 1) plan (all 32 until the embedding-stub phases needed the time)
+PLAN_SERVE_REQS = 16
 PLAN_MESHES = ((1, 1), (4, 2), (2, 4))
 # decode steps timed with and without the plan (8 until the SSM phases
 # needed the time)
@@ -1786,8 +1878,9 @@ def step_times(step, n, tag, what):
 def serve_plan(base, lin_launches, dev, tag, mesh):
     """Phase 4e: phase 4's workload on phase 4's weights under the solved
     (1, 1) decode plan, on the world-1 NCCL group and the (1, 1)
-    DeviceMesh ``mesh``.  The streams must be phase 4's token for token,
-    flash_fwd and flash_decode must launch as often as in phase 4, no
+    DeviceMesh ``mesh``: its first PLAN_SERVE_REQS requests.  The streams
+    must be phase 4's token for token, flash_fwd and flash_decode must
+    launch exactly L a prefill chunk and L a decode step, no
     attention may fall back to the plain path, no plain version may run,
     no logit may be non-finite.  Also prints the (4, 2) and (2, 4) plans
     (solved only), the solve times, and a decode step's host and device
@@ -1837,20 +1930,18 @@ def serve_plan(base, lin_launches, dev, tag, mesh):
     del warm
     torch.cuda.synchronize()
     srv = CheckedServer(model, params, scfg)
+    reqs = prompts[:PLAN_SERVE_REQS]
     fa.reset_launches()
     ops.reset_plain_calls()
-    rec = run_workload(srv, [(0.0, p) for p in prompts], gen=32)
+    rec = run_workload(srv, [(0.0, p) for p in reqs], gen=32)
     launches = dict(fa.launches)
     plain, fallbacks = dict(ops.plain_calls), dict(ops.plan_fallbacks)
     streams = {r: list(t) for r, t in srv.outputs.items()}
-    print(f"plan: {rec['requests']} requests, {srv.prefill_dispatches} "
-          f"prefill dispatches, {srv.decode_dispatches} decode dispatches; "
-          f"launches {launches}, plain calls {plain}, plan fallbacks "
-          f"{fallbacks}")
-    for k in ("flash_fwd", "flash_decode"):
-        if launches[k] != lin_launches[k]:
-            fail(f"plan: {k} launched {launches[k]} times, phase 4 "
-                 f"{lin_launches[k]}")
+    print(f"plan: {rec['requests']} requests (phase 4's first "
+          f"{len(reqs)}), {srv.prefill_dispatches} prefill dispatches, "
+          f"{srv.decode_dispatches} decode dispatches; launches {launches}, "
+          f"plain calls {plain}, plan fallbacks {fallbacks} (phase 4's 32: "
+          f"{ {k: lin_launches[k] for k in ('flash_fwd', 'flash_decode')} })")
     if launches["flash_fwd"] != L * srv.prefill_dispatches:
         fail(f"plan: flash_fwd {launches['flash_fwd']} != {L} x "
              f"{srv.prefill_dispatches}")
@@ -1864,8 +1955,9 @@ def serve_plan(base, lin_launches, dev, tag, mesh):
         fail(f"plan: a plain version ran on the plan path: {plain}")
     if srv.nonfinite:
         fail(f"plan: {srv.nonfinite} non-finite logits")
-    if streams != lin_streams:
-        bad = [r for r in lin_streams if streams.get(r) != lin_streams[r]]
+    want = {r: lin_streams[r] for r in range(len(reqs))}
+    if streams != want:
+        bad = [r for r in want if streams.get(r) != want[r]]
         fail(f"plan: streams differ from phase 4's for requests {bad}")
     ms = 1e3
     print(f"plan metrics: prefill {rec['prefill_tok_per_s']:.1f} tok/s, "
@@ -1874,8 +1966,8 @@ def serve_plan(base, lin_launches, dev, tag, mesh):
           f"{rec['itl_p50_s'] * ms:.2f} ms, wall {rec['wall_s']:.2f} s "
           f"{tag}")
     print(f"plan: the (1, 1) plan's streams equal phase 4's token for "
-          f"token; launches equal phase 4's; 0 fallbacks, 0 plain calls "
-          f"{tag}")
+          f"token; launches {L} a chunk and a step; 0 fallbacks, 0 plain "
+          f"calls {tag}")
     slim = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
     slim.update(prefill_dispatches=srv.prefill_dispatches,
                 decode_dispatches=srv.decode_dispatches, launches=launches,
@@ -3560,8 +3652,8 @@ def recording_aux():
 
     auxes, forward = [], LM.forward
 
-    def recorded(self, params, tokens):
-        logits, aux = forward(self, params, tokens)
+    def recorded(self, params, tokens=None, embeds=None):
+        logits, aux = forward(self, params, tokens, embeds)
         auxes.append(aux.detach())
         return logits, aux
     LM.forward = recorded
@@ -4136,6 +4228,501 @@ def ssm_branch(dev, tag):
     return rec, launches
 
 
+def stub_cfg(arch, n_layers=None):
+    """An embedding-stub config at full width, cut to ``n_layers`` if
+    given."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+
+
+def serve_stub(dev, tag, arch, n_layers=None, n_requests=MUSICGEN_REQUESTS,
+               gen=MUSICGEN_GEN, tiers=("linear", "paged")):
+    """Phases 4r / 4s, serving: an embedding-stub backbone at full width
+    (cut to ``n_layers`` if given) through launch.serve.run_workload, fed
+    token ids through its embed table as repro's Server feeds them, on
+    each of ``tiers`` (the paged tier: 16-token blocks, no speculation)
+    with the same requests.  Launches exactly flash_fwd L a prefill chunk
+    and flash_decode (linear) or flash_paged_decode (paged) L a decode
+    step, no plain call, no non-finite logit, every request its ``gen``
+    tokens; the paged streams equal the linear ones token for token.
+    Prints prefill and decode tok/s, TTFT / ITL, the peak memory and a
+    decode step's host and device ms.  Returns the record, the launches
+    of each tier and (model, params, prompts, linear streams, serve
+    config, gen)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = stub_cfg(arch, n_layers)
+    model = LM(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    full = stub_cfg(arch)
+    print(f"serve {arch}: full width, {cfg.n_layers} of {full.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads "
+          f"of hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{n_params / 1e9:.3f} B params bf16 ({2 * n_params / 1e9:.2f} "
+          f"GB), init {time.perf_counter() - t0:.1f}s {tag}")
+    scfg = ServeConfig(slots=STUB_SLOTS, max_len=STUB_MAX_LEN,
+                       prefill_chunk=STUB_CHUNK)
+    rng = np.random.default_rng(0)
+    lo, hi = STUB_PROMPT
+    prompts = [rng.integers(0, cfg.vocab,
+                            size=int(rng.integers(lo, hi + 1))).tolist()
+               for _ in range(n_requests)]
+    warm = Server(model, params, scfg)      # first launches, cuBLAS set-up
+    warm.admit(prompts[0][:300], 0, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+
+    L, ms = cfg.n_layers, 1e3
+    out, launches_all = {"params": n_params, "n_layers": L}, {}
+    for tier in tiers:
+        extra = dict(paged=True, block_len=16) if tier == "paged" else {}
+        srv = checked_server()(model, params,
+                               dataclasses.replace(scfg, **extra))
+        cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(
+            {k: v for k, v in srv.cache.items() if k != "pos"}))
+        fa.reset_launches()
+        ops.reset_plain_calls()
+        rec = run_workload(srv, [(0.0, p) for p in prompts], gen=gen)
+        launches = dict(fa.launches)
+        plain = dict(ops.plain_calls)
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = dict.fromkeys(launches, 0)
+        want["flash_fwd"] = L * srv.prefill_dispatches
+        kernel = "flash_paged_decode" if extra else "flash_decode"
+        want[kernel] = L * srv.decode_dispatches
+        reasons = set(srv.finished.values())
+        print(f"serve {arch} {tier}: {rec['requests']} requests, "
+              f"{rec['prompt_tokens']} prompt tokens, "
+              f"{rec['generated_tokens']} generated, "
+              f"{srv.prefill_dispatches} prefill chunks, "
+              f"{srv.decode_dispatches} decode dispatches, cache "
+              f"{cache_bytes / 1e9:.2f} GB; launches {launches} (want "
+              f"{want}), plain calls {plain}")
+        if rec["requests"] != n_requests or reasons != {"length"} or any(
+                len(srv.outputs[r]) != gen for r in srv.finished):
+            fail(f"{arch} {tier}: not every request gave {gen} tokens: "
+                 f"{srv.finished}")
+        if launches != want:
+            fail(f"{arch} {tier}: launches {launches}, expected {want}")
+        if any(plain.values()) or srv.nonfinite:
+            fail(f"{arch} {tier}: plain calls {plain}, {srv.nonfinite} "
+                 f"non-finite logits")
+        print(f"serve {arch} {tier} metrics: prefill "
+              f"{rec['prefill_tok_per_s']:.1f} tok/s, decode "
+              f"{rec['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{rec['ttft_p50_s'] * ms:.1f} ms p95 "
+              f"{rec['ttft_p95_s'] * ms:.1f} ms, ITL p50 "
+              f"{rec['itl_p50_s'] * ms:.2f} ms p95 "
+              f"{rec['itl_p95_s'] * ms:.2f} ms, wall {rec['wall_s']:.2f} s, "
+              f"peak memory {peak / 2**30:.2f} GiB {tag}")
+        slim = {k: v for k, v in rec.items() if k not in ("itl_s",
+                                                          "ttft_s")}
+        slim.update(prefill_dispatches=srv.prefill_dispatches,
+                    decode_dispatches=srv.decode_dispatches,
+                    peak_memory_bytes=peak, cache_bytes=cache_bytes,
+                    launches=launches,
+                    streams={r: list(t) for r, t in srv.outputs.items()})
+        if tier == "linear":
+            slim["decode_step"] = decode_step_times(srv, PLAN_STEPS, tag,
+                                                    arch)
+        out[tier], launches_all[tier] = slim, launches
+        del srv
+        torch.cuda.empty_cache()
+    streams = out["linear"]["streams"]
+    if "paged" in out:
+        if out["paged"]["streams"] != streams:
+            fail(f"{arch}: the paged tier's streams differ from the linear "
+                 "tier's")
+        print(f"serve {arch}: the paged tier's streams equal the linear "
+              f"tier's token for token {tag}")
+    return out, launches_all, (model, params, prompts, streams, scfg, gen)
+
+
+def stub_embeds_step(model, params, dev, tag):
+    """Phase 4r: the model API's embeds input on the card.  One decode
+    step of 8 rows fed ``params["embed"][tokens]`` as [B, D] embeds gives
+    the same step fed the token ids bit for bit (logits and the K/V it
+    writes), each launching flash_decode once a layer."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = model.cfg
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, size=STUB_SLOTS), dtype=torch.int32, device=dev)
+    out = {}
+    with torch.no_grad():
+        for how, feed in (("tokens", toks),
+                          ("embeds", params["embed"][toks.long()])):
+            cache = model.init_cache(STUB_SLOTS, 64, device=dev)
+            fa.reset_launches()
+            logits, cache = model.decode_step(params, cache, feed)
+            torch.cuda.synchronize()
+            out[how] = (logits, cache, fa.launches["flash_decode"])
+    same = (torch.equal(out["tokens"][0], out["embeds"][0])
+            and all(torch.equal(a, b) for a, b in zip(
+                _leaves(out["tokens"][1]), _leaves(out["embeds"][1]))))
+    n = [out[k][2] for k in ("tokens", "embeds")]
+    print(f"{cfg.name}: a decode step fed [B, D] embeds "
+          f"{tuple(out['embeds'][0].shape)} logits, bit-equal to the step "
+          f"fed the token ids (logits and cache) {same}; flash_decode "
+          f"launches {n} (want {cfg.n_layers} each) {tag}")
+    if not same or n != [cfg.n_layers] * 2:
+        fail(f"{cfg.name}: the embeds decode step differs from the token "
+             f"step (bit-equal {same}, launches {n})")
+    return dict(bit_equal=same, launches=n)
+
+
+def serve_stub_plan(base, dev, tag, mesh):
+    """Phases 4r / 4s under the plan: the first STUB_PLAN_REQS requests of
+    the serving phase on its weights under the solved (1, 1) decode plan
+    (params and cache as DTensors, the kernels inside local_map): the
+    serving phase's streams of those requests, launches exactly
+    flash_fwd L a chunk and flash_decode L a step, no fallback, no plain
+    call, no non-finite logit; a decode step's host and device ms."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.compile import plan_from_record, solve_cell_plan
+    from repro_torch.launch.mesh import solver_axes
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.serve import Server
+
+    model0, params, prompts, streams0, scfg, gen = base
+    cfg = model0.cfg
+    t0 = time.perf_counter()
+    plan = plan_from_record(solve_cell_plan(
+        cfg, ShapeConfig(*STUB_PLAN_SHAPE), solver_axes((1, 1)), "mesh1x1",
+        use_cache=False))
+    print(f"{cfg.name} plan: {STUB_PLAN_SHAPE[0]} on the 1x1 mesh, solved "
+          f"in {time.perf_counter() - t0:.3f} s:")
+    print(plan.describe())
+    model = LM(cfg, plan=plan, mesh=mesh)
+    reqs = prompts[:STUB_PLAN_REQS]
+    warm = Server(model, params, scfg)
+    warm.admit(reqs[0][:8], 0, max_new_tokens=2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = checked_server()(model, params, scfg)
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    rec = run_workload(srv, [(0.0, p) for p in reqs], gen=gen)
+    launches = dict(fa.launches)
+    plain, fallbacks = dict(ops.plain_calls), dict(ops.plan_fallbacks)
+    peak = torch.cuda.max_memory_allocated(dev)
+    streams = {r: list(t) for r, t in srv.outputs.items()}
+    L, ms = cfg.n_layers, 1e3
+    want = dict.fromkeys(launches, 0)
+    want["flash_fwd"] = L * srv.prefill_dispatches
+    want["flash_decode"] = L * srv.decode_dispatches
+    print(f"{cfg.name} plan: {len(reqs)} request(s), "
+          f"{srv.prefill_dispatches} prefill chunks, "
+          f"{srv.decode_dispatches} decode dispatches; launches {launches} "
+          f"(want {want}), plan fallbacks {fallbacks}, plain calls {plain}, "
+          f"non-finite logits {srv.nonfinite}")
+    print(f"{cfg.name} plan metrics: prefill {rec['prefill_tok_per_s']:.1f} "
+          f"tok/s, decode {rec['decode_tok_per_s']:.1f} tok/s, ITL p50 "
+          f"{rec['itl_p50_s'] * ms:.2f} ms, wall {rec['wall_s']:.2f} s, "
+          f"peak memory {peak / 2**30:.2f} GiB {tag}")
+    if launches != want:
+        fail(f"{cfg.name} plan: launches {launches}, want {want}")
+    if any(fallbacks.values()) or any(plain.values()) or srv.nonfinite:
+        fail(f"{cfg.name} plan: fallbacks {fallbacks}, plain calls {plain}, "
+             f"{srv.nonfinite} non-finite logits")
+    if streams != {r: streams0[r] for r in range(len(reqs))}:
+        fail(f"{cfg.name} plan: streams differ from the unplanned run's")
+    print(f"{cfg.name} plan: the unplanned streams of its first {len(reqs)} "
+          f"request(s) under the (1, 1) plan; launches exact, 0 fallbacks, "
+          f"0 plain calls {tag}")
+    out = {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")}
+    out.update(decode_dispatches=srv.decode_dispatches,
+               prefill_dispatches=srv.prefill_dispatches, launches=launches,
+               plan_fallbacks=fallbacks, peak_memory_bytes=peak,
+               decode_step=decode_step_times(srv, PLAN_STEPS, tag,
+                                             f"{cfg.name} plan"))
+    del srv
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def stub_batch(cfg, step, dev):
+    """The embedding-stub frontend's batch for ``step``: [STUB_BATCH,
+    STUB_SEQ, d] embeds from audio_frame_embeds (musicgen-large) or
+    vision_patch_embeds (internvl2-76b), seeded by the step, and
+    host_batch's labels for the step."""
+    from repro_torch.data.pipeline import (DataConfig, audio_frame_embeds,
+                                           host_batch, vision_patch_embeds)
+    frontend = (audio_frame_embeds if cfg.family == "audio"
+                else vision_patch_embeds)
+    labels = host_batch(DataConfig(seed=0, vocab=cfg.vocab, seq_len=STUB_SEQ,
+                                   global_batch=STUB_BATCH), step)["labels"]
+    return {"embeds": torch.from_numpy(frontend(
+                cfg, STUB_BATCH, STUB_SEQ, seed=step)).to(dev),
+            "labels": torch.from_numpy(labels).to(dev)}
+
+
+def train_stub(dev, tag, arch, n_layers, steps, mesh=None, ref_rec=None):
+    """Phases 4r / 4s, training: an embedding-stub backbone at full width
+    (cut to ``n_layers``) trained by the engine from its stub frontend's
+    embeds (``stub_batch``: STUB_BATCH x STUB_SEQ in one microbatch, the
+    same batch every step, so that the loss must fall), f32
+    master, AdamW lr 3e-4 with 2 warmup steps, ``steps`` steps; with
+    ``mesh`` (a world-1 NCCL group up) under the solved (1, 1) train plan.
+    Launches per step exactly flash_fwd 2 L (forward and remat) and
+    flash_bwd_dq / flash_bwd_dkv L each, no plain call, no plan fallback,
+    losses finite and falling; under the plan (``ref_rec``: the unplanned
+    run's record) each loss bit-equal to the unplanned run's (4r) or
+    within TRAIN_PLAN_LOSS_REL of it (printed either way).  Prints the
+    step ms, tok/s, the model-FLOPs share and the peak memory."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainConfig, make_engine
+
+    cfg = stub_cfg(arch, n_layers)
+    planned = mesh is not None
+    label = f"train {arch}" + (" plan" if planned else "")
+    plan = None
+    if planned:
+        from repro_torch.launch.compile import (plan_from_record,
+                                                solve_cell_plan)
+        from repro_torch.launch.mesh import solver_axes
+        t0 = time.perf_counter()
+        plan = plan_from_record(solve_cell_plan(
+            cfg, ShapeConfig(*STUB_TRAIN_SHAPE), solver_axes((1, 1)),
+            "mesh1x1_mp", use_cache=False,
+            graph_kwargs={"master_fp32": True}))
+        print(f"{label}: the (1, 1) train plan solved in "
+              f"{time.perf_counter() - t0:.3f} s (roles cut: "
+              f"{sorted(r for r, c in plan.role_cuts.items() if c)})")
+    tcfg = TrainConfig(microbatches=1, buckets=4, optim=AdamWConfig(
+        lr=3e-4, warmup_steps=2, total_steps=steps))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine = make_engine(LM(cfg), tcfg, device=dev, mesh=mesh, plan=plan)
+    state = engine.init_state(0)
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    batch = stub_batch(cfg, 0, dev)
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    metrics, stamps = [], []
+    torch.cuda.synchronize()
+    for _ in range(steps):
+        stamps.append(time.perf_counter())
+        state, m = engine.step(state, batch)
+        metrics.append(m)
+        torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    launches = dict(fa.launches)
+    plain, fallbacks = dict(ops.plain_calls), dict(ops.plan_fallbacks)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["gnorm"]) for m in metrics]
+    step_s = float(np.mean(np.diff(stamps)[1:]))      # after the first
+    L = cfg.n_layers
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=2 * L * steps, flash_bwd_dq=L * steps,
+                flash_bwd_dkv=L * steps)
+    print(f"{label}: full width, {L} of {stub_cfg(arch).n_layers} layers, "
+          f"{n_params / 1e9:.3f} B params, {steps} steps of {STUB_BATCH} x "
+          f"{STUB_SEQ} embeds in one microbatch, losses "
+          f"{[round(x, 4) for x in losses]}, gnorms "
+          f"{[round(x, 4) for x in gnorms]}")
+    print(f"{label}: launches {launches} (want {want}), plan fallbacks "
+          f"{fallbacks}, plain calls {plain}")
+    if len(losses) != steps or not np.isfinite(losses + gnorms).all():
+        fail(f"{label}: losses or gnorms not all finite: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want}")
+    if any(plain.values()) or any(fallbacks.values()):
+        fail(f"{label}: plain calls {plain}, fallbacks {fallbacks}")
+    flops = train_flops(cfg, STUB_BATCH, STUB_SEQ)
+    mfu = flops / step_s / BF16_FLOPS_PER_S
+    print(f"{label} metrics: {STUB_BATCH * STUB_SEQ / step_s:.1f} tok/s, "
+          f"mean step {step_s * 1e3:.2f} ms over {steps - 1} steps (each "
+          f"synced), model FLOPs {flops / 1e12:.3f} TFLOP/step = "
+          f"{100 * mfu:.2f}% of 989 TFLOP/s, peak memory "
+          f"{peak / 2**30:.2f} GiB {tag}")
+    rec = dict(losses=losses, gnorms=gnorms, launches=launches,
+               plan_fallbacks=fallbacks, peak_memory_bytes=peak,
+               mean_step_s=step_s, model_flops_per_step=flops, mfu=mfu,
+               params=n_params, n_layers=L)
+    if planned:
+        ref = ref_rec["losses"]
+        rel = max(abs(a - b) / max(abs(b), 1e-12)
+                  for a, b in zip(losses, ref))
+        equal = losses == ref
+        print(f"{label}: against the unplanned run's: losses bit-equal "
+              f"{equal}, gnorms bit-equal {gnorms == ref_rec['gnorms']}, max "
+              f"relative loss gap {rel:.3g}; mean step {step_s * 1e3:.2f} ms "
+              f"(unplanned {ref_rec['mean_step_s'] * 1e3:.2f}) {tag}")
+        if arch == MUSICGEN and not equal:
+            fail(f"{label}: losses {losses} are not the unplanned run's "
+                 f"{ref}")
+        if not rel <= TRAIN_PLAN_LOSS_REL:
+            fail(f"{label}: losses {losses} against {ref}")
+        rec.update(bit_equal=equal, max_rel_gap=rel)
+    del state, engine, batch, metrics
+    return rec, launches
+
+
+def reduced_stub_card_vs_cpu(dev, tag, arch):
+    """The reduced embedding-stub backbone (bf16, hd 16) on the card against
+    the same weights on the CPU: the forward's logits from stub-frontend
+    embeds and 4 decode steps fed [B, D] embeds (LOGITS_ATOL), the loss
+    (LOSS_ATOL)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import (audio_frame_embeds,
+                                           vision_patch_embeds)
+    from repro_torch.models.model import LM
+
+    cfg = get_arch(arch).reduced()
+    frontend = (audio_frame_embeds if cfg.family == "audio"
+                else vision_patch_embeds)
+    model = LM(cfg)
+    p_cpu = model.init(0, device="cpu")
+    params = {"cpu": p_cpu, dev: _to(p_cpu, dev)}
+    e = torch.from_numpy(frontend(cfg, 3, 12, seed=1))
+    labels = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(3, 12)).astype(np.int32))
+    steps = torch.from_numpy(frontend(cfg, 4, 3, seed=2))
+    out = {}
+    with torch.no_grad():
+        for d in ("cpu", dev):
+            lg, _ = model.forward(params[d], embeds=e.to(d))
+            loss = model.loss(params[d], {"embeds": e.to(d),
+                                          "labels": labels.to(d)})
+            cache = model.init_cache(3, 16, device=d)
+            dec = [model.decode_step(params[d], cache, steps[i].to(d))[0]
+                   for i in range(4)]
+            out[d] = (lg.float().cpu(), float(loss),
+                      torch.stack(dec).float().cpu())
+    e_fwd = float((out["cpu"][0] - out[dev][0]).abs().max())
+    e_loss = abs(out["cpu"][1] - out[dev][1])
+    e_dec = float((out["cpu"][2] - out[dev][2]).abs().max())
+    print(f"reduced {arch}, card vs CPU: forward from embeds "
+          f"max|dlogits|={e_fwd:.4g}, decode on [B, D] embeds "
+          f"max|dlogits|={e_dec:.4g} (band {LOGITS_ATOL}), "
+          f"|dloss|={e_loss:.4g} (band {LOSS_ATOL}) {tag}")
+    if not (e_fwd <= LOGITS_ATOL and e_dec <= LOGITS_ATOL
+            and e_loss <= LOSS_ATOL):
+        fail(f"reduced {arch} on the card disagrees with the CPU")
+    return dict(forward=e_fwd, decode=e_dec, loss=e_loss)
+
+
+def pipeline_s1(dev, tag):
+    """Phase 4t: the pipeline runner (runtime/pipeline_parallel.py) at S =
+    1 on the card, over a stack of PIPE_LAYERS of the port's dense
+    decoder blocks (``LM._layer``) at qwen2-1.5b's widths, random bf16
+    activations [PIPE_BATCH, TRAIN_SEQ, d] and targets, the loss their
+    mean squared error in f32, PIPE_MICRO microbatches, AdamW on the bf16
+    stack (no master, as repro's runner), PIPE_STEPS steps on the same
+    batch.  PipelineTrainer's losses and gnorms must equal TrainEngine's on
+    the same stack bit for bit; each run launches exactly flash_fwd and
+    flash_bwd_dq / flash_bwd_dkv PIPE_LAYERS x PIPE_MICRO a step (no
+    remat in the stack), no plain call; losses finite and falling."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import pipeline_parallel as pp
+    from repro_torch.train.engine import EngineConfig, TrainEngine
+
+    cfg = dataclasses.replace(get_arch("qwen2-1.5b"), n_layers=PIPE_LAYERS)
+    lm = LM(cfg)
+    stack = lm.init(0, device=dev)["layers"]
+
+    def layer_fn(p, x):
+        b, s = x.shape[:2]
+        pos = torch.arange(s, device=x.device)[None].expand(b, s)
+        return lm._layer(p, x, pos)[0]
+
+    def loss_fn(h, y):
+        return torch.mean(torch.square(h.float() - y.float()))
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x, y = (torch.randn((PIPE_BATCH, TRAIN_SEQ, cfg.d_model), generator=g,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    optim = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=100)
+    runs, launches_all = {}, {}
+    for how in ("engine", "pipeline"):
+        if how == "engine":
+            eng = TrainEngine(pp._StackModel(layer_fn, loss_fn, stack),
+                              EngineConfig(microbatches=PIPE_MICRO,
+                                           master_fp32=False, optim=optim),
+                              device=dev)
+            state = eng.init_state(0)
+
+            def step(st):
+                return eng.step(st, {"x": x, "y": y})
+        else:
+            tr = pp.PipelineTrainer(layer_fn, loss_fn, n_stages=1,
+                                    n_micro=PIPE_MICRO, optim=optim,
+                                    device=dev)
+            state = tr.init(stack)
+
+            def step(st):
+                return tr.step(st, x, y)
+        fa.reset_launches()
+        ops.reset_plain_calls()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = []
+        for _ in range(PIPE_STEPS):
+            state, m = step(state)
+            hist.append(m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches_all[how] = dict(fa.launches)
+        plain = dict(ops.plain_calls)
+        runs[how] = dict(losses=[float(m["loss"]) for m in hist],
+                         gnorms=[float(m["gnorm"]) for m in hist],
+                         step_ms=wall * 1e3 / PIPE_STEPS)
+        want = dict.fromkeys(launches_all[how], 0)
+        n = PIPE_LAYERS * PIPE_MICRO * PIPE_STEPS
+        want.update(flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n)
+        print(f"pipeline S=1 {how}: {PIPE_LAYERS} dense blocks at "
+              f"{cfg.name}'s widths, {PIPE_STEPS} steps of {PIPE_BATCH} x "
+              f"{TRAIN_SEQ} in {PIPE_MICRO} microbatches, losses "
+              f"{runs[how]['losses']}, gnorms {runs[how]['gnorms']}, "
+              f"{runs[how]['step_ms']:.2f} ms a step; launches "
+              f"{launches_all[how]} (want {want}), plain calls {plain} {tag}")
+        if launches_all[how] != want or any(plain.values()):
+            fail(f"pipeline S=1 {how}: launches {launches_all[how]}, want "
+                 f"{want}, plain calls {plain}")
+        losses = runs[how]["losses"]
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            fail(f"pipeline S=1 {how}: losses {losses}")
+        del state
+    equal = (runs["pipeline"]["losses"] == runs["engine"]["losses"]
+             and runs["pipeline"]["gnorms"] == runs["engine"]["gnorms"])
+    print(f"pipeline S=1: PipelineTrainer's losses and gnorms equal "
+          f"TrainEngine's bit for bit {equal} {tag}")
+    if not equal:
+        fail("pipeline S=1: PipelineTrainer's trajectory is not the "
+             "engine's")
+    launches = {k: launches_all["engine"][k] + launches_all["pipeline"][k]
+                for k in launches_all["engine"]}
+    return dict(runs=runs, bit_equal=equal, launches=launches_all), launches
+
+
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
@@ -4396,6 +4983,61 @@ def main() -> int:
     print(f"phases 4o-4q: {phase_ssm_s:.1f} s {tag}")
     print(f"phase 4q done at {time.perf_counter() - t_start:.1f}s")
 
+    # 4r / 4s. the embedding-stub backbones: musicgen-large at full width
+    # and depth, served on both tiers, one decode step fed [B, D] embeds,
+    # trained from audio frame embeds; internvl2-76b at full width cut in
+    # depth, served and trained from vision patch embeds; each serving and
+    # training run again under its solved (1, 1) plan on a world-1 NCCL
+    # group of its own; then the reduced configs against the CPU
+    t_stub = time.perf_counter()
+    mg_serve, mg_serve_launches, mg_base = serve_stub(dev, tag, MUSICGEN)
+    mg_serve["embeds_step"] = stub_embeds_step(mg_base[0], mg_base[1], dev,
+                                               tag)
+    init_distributed("cuda", 0, 1, free_port())
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    mg_plan_serve, mg_plan_serve_launches = serve_stub_plan(mg_base, dev,
+                                                            tag, mesh)
+    del mg_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    mg_train, mg_train_launches = train_stub(dev, tag, MUSICGEN, None,
+                                             MUSICGEN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mg_plan_train, mg_plan_train_launches = train_stub(
+        dev, tag, MUSICGEN, None, MUSICGEN_STEPS, mesh, mg_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4r done at {time.perf_counter() - t_start:.1f}s")
+    iv_serve, iv_serve_launches, iv_base = serve_stub(
+        dev, tag, INTERNVL, INTERNVL_SERVE_LAYERS, INTERNVL_REQUESTS,
+        INTERNVL_GEN, ("linear",))
+    iv_plan_serve, iv_plan_serve_launches = serve_stub_plan(iv_base, dev,
+                                                            tag, mesh)
+    del iv_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    iv_train, iv_train_launches = train_stub(
+        dev, tag, INTERNVL, INTERNVL_TRAIN_LAYERS, INTERNVL_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    iv_plan_train, iv_plan_train_launches = train_stub(
+        dev, tag, INTERNVL, INTERNVL_TRAIN_LAYERS, INTERNVL_STEPS, mesh,
+        iv_train)
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    stub_reduced = {a: reduced_stub_card_vs_cpu(dev, tag, a)
+                    for a in (MUSICGEN, INTERNVL)}
+    print(f"phase 4s done at {time.perf_counter() - t_start:.1f}s")
+    # 4t. the pipeline runner at S = 1, bit-equal to the engine
+    pipe_rec, pipe_launches = pipeline_s1(dev, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_stub_s = time.perf_counter() - t_stub
+    print(f"phases 4r-4t: {phase_stub_s:.1f} s {tag}")
+    print(f"phase 4t done at {time.perf_counter() - t_start:.1f}s")
+
     # 5. times
     times = time_kernels(dev, tag, timer, hybrid_serve["lengths"])
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
@@ -4405,10 +5047,12 @@ def main() -> int:
     # under the plan, training, training under the plan, hybrid training,
     # hybrid serving, the hybrid family's serving and training under the
     # plan, the MoE family's serving on both tiers and under the plan, its
-    # training and training under the plan, qwen2.5-32b's serving, and the
+    # training and training under the plan, qwen2.5-32b's serving, the
     # SSM family's: xlstm-125m served and trained, each with and without
     # its plan (no kernel launches), the pure-Mamba branch's training step
-    # and decode steps)
+    # and decode steps; the embedding-stub backbones': musicgen-large
+    # served on both tiers and trained, internvl2-76b served and trained,
+    # each with and without its plan; the pipeline runner's S = 1 runs)
     fa_py = "src/repro/kernels/flash_attention.py"
     replaces = {"flash_fwd": f"{fa_py}:146 and {fa_py}:191",
                 "flash_decode": f"{fa_py}:280",
@@ -4434,7 +5078,12 @@ def main() -> int:
             moe_plan_serve_launches, moe_train_launches,
             moe_train_plan_launches, qwen32_launches, xlstm_serve_launches,
             xlstm_plan_serve_launches, xlstm_train_launches,
-            xlstm_plan_train_launches, ssm_launches)
+            xlstm_plan_train_launches, ssm_launches,
+            mg_serve_launches["linear"], mg_serve_launches["paged"],
+            mg_plan_serve_launches, mg_train_launches,
+            mg_plan_train_launches, iv_serve_launches["linear"],
+            iv_plan_serve_launches, iv_train_launches,
+            iv_plan_train_launches, pipe_launches)
     runs120 = (danube_launches, danube_plan_launches, danube_train_launches)
     kernels = []
     for k, hd120 in [(k, False) for k in replaces] + [
@@ -4475,7 +5124,14 @@ def main() -> int:
             phase_moe_s=phase_moe_s, xlstm_serve=xlstm_serve,
             xlstm_plan_serve=xlstm_plan_serve, xlstm_train=xlstm_train,
             xlstm_plan_train=xlstm_plan_train, ssm_branch=ssm_rec,
-            phase_ssm_s=phase_ssm_s, kernels=kernels), indent=1, default=str))
+            phase_ssm_s=phase_ssm_s, musicgen_serve=mg_serve,
+            musicgen_plan_serve=mg_plan_serve, musicgen_train=mg_train,
+            musicgen_plan_train=mg_plan_train, internvl_serve=iv_serve,
+            internvl_plan_serve=iv_plan_serve, internvl_train=iv_train,
+            internvl_plan_train=iv_plan_train,
+            reduced_stub_card_vs_cpu=stub_reduced, pipeline_s1=pipe_rec,
+            phase_stub_s=phase_stub_s, kernels=kernels), indent=1,
+            default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,10 @@
 
 ``host_batch`` is a numpy copy of repro's: the generator is seeded by
 (seed, step, host), so the arrays are identical to repro's and a resumed
-run sees the batches an uninterrupted one would."""
+run sees the batches an uninterrupted one would.  ``vision_patch_embeds``
+and ``audio_frame_embeds`` are repro's stub frontends, bit for bit: the
+[B, S, d_model] embeddings an embedding-stub backbone takes in place of
+token ids."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +16,8 @@ from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..configs.base import ArchConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,3 +140,21 @@ class BatchFeed:
         except queue.Empty:
             pass
         self._thread.join(timeout=5.0)
+
+
+# -- stub modality frontends (the VLM and audio backbones take embeddings) ---
+
+def vision_patch_embeds(cfg: ArchConfig, batch: int, seq: int,
+                        seed: int = 0) -> np.ndarray:
+    """Precomputed InternViT-style patch embeddings (stub frontend)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, seq, cfg.d_model),
+                               dtype=np.float32) * 0.02
+
+
+def audio_frame_embeds(cfg: ArchConfig, batch: int, seq: int,
+                       seed: int = 0) -> np.ndarray:
+    """Precomputed EnCodec frame embeddings (stub frontend)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, seq, cfg.d_model),
+                               dtype=np.float32) * 0.02

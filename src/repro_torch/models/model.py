@@ -14,7 +14,13 @@ h, c, n and mLSTM state C) or, with no ``xlstm`` and no shared block,
 the pure-Mamba branch (the hybrid family's Mamba layers alone, the cache
 their states), each with init, forward, loss, the linear cache, decode
 and the scan prefill.  As in repro the recurrent families have no paged
-pool (``paged_ok``) and no speculative re-score.
+pool (``paged_ok``) and no speculative re-score.  The embedding-stub
+backbones (``cfg.embed_stub``: internvl2-76b, musicgen-large) are dense
+decoders whose frontend hands them precomputed embeddings: ``forward``
+and ``loss`` take ``embeds`` [B, S, D] in place of token ids and
+``decode_step`` takes [B, D] embeds in place of [B] ids (the embed table
+is then unused), as repro's; serving feeds them token ids through the
+embed table, as repro's ``Server`` does.
 
 Params are plain dicts of tensors with the same keys and shapes as repro's
 param tree: per-layer weights stacked on a leading ``[L]`` axis (the
@@ -128,8 +134,6 @@ def is_recurrent(cfg: ArchConfig) -> bool:
 
 
 def _unsupported_family(cfg: ArchConfig) -> Optional[str]:
-    if cfg.embed_stub:
-        return "embed-stub"
     hybrid = cfg.family == "hybrid" or bool(cfg.attn_every)
     if cfg.xlstm is not None:
         # repro takes its hybrid branch first for such a config; no config
@@ -223,8 +227,8 @@ class LM:
         if fam is not None:
             raise NotImplementedError(
                 f"{self.cfg.name}: the {fam} family is not ported yet; the "
-                "port runs the dense, MoE, hybrid and SSM (xLSTM, pure "
-                "Mamba2) families")
+                "port runs the dense, MoE, hybrid, SSM (xLSTM, pure Mamba2) "
+                "and embedding-stub families")
         if self.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"ssd_impl must be one of {SSD_IMPLS}, got "
                              f"{self.ssd_impl!r}")
@@ -349,6 +353,27 @@ class LM:
             self._views = (stack, views)
         return views
 
+    def _embed(self, params: Params, tokens: Optional[torch.Tensor] = None,
+               embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The decoder's input (repro's ``_embed``): ``embeds`` [B, S, D]
+        or [B, D] cast to the embed table's dtype, else the table's rows
+        for ``tokens`` [B, S] or [B]; constrained on "x".  Under a plan,
+        embeds that come as a plain tensor (the same on every rank) are
+        placed under the batch placements first, d_model whole."""
+        if embeds is None:
+            x = params["embed"][tokens]
+        else:
+            if self.plan is not None:
+                from torch.distributed.tensor import DTensor
+                if not isinstance(embeds, DTensor):
+                    from .sharding import batch_placements, place
+                    kind = "prefill" if embeds.ndim == 3 else "decode"
+                    embeds = place(embeds, self.mesh, batch_placements(
+                        self.plan, self.mesh.mesh_dim_names, kind))
+            x = embeds.to(params["embed"].dtype)
+        dims = ("batch", "seq", "d_model")[:x.ndim - 1] + ("d_model",)
+        return self._shard(x, "x", dims)
+
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         w = (params["embed"].T if self.cfg.tie_embeddings
              else params["lm_head"])
@@ -438,21 +463,24 @@ class LM:
                                   cfg, self.plan, self.mesh)
             return self._shard(x, "x", ("batch", "seq", "d_model"))
 
-    def forward(self, params: Params,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B, S] -> (logits [B, S, V], aux_loss: the sum of the MoE
-        layers' aux, 0 without experts).  Under autograd each layer (each
-        Mamba layer and each application of the hybrid family's shared
-        block, each xLSTM pair) is rematerialised in the backward, its aux
-        carried out of it.  Under a plan params and tokens are DTensors and so are the
-        logits and the aux."""
+    def forward(self, params: Params, tokens: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens [B, S] (or, for an embedding-stub frontend, embeds [B, S,
+        D]) -> (logits [B, S, V], aux_loss: the sum of the MoE layers' aux,
+        0 without experts).  Under autograd each layer (each Mamba layer
+        and each application of the hybrid family's shared block, each
+        xLSTM pair) is rematerialised in the backward, its aux carried out
+        of it.  Under a plan params and inputs are DTensors (embeds given
+        as a plain tensor are placed, ``_embed``) and so are the logits and
+        the aux."""
         with self.dist_scope():
-            return self._forward(params, tokens)
+            return self._forward(params, tokens, embeds)
 
-    def _forward(self, params: Params, tokens: torch.Tensor
+    def _forward(self, params: Params, tokens: Optional[torch.Tensor],
+                 embeds: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self._shard(params["embed"][tokens], "x",
-                        ("batch", "seq", "d_model"))
+        x = self._embed(params, tokens, embeds)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         if self.plan is not None:
@@ -498,9 +526,10 @@ class LM:
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
-        """Token-mean CE (f32) of ``batch["tokens"]`` against
-        ``batch["labels"]``, plus 0.01 x the aux loss, as repro."""
-        logits, aux = self.forward(params, batch["tokens"])
+        """Token-mean CE (f32) of ``batch["tokens"]`` (or ``["embeds"]``)
+        against ``batch["labels"]``, plus 0.01 x the aux loss, as repro."""
+        logits, aux = self.forward(params, batch.get("tokens"),
+                                   batch.get("embeds"))
         with self.dist_scope():
             if self.plan is not None:
                 logits = _whole_along(logits, logits.ndim - 1)
@@ -620,8 +649,9 @@ class LM:
     def decode_step(self, params: Params, cache: Cache, tokens: torch.Tensor,
                     active: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Cache]:
-        """tokens [B] -> (logits [B, V], cache updated in place).  The
-        cache is linear (``init_cache``) or paged (``init_cache_paged``).
+        """tokens [B] (or [B, D] embeds for an embedding-stub frontend) ->
+        (logits [B, V], cache updated in place).  The cache is linear
+        (``init_cache``) or paged (``init_cache_paged``).
 
         ``active`` [B] bool: inactive rows keep their cache row and
         position (repro drops their write with an out-of-range index); a
@@ -641,7 +671,10 @@ class LM:
         pos = local(cache["pos"])
         if slot is not None:
             pos = pos[slot:slot + 1]                    # a view: += lands
-        x = self._shard(params["embed"][tokens], "x", ("batch", "d_model"))
+        if tokens.ndim == 2:                    # [B, D] embeds
+            x = self._embed(params, embeds=tokens)
+        else:
+            x = self._embed(params, tokens)
         b = x.shape[0]
         rpos = pos[:, None]
         if is_xlstm(cfg):

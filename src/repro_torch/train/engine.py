@@ -63,6 +63,16 @@ from ..optim.compression import (bucket_slices, compress_bucketed,
 Tree = Dict[str, Any]
 
 
+def _batch_size(batch: Dict[str, Any]) -> int:
+    """The leading dim the batch's leaves share (``tokens`` or ``embeds``
+    with ``labels``; a layer stack's ``x`` and ``y``)."""
+    sizes = {v.shape[0] for v in batch.values()}
+    if len(sizes) != 1:
+        raise ValueError("batch leaves disagree on the batch size: "
+                         + str({k: tuple(v.shape) for k, v in batch.items()}))
+    return sizes.pop()
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     microbatches: int = 1          # gradient-accumulation factor
@@ -139,11 +149,14 @@ class TrainEngine:
                                suffixes=(".opt", ".grad"))
 
     def batch_placements(self) -> Dict[str, List]:
-        """Placements of the host batch's ``tokens`` and ``labels``
-        (repro's ``batch_shardings``; ``data/pipeline.BatchFeed`` feeds
-        batches placed under them)."""
-        return batch_placements(self.plan, self.mesh.mesh_dim_names,
-                                "train")
+        """Placements of the host batch's ``tokens`` and ``labels``, and of
+        an embedding-stub batch's ``embeds`` [B, S, D] under the prefill
+        placements, d_model whole (repro's ``batch_shardings`` and
+        ``_batch_spec``; ``data/pipeline.BatchFeed`` feeds batches placed
+        under them)."""
+        names = self.mesh.mesh_dim_names
+        return dict(batch_placements(self.plan, names, "train"),
+                    embeds=batch_placements(self.plan, names, "prefill"))
 
     def init_state(self, seed: int = 0, params: Optional[Tree] = None
                    ) -> Tree:
@@ -219,20 +232,26 @@ class TrainEngine:
 
     def _grads(self, params: Tree, leaves: List[torch.Tensor],
                batch: Dict[str, torch.Tensor]
-               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The loss and the grad of every leaf.  A leaf the loss does not
+        use (an embedding-stub batch leaves ``embed`` unused) gets zeros,
+        as ``jax.grad`` gives it: AdamW still decays it."""
         with torch.enable_grad():
             loss = self.model.loss(params, batch)
             if self.sharded:
                 loss = loss.full_tensor()     # seeds the backward once
-            grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), grads
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(leaves, grads)]
 
     def step(self, state: Tree, batch: Dict[str, Any]
              ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
-        """One training step, in place.  ``batch`` holds ``tokens`` and
-        ``labels`` [B, S] (tensors or numpy; DTensors under a plan, as
-        ``BatchFeed`` places them).  Returns (state, {"loss", "gnorm"} as
-        0-d tensors: the full values under a plan)."""
+        """One training step, in place.  ``batch`` holds ``tokens`` (or
+        an embedding-stub frontend's ``embeds`` [B, S, D]) and ``labels``
+        [B, S] (tensors or numpy; DTensors under a plan, as ``BatchFeed``
+        places them); whatever its keys, its leaves share the leading
+        dim that the microbatches split.  Returns (state, {"loss",
+        "gnorm"} as 0-d tensors: the full values under a plan)."""
         if self.sharded:
             return self._step_planned(state, batch)
         cfg = self.cfg
@@ -244,13 +263,15 @@ class TrainEngine:
             if not p.requires_grad:
                 p.requires_grad_(True)
         n = cfg.microbatches
-        b = batch["tokens"].shape[0]
+        b = _batch_size(batch)
         if b % n:
             raise ValueError(f"batch {b} is not divisible by "
                              f"{n} microbatches")
         if n == 1:
             loss, g = self._grads(params, leaves, batch)
-            grads = [x.float() for x in g]
+            # each grad into f32 as its compute-dtype copy is dropped, so
+            # the two copies of the whole tree never coexist
+            grads = [g.pop(0).float() for _ in range(len(g))]
         else:
             mb = b // n
             grads = [torch.zeros(p.shape, dtype=torch.float32,
@@ -299,9 +320,9 @@ class TrainEngine:
         full = {k: v.full_tensor() if isinstance(v, DTensor)
                 else torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
-        b = full["tokens"].shape[0]
+        b = _batch_size(full)
         shards = math.prod(mesh.size(j) for j, p in
-                           enumerate(want["tokens"]) if isinstance(p, Shard))
+                           enumerate(want["labels"]) if isinstance(p, Shard))
         if b % n or (b // n) % shards:
             raise ValueError(f"batch {b} does not split into {n} "
                              f"microbatches that split evenly over {shards} "
@@ -359,8 +380,8 @@ class TrainEngine:
         acc_pl = tree.leaves(pl["err"]) if cfg.grad_compression else grad_pl
         if n == 1:
             loss, g = self._grads(params, leaves, parts[0])
-            grads = [x.float() for x in self._reshard(list(g), acc_pl)]
-            del g
+            g = self._reshard(g, acc_pl)
+            grads = [g.pop(0).float() for _ in range(len(g))]
         else:
             grads = [zeros_placed(p.shape, torch.float32, mesh, q,
                                   self.device)

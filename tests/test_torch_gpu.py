@@ -878,3 +878,134 @@ def test_recurrent_families_on_card_match_cpu(cuda, arch):
     assert caches[1]["pos"].tolist() == [10, 19]
     assert not any(fa.launches.values())
     assert not any(ops.plain_calls.values())     # "auto" is chunked on the CPU
+
+
+# -- the embedding-stub backbones' groupings and the pipeline runner ---------
+
+STUB_GROUPS = [(32, 32, 64), (64, 8, 128)]    # musicgen-large, internvl2-76b
+
+
+@pytest.mark.parametrize("h,kv,hd", STUB_GROUPS)
+def test_stub_groupings_attention_kernels_match_plain(cuda, h, kv, hd):
+    """musicgen-large's g 1 at hd 64 and internvl2-76b's g 8 at hd 128:
+    the forward on a training microbatch and on a prefill chunk at an
+    offset, dq and dk/dv (at every split of the group), decode and paged
+    decode on 8 slots, each within one bf16 ulp of its plain version and
+    launched once a call."""
+    g = torch.Generator(device=cuda).manual_seed(h + hd)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).bfloat16()
+
+    q, k, v, do = (rnd(2, 512, h, hd), rnd(2, 512, kv, hd),
+                   rnd(2, 512, kv, hd), rnd(2, 512, h, hd))
+    before = dict(fa.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    o_r, _ = ref.flash_attention_fwd_ref(q, k, v, causal=True)
+    assert _rel_err(o, o_r) <= 1e-2
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    for a, w in zip(got, want):
+        assert _rel_err(a, w) <= 1e-2
+    delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal=True)[1]
+    for sp in (d for d in range(1, h // kv + 1) if (h // kv) % d == 0):
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                            causal=True, split=sp)
+        assert _rel_err(dk, want[1]) <= 1e-2 and _rel_err(dv, want[2]) <= 1e-2
+    qc, kc, vc = rnd(1, 256, h, hd), rnd(1, 2048, kv, hd), rnd(1, 2048, kv, hd)
+    off = torch.tensor([300], dtype=torch.int32, device=cuda)
+    oc, _ = fa.flash_attention_fwd(qc, kc, vc, causal=True, q_offset=off)
+    oc_r, _ = ref.flash_attention_fwd_ref(qc, kc, vc, causal=True,
+                                          q_offset=300)
+    assert _rel_err(oc, oc_r) <= 1e-2
+    assert fa.launches["flash_fwd"] == before["flash_fwd"] + 2
+    qd = rnd(8, h, hd)
+    kd, vd = rnd(8, 2048, kv, hd), rnd(8, 2048, kv, hd)
+    ln = torch.tensor([1, 2048, 300, 129, 1000, 64, 2047, 513],
+                      dtype=torch.int32, device=cuda)
+    od = fa.flash_attention_decode(qd, kd, vd, ln)
+    assert _rel_err(od, ref.flash_attention_decode_ref(qd, kd, vd, ln)) \
+        <= 1e-2
+    q8, kp, vp, table, ln8 = _paged_case(cuda, 8, h, kv, hd, 16, 128,
+                                         ln.tolist())
+    op = fa.flash_attention_paged_decode(q8, kp, vp, table, ln8)
+    assert _rel_err(op, ref.flash_attention_paged_decode_ref(
+        q8, kp, vp, table, ln8)) <= 1e-2
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "internvl2-76b"])
+def test_stub_backbones_on_card_match_cpu(cuda, arch):
+    """The reduced embedding-stub backbones on the card against the same
+    bf16 weights on the CPU: the forward from stub-frontend embeds and 3
+    decode steps fed [B, D] embeds (LOGITS_ATOL); an engine step on an
+    embeds batch launches only the kernels."""
+    from repro_torch.data.pipeline import (audio_frame_embeds,
+                                           vision_patch_embeds)
+    from repro_torch.train.engine import TrainEngine
+    cfg = get_arch(arch).reduced()
+    frontend = (audio_frame_embeds if cfg.family == "audio"
+                else vision_patch_embeds)
+    model = LM(cfg)
+    p_cpu = model.init(0, device="cpu")
+    p_gpu = _tree_to(p_cpu, cuda)
+    e = torch.from_numpy(frontend(cfg, 2, 24, seed=1))
+    with torch.no_grad():
+        lc = model.forward(p_cpu, embeds=e)[0].float()
+        lg = model.forward(p_gpu, embeds=e.to(cuda))[0].float().cpu()
+        assert float((lc - lg).abs().max()) <= LOGITS_ATOL
+        caches = [model.init_cache(2, 16, device=d) for d in ("cpu", cuda)]
+        for i in range(3):
+            a = model.decode_step(p_cpu, caches[0], e[:, i])[0].float()
+            b = model.decode_step(p_gpu, caches[1], e[:, i].to(cuda))[0]
+            assert float((a - b.float().cpu()).abs().max()) <= LOGITS_ATOL
+    eng = TrainEngine(model, device=cuda)
+    state = eng.init_state(0)
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    labels = torch.zeros((2, 24), dtype=torch.int32)
+    state, m = eng.step(state, {"embeds": e, "labels": labels})
+    assert np.isfinite(float(m["loss"]))
+    assert fa.launches["flash_fwd"] == 2 * cfg.n_layers
+    assert fa.launches["flash_bwd_dq"] == cfg.n_layers
+    assert not any(ops.plain_calls.values())
+
+
+def test_pipeline_s1_on_card_is_the_engine(cuda):
+    """The pipeline runner at S = 1 over 2 of the reduced qwen2-1.5b's
+    dense blocks: its losses and gnorms equal the engine's on the same
+    stack bit for bit, and both launch the attention kernels."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import pipeline_parallel as pp
+    from repro_torch.train.engine import EngineConfig, TrainEngine
+    lm = LM(get_arch("qwen2-1.5b").reduced())
+    stack = lm.init(0, device=cuda)["layers"]
+
+    def layer_fn(p, x):
+        pos = torch.arange(x.shape[1], device=x.device)[None].expand(
+            x.shape[0], -1)
+        return lm._layer(p, x, pos)[0]
+
+    def loss_fn(h, y):
+        return torch.mean(torch.square(h.float() - y.float()))
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, y = (torch.randn((4, 64, lm.cfg.d_model), generator=g,
+                        device=cuda).bfloat16() for _ in range(2))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1)
+    eng = TrainEngine(pp._StackModel(layer_fn, loss_fn, stack),
+                      EngineConfig(microbatches=2, master_fp32=False,
+                                   optim=opt), device=cuda)
+    tr = pp.PipelineTrainer(layer_fn, loss_fn, n_stages=1, n_micro=2,
+                            optim=opt, device=cuda)
+    runs = []
+    for step, state in ((lambda s: eng.step(s, {"x": x, "y": y}),
+                         eng.init_state(0)),
+                        (lambda s: tr.step(s, x, y), tr.init(stack))):
+        fa.reset_launches()
+        hist = []
+        for _ in range(3):
+            state, m = step(state)
+            hist.append((float(m["loss"]), float(m["gnorm"])))
+        assert fa.launches["flash_fwd"] == 3 * 2 * lm.cfg.n_layers
+        runs.append(hist)
+    assert runs[0] == runs[1]

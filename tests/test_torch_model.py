@@ -210,17 +210,19 @@ def _port_cfg(jcfg):
 
 
 def test_unported_families_raise():
-    """What stays refused: the embedding-stub frontends (VLM, audio), and a
-    config that sets both the hybrid layout and xlstm (repro takes its
-    hybrid branch first for it; no config has one, and it is not held to
-    repro).  xlstm-125m, a pure SSM config (zamba2's widths, family "ssm",
-    no shared block) and the MoE family are built."""
+    """What stays refused: a config that sets both the hybrid layout and
+    xlstm (repro takes its hybrid branch first for it; no config has one,
+    and it is not held to repro).  The embedding-stub frontends (VLM,
+    audio: both configs, and ``embed_stub`` on a dense config),
+    xlstm-125m, a pure SSM config (zamba2's widths, family "ssm", no
+    shared block) and the MoE family are built."""
     cfg = get_arch("qwen2-1.5b").reduced()
     for name in ("internvl2-76b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="embed-stub"):
-            LM(_port_cfg(jax_arch(name)))
-    with pytest.raises(NotImplementedError, match="embed-stub"):
-        LM(dataclasses.replace(cfg, embed_stub=True))
+        ps = LM(_port_cfg(jax_arch(name))).param_shapes()
+        assert "layers" in ps and "lm_head" in ps, name
+        assert get_arch(name) == _port_cfg(jax_arch(name)), name
+    stub = LM(dataclasses.replace(cfg, embed_stub=True)).param_shapes()
+    assert stub == LM(cfg).param_shapes()
     hybrid = _port_cfg(jax_arch("zamba2-2.7b"))
     with pytest.raises(NotImplementedError, match="hybrid-xlstm"):
         LM(dataclasses.replace(hybrid, xlstm=_port_cfg(
