@@ -81,7 +81,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      solver (H100 constants)
      solves qwen2-1.5b's 16 x 2048 decode shape for the (1, 1), (4, 2)
      and (2, 4) meshes and prints each plan and its solve time (the last
-     two solved only); phase 4's first 16 requests on phase 4's weights
+     two solved only); phase 4's first 8 requests on phase 4's weights
      under the (1, 1) plan (params and cache as DTensors, attention
      through local_map): phase 4's streams token for token, flash_fwd and
      flash_decode launched 28 a chunk and a step, no plan fallback, no
@@ -180,7 +180,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      163840 untied; 28.06 B params = 56.1 GB bf16, random weights from
      torch.Generator(0); weights drawn slice by slice past 4 GiB of f32),
      8 slots x 2048 (a linear cache of 48 x 2 x 8 x 2048 x 16 x 128 x 2 B
-     = 6.44 GB), 8 requests of 128-512 prompt tokens (default_rng(0)),
+     = 6.44 GB), 4 requests of 128-512 prompt tokens (default_rng(0)),
      chunks of 256, 32 greedy tokens each, through run_workload; then the
      same requests on the paged tier (16-token blocks, no speculation),
      whose streams must equal the linear tier's token for token.  Exact
@@ -269,6 +269,21 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      losses and gnorms equal TrainEngine's on the same stack bit for bit,
      each run launching flash_fwd, flash_bwd_dq and flash_bwd_dkv exactly
      4 x 2 a step, no plain call;
+  4u. the observed engines (run after 4c on phase 4's weights, and after
+     4b): phase 4's first 8 requests served with the tracer, a metrics
+     registry and a monitor (ITL and TTFT SLOs, a flight recorder) on the
+     linear tier and on the paged tier (spec_k 4): streams equal phase
+     4's, launches exactly L a chunk and a step (and a re-score), span
+     counts equal the dispatch counters, the registry's token count the
+     tokens served, no plain call; the monitor's host cost per observed
+     token; then launch.serve's main with --arrivals poisson --rate 4, 8
+     requests of 128 tokens, --slo-itl-ms 150 and 200 ms stalls injected
+     after 6 decode steps once all have arrived: the ITL SLO breaches, the
+     flight file, trace and metrics validate, the spans agree with the
+     launches; then launch.train's run of 4b for 3 steps with
+     --slo-step-ms and a stall at step 1: the straggler event fires for
+     step 1, the losses are 4b's first 3 bit for bit, the launches
+     exact;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch, the stream held by a spin kernel so the interval is device
      time; the forward and both decode kernels also without the hold,
@@ -388,8 +403,9 @@ HD120 = "(hd 120, danube)"     # the suffix of its rows in phase 5 and 6
 # the MoE family, moonshot-v1-16b-a3b (48 layers, d 2048, 16 / 16 heads of
 # hd 128, 64 experts top-6 of d_ff 1408, vocab 163840; 28.06 B params =
 # 56.1 GB bf16): 4l serves it at full width, 8 slots x 2048 (a linear cache
-# of 48 x 2 x 8 x 2048 x 16 x 128 x 2 B = 6.44 GB), 8 requests of 128-512
-# prompt tokens in chunks of 256, 32 greedy tokens each, on both tiers; 4m
+# of 48 x 2 x 8 x 2048 x 16 x 128 x 2 B = 6.44 GB), 4 requests of 128-512
+# prompt tokens in chunks of 256 (8 until the observed engines needed the
+# time), 32 greedy tokens each, on both tiers; 4m
 # serves the first under the solved (1, 1) decode plan (2 until the
 # embedding-stub phases needed the time), and trains it
 # cut to 4 of its 48 layers (2.95 B params: ~53 GB of bf16 params, f32
@@ -397,7 +413,7 @@ HD120 = "(hd 120, danube)"     # the suffix of its rows in phase 5 and 6
 # GB), 4 steps of the dense run's batch, 2 of them warmup, and the same
 # run under the (1, 1) train plan
 MOE_ARCH, MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS = ("moonshot-v1-16b-a3b", 8,
-                                                  2048, 8)
+                                                  2048, 4)
 MOE_PROMPT, MOE_GEN, MOE_CHUNK, MOE_PLAN_REQS = (128, 512), 32, 256, 1
 MOE_TRAIN_LAYERS, MOE_STEPS = 4, 4
 MOE_PLAN_SHAPE = ("serve8x2048", MOE_MAX_LEN, MOE_SLOTS, "decode")
@@ -457,6 +473,19 @@ STUB_BATCH, STUB_SEQ = 4, 512
 STUB_PLAN_SHAPE = ("serve8x2048", STUB_MAX_LEN, STUB_SLOTS, "decode")
 STUB_TRAIN_SHAPE = (f"train{STUB_BATCH}x{STUB_SEQ}", STUB_SEQ, STUB_BATCH,
                     "train")
+# 4u: the observed engines.  Serving: phase 4's first OBS_REQS requests on
+# both tiers with everything observed; then launch.serve's main with
+# Poisson arrivals (OBS_RATE requests/s, OBS_REQS requests of OBS_PROMPT
+# tokens) under an ITL SLO of OBS_ITL_SLO_MS, OBS_STALL_MS stalls after
+# OBS_STALL_STEPS decode steps from OBS_STALL_AT on (all 8 arrive by
+# ~1.74 s at seed 0, about 28 steps of ~56 ms at 16 slots).  Training: 4b's
+# run cut to OBS_TRAIN_STEPS steps (inside the LR warmup of 2 steps the
+# schedule does not depend on --steps, so its losses are 4b's), a step SLO
+# of 1.5 x 4b's mean step and a stall of OBS_TRAIN_STALL_MS at step 1
+OBS_REQS, OBS_RATE, OBS_PROMPT = 8, 4.0, 128
+OBS_ITL_SLO_MS, OBS_STALL_MS, OBS_STALL_AT, OBS_STALL_STEPS = (150.0, 200.0,
+                                                               28, 6)
+OBS_TRAIN_STEPS, OBS_TRAIN_STALL_MS = 3, 1000.0
 # 4t: the pipeline runner at S = 1 over a stack of PIPE_LAYERS of the
 # port's dense decoder blocks at qwen2-1.5b's widths, PIPE_BATCH x
 # TRAIN_SEQ activations in PIPE_MICRO microbatches, PIPE_STEPS steps
@@ -1808,8 +1837,9 @@ def serve_paged(base, lin_decode, dev, tag):
 # and the meshes whose plans are printed (solved only: one card here).
 PLAN_SHAPE = ("serve16x2048", 2048, 16, "decode")
 # 4e serves the first PLAN_SERVE_REQS of phase 4's requests under the
-# (1, 1) plan (all 32 until the embedding-stub phases needed the time)
-PLAN_SERVE_REQS = 16
+# (1, 1) plan (all 32 until the embedding-stub phases needed the time, 16
+# until the observed engines did)
+PLAN_SERVE_REQS = 8
 PLAN_MESHES = ((1, 1), (4, 2), (2, 4))
 # decode steps timed with and without the plan (8 until the SSM phases
 # needed the time)
@@ -4723,6 +4753,269 @@ def pipeline_s1(dev, tag):
     return dict(runs=runs, bit_equal=equal, launches=launches_all), launches
 
 
+def _spans(events):
+    """{name: count} of the serve.* / train.* spans and instants."""
+    import collections
+    return collections.Counter(e["name"] for e in events)
+
+
+def _validate_files(paths, what):
+    """The trace, metrics and flight files through ``python -m
+    repro_torch.obs validate``; fails on a problem (printed by it)."""
+    from repro_torch.obs import __main__ as obs_cli
+    if obs_cli.main(["validate"] + [str(p) for p in paths]):
+        fail(f"{what}: invalid observability files")
+
+
+def serve_observed(base, dev, tag):
+    """Phase 4u, serving on phase 4's weights.  (a) Phase 4's first
+    OBS_REQS requests with the tracer, a registry and a monitor (ITL and
+    TTFT SLOs at OBS_ITL_SLO_MS, MAD-z, a flight recorder) on the linear
+    tier and on the paged tier (spec_k 4): phase 4's streams; launches
+    exactly L a chunk and a decode step (and a re-score); serve.decode /
+    serve.draft / serve.verify spans equal to the decode and verify
+    dispatches, serve.admit to the admissions, serve.retire to the
+    requests; serve.tokens equal to the tokens served; the monitor's TTFT
+    and ITL counts equal to the requests and the later tokens; no plain
+    call; the trace validates.  The monitor's host cost per observed
+    token is timed apart (observe("itl") and the token counter, 20,000
+    times).  (b) launch.serve's main, Poisson arrivals at OBS_RATE, an
+    ITL SLO and injected stalls (see OBS_*): the breach, the flight
+    file, trace and metrics validate, and the spans agree with the
+    launches.  Returns the record."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.serve import run_workload
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    lin_model, params, prompts, lin_streams = base
+    cfg = lin_model.cfg
+    L = cfg.n_layers
+    reqs = prompts[:OBS_REQS]
+    want_streams = {r: lin_streams[r] for r in range(OBS_REQS)}
+    tmp = Path(tempfile.mkdtemp(prefix="obs4u-"))
+    tracer = obs.tracing.get_tracer()
+    out = {}
+    base_kw = dict(slots=16, max_len=2048, prefill_chunk=256)
+    for tier, model, kw in (
+            ("linear", lin_model, base_kw),
+            ("paged", counting_lm(cfg, dev),
+             dict(base_kw, paged=True, block_len=16, spec_k=4))):
+        reg = obs.Registry()
+        rec_ = obs.FlightRecorder(str(tmp / f"flight-{tier}"), registry=reg)
+        mon = obs.Monitor(slos=[obs.SLO("itl", OBS_ITL_SLO_MS / 1e3),
+                                obs.SLO("ttft", 10.0)],
+                          registry=reg, recorder=rec_)
+        tracer.clear()
+        obs.enable()
+        srv = Server(model, params, ServeConfig(**kw), registry=reg,
+                     monitor=mon)
+        if tier == "paged":
+            model.reset_counts()
+        fa.reset_launches()
+        ops.reset_plain_calls()
+        rec = run_workload(srv, [(0.0, p) for p in reqs], gen=32)
+        launches, plain = dict(fa.launches), dict(ops.plain_calls)
+        obs.disable()
+        trace = tracer.to_dict()
+        tracer.clear()
+        rec_.close()
+        spans = _spans(trace["traceEvents"])
+        streams = {r: list(t) for r, t in srv.outputs.items()}
+        n_tok = sum(len(t) for t in streams.values())
+        sig = mon.snapshot()["signals"]
+        counters = dict(prefill_dispatches=srv.prefill_dispatches,
+                        decode_dispatches=srv.decode_dispatches,
+                        verify_dispatches=srv.verify_dispatches,
+                        preemptions=srv.preemptions)
+        print(f"observed {tier}: {rec['requests']} requests (phase 4's first "
+              f"{OBS_REQS}), {counters}; launches {launches}, plain calls "
+              f"{plain}; spans {dict(spans)}; monitor {mon.n_events} "
+              f"event(s), ttft {sig['ttft']['count']} itl "
+              f"{sig['itl']['count']} observations; "
+              f"{len(rec_.dumps)} flight dump(s)")
+        if streams != want_streams:
+            bad = [r for r in want_streams if streams.get(r) != want_streams[r]]
+            fail(f"observed {tier}: streams differ from phase 4's for {bad}")
+        if tier == "linear":
+            want = {"flash_fwd": L * srv.prefill_dispatches,
+                    "flash_decode": L * srv.decode_dispatches,
+                    "flash_paged_decode": 0}
+            want_spans = {"serve.decode": srv.decode_dispatches}
+        else:
+            calls = dict(model.calls)
+            want = {"flash_fwd": L * calls["parallel_prefill"],
+                    "flash_paged_decode": L * (calls["decode_step"]
+                                               + calls["rescore"]),
+                    "flash_decode": 0}
+            want_spans = {"serve.draft": srv.decode_dispatches,
+                          "serve.verify": srv.verify_dispatches}
+        want_spans.update({
+            "serve.admit": OBS_REQS + srv.preemptions,
+            "serve.admitted": OBS_REQS, "serve.retire": OBS_REQS,
+            "serve.preempt": srv.preemptions})
+        if any(launches[k] != v for k, v in want.items()) \
+                or launches["flash_fwd_f32"]:
+            fail(f"observed {tier}: launches {launches}, want {want}")
+        if any(spans.get(k, 0) != v for k, v in want_spans.items()):
+            fail(f"observed {tier}: spans {dict(spans)}, want {want_spans}")
+        if any(plain.values()):
+            fail(f"observed {tier}: a plain version ran: {plain}")
+        if reg.counter("serve.tokens").value != n_tok \
+                or sig["ttft"]["count"] != OBS_REQS \
+                or sig["itl"]["count"] != n_tok - OBS_REQS:
+            fail(f"observed {tier}: registry / monitor counts "
+                 f"{reg.counter('serve.tokens').value}, {sig} against "
+                 f"{n_tok} tokens")
+        path = tmp / f"{tier}.trace.json"
+        path.write_text(json.dumps(trace))
+        _validate_files([path] + list(rec_.dumps), f"observed {tier}")
+        out[tier] = dict(
+            {k: v for k, v in rec.items() if k not in ("itl_s", "ttft_s")},
+            counters=counters, launches=launches, spans=dict(spans),
+            monitor_events=mon.n_events, flight_dumps=len(rec_.dumps))
+        del srv
+    # the monitor's host cost a token: what _append adds with a monitor
+    # (one ITL observation: burn-rate windows, MAD-z over 64, the window
+    # percentile ring) and a registry (the token counter)
+    reg = obs.Registry()
+    mon = obs.Monitor(slos=[obs.SLO("itl", OBS_ITL_SLO_MS / 1e3),
+                            obs.SLO("ttft", 10.0)], registry=reg)
+    ctr = reg.counter("serve.tokens")
+    itl = out["linear"]["itl_p50_s"]
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ctr.inc()
+        mon.observe("itl", itl)
+    per_tok_us = (time.perf_counter() - t0) / n * 1e6
+    out["monitor_us_per_token"] = per_tok_us
+    print(f"observed: monitor + registry host cost {per_tok_us:.2f} us a "
+          f"token ({n} observations), against phase 4's ITL p50 "
+          f"{itl * 1e3:.2f} ms {tag}")
+
+    # (b) launch.serve with Poisson arrivals, an ITL SLO and stalls
+    argv = ["--arch", cfg.name, "--slots", "16", "--max-len", "2048",
+            "--chunk", "256", "--gen", "32", "--prompt-len", str(OBS_PROMPT),
+            "--requests", str(OBS_REQS), "--arrivals", "poisson", "--rate",
+            str(OBS_RATE), "--seed", "0", "--slo-itl-ms",
+            str(OBS_ITL_SLO_MS), "--inject-spike-ms", str(OBS_STALL_MS),
+            "--inject-at", str(OBS_STALL_AT), "--inject-steps",
+            str(OBS_STALL_STEPS), "--trace-out", str(tmp / "p.trace.json"),
+            "--metrics-out", str(tmp / "p.metrics.jsonl"), "--flight-dir",
+            str(tmp / "flight-poisson"), "--json-out", str(tmp / "p.json")]
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    t0 = time.perf_counter()
+    rc = launch_serve.main(argv)
+    wall = time.perf_counter() - t0
+    launches, plain = dict(fa.launches), dict(ops.plain_calls)
+    if rc:
+        fail(f"launch.serve exited {rc}")
+    rec = json.loads((tmp / "p.json").read_text())
+    trace = json.loads((tmp / "p.trace.json").read_text())
+    spans = _spans(trace["traceEvents"])
+    mon = rec["monitor"]
+    breaches = [e for e in mon["events"] if e["type"] == "slo_breach"
+                and e["signal"] == "itl"]
+    print(f"observed poisson: {rec['requests']} requests at {OBS_RATE} req/s, "
+          f"{rec['decode_steps']} decode steps, {len(breaches)} ITL breach "
+          f"observations, {mon['n_events']} monitor events, flight "
+          f"{[Path(p).name for p in mon['flight_dumps']]}; spans "
+          f"{dict(spans)}; launches {launches}; ITL p50 "
+          f"{rec['itl_p50_s'] * 1e3:.2f} ms p95 {rec['itl_p95_s'] * 1e3:.2f} "
+          f"ms, wall {wall:.1f} s (init and warm-up included) {tag}")
+    _validate_files([tmp / "p.trace.json", tmp / "p.metrics.jsonl"]
+                    + mon["flight_dumps"], "observed poisson")
+    if not breaches or not any("slo_breach-itl" in p
+                               for p in mon["flight_dumps"]):
+        fail(f"observed poisson: the stalls did not breach the ITL SLO "
+             f"({mon['events'][:4]})")
+    # one extra admission, prefill and decode step: the warm-up server's
+    # (prompts of OBS_PROMPT tokens are one chunk each)
+    want_spans = {"serve.admit": OBS_REQS + 1, "serve.prefill": OBS_REQS + 1,
+                  "serve.retire": OBS_REQS + 1,
+                  "serve.decode": rec["decode_steps"] + 1}
+    want = {"flash_fwd": L * want_spans["serve.prefill"],
+            "flash_decode": L * want_spans["serve.decode"]}
+    if any(spans.get(k, 0) != v for k, v in want_spans.items()) or any(
+            launches[k] != v for k, v in want.items()) or any(plain.values()):
+        fail(f"observed poisson: spans {dict(spans)} (want {want_spans}), "
+             f"launches {launches} (want {want}), plain calls {plain}")
+    out["poisson"] = dict({k: v for k, v in rec.items()
+                           if k not in ("monitor",)},
+                          breaches=len(breaches), spans=dict(spans),
+                          launches=launches, wall_s=wall)
+    return out
+
+
+def train_observed(dev, tag, ref_rec):
+    """Phase 4u, training: launch.train's run of phase 4b's arguments for
+    OBS_TRAIN_STEPS steps with --slo-step-ms at 1.5 x 4b's mean step, a
+    stall of OBS_TRAIN_STALL_MS after step 1's dispatch, the trace and the
+    metrics file: the straggler event fires for step 1; the losses are
+    4b's first OBS_TRAIN_STEPS bit for bit; the launches 4b's a step; the
+    monitor observes every step; the files validate."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    cfg_name = "qwen2-1.5b"
+    tmp = Path(tempfile.mkdtemp(prefix="obs4u-train-"))
+    slo_ms = 1.5 * ref_rec["mean_step_s"] * 1e3
+    n = OBS_TRAIN_STEPS
+    argv = train_argv(cfg_name, n) + [
+        "--slo-step-ms", f"{slo_ms:.1f}", "--inject-spike-ms",
+        str(OBS_TRAIN_STALL_MS), "--inject-at", "1", "--inject-steps", "1",
+        "--flight-dir", str(tmp / "flight"), "--trace-out",
+        str(tmp / "t.trace.json"), "--metrics-out",
+        str(tmp / "t.metrics.jsonl")]
+    args = launch_train.build_argparser().parse_args(argv)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    ops.reset_plain_calls()
+    rec = launch_train.run(args)
+    launches, plain = dict(fa.launches), dict(ops.plain_calls)
+    L = get_arch(cfg_name).n_layers
+    want = {"flash_fwd": 2 * L * TRAIN_MICRO * n, "flash_bwd_dq":
+            L * TRAIN_MICRO * n, "flash_bwd_dkv": L * TRAIN_MICRO * n}
+    trace = json.loads((tmp / "t.trace.json").read_text())
+    spans = _spans(trace["traceEvents"])
+    ref = ref_rec["losses"][:n]
+    steps = [s["step"] for s in rec["stragglers"]]
+    counts = {k: v["count"] for k, v in rec["monitor"]["signals"].items()}
+    print(f"observed train: {n} steps of 4b's run, losses {rec['losses']} "
+          f"(4b {ref}, bit-equal {rec['losses'] == ref}); stragglers "
+          f"{rec['stragglers']} over {slo_ms:.1f} ms; monitor {counts}; "
+          f"spans {dict(spans)}; launches {launches} (want {want}); mean "
+          f"step {rec['mean_step_s'] * 1e3:.2f} ms with a sync a step (4b "
+          f"{ref_rec['mean_step_s'] * 1e3:.2f} ms) {tag}")
+    if rec["losses"] != ref:
+        fail(f"observed train: losses {rec['losses']} are not 4b's {ref}")
+    if 1 not in steps:
+        fail(f"observed train: no straggler event for step 1 ({steps})")
+    if any(launches[k] != v for k, v in want.items()) or any(plain.values()):
+        fail(f"observed train: launches {launches}, want {want}, plain "
+             f"{plain}")
+    if counts != {"step": n, "data_wait": n, "sync": n} or any(
+            spans.get(k, 0) != n for k in ("train.step", "train.sync",
+                                           "train.data_wait")):
+        fail(f"observed train: monitor {counts}, spans {dict(spans)}")
+    _validate_files([tmp / "t.trace.json", tmp / "t.metrics.jsonl"]
+                    + rec["monitor"]["flight_dumps"], "observed train")
+    return dict(losses=rec["losses"], stragglers=rec["stragglers"],
+                slo_ms=slo_ms, monitor=counts, spans=dict(spans),
+                launches=launches, mean_step_s=rec["mean_step_s"],
+                ref_mean_step_s=ref_rec["mean_step_s"]), launches
+
+
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
@@ -4795,6 +5088,14 @@ def main() -> int:
     # 4c. the paged tier on the same weights, held to phase 4's streams
     paged_rec, paged_launches = serve_paged(
         base, serve_rec["decode_dispatches"], dev, tag)
+    # 4u (serving). the same weights served observed, then launch.serve
+    # with Poisson arrivals, an ITL SLO and injected stalls
+    t_4u = time.perf_counter()
+    obs_serve = serve_observed(base, dev, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_4u_s = time.perf_counter() - t_4u
+    print(f"phase 4u (serving) done at {time.perf_counter() - t_start:.1f}s")
     # 4e. the same workload under the solved (1, 1) plan on a DeviceMesh
     # of a world-1 NCCL group, which stays up until phase 4i is done
     import torch.distributed as dist
@@ -4840,6 +5141,14 @@ def main() -> int:
     train_rec, train_launches = train_full_width(dev, tag)
     gc.collect()
     torch.cuda.empty_cache()
+    # 4u (training). 4b's run observed, with a stall
+    t_4u = time.perf_counter()
+    obs_train, obs_train_launches = train_observed(dev, tag, train_rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_4u_s += time.perf_counter() - t_4u
+    print(f"phase 4u: {phase_4u_s:.1f} s {tag}")
+    print(f"phase 4u done at {time.perf_counter() - t_start:.1f}s")
     if args.profile:
         train_rec["profile"] = profile_train(dev, tag)
         gc.collect()
@@ -5052,7 +5361,9 @@ def main() -> int:
     # its plan (no kernel launches), the pure-Mamba branch's training step
     # and decode steps; the embedding-stub backbones': musicgen-large
     # served on both tiers and trained, internvl2-76b served and trained,
-    # each with and without its plan; the pipeline runner's S = 1 runs)
+    # each with and without its plan; the pipeline runner's S = 1 runs;
+    # the observed engines': both tiers, launch.serve with Poisson
+    # arrivals, launch.train with the monitor)
     fa_py = "src/repro/kernels/flash_attention.py"
     replaces = {"flash_fwd": f"{fa_py}:146 and {fa_py}:191",
                 "flash_decode": f"{fa_py}:280",
@@ -5083,7 +5394,9 @@ def main() -> int:
             mg_plan_serve_launches, mg_train_launches,
             mg_plan_train_launches, iv_serve_launches["linear"],
             iv_plan_serve_launches, iv_train_launches,
-            iv_plan_train_launches, pipe_launches)
+            iv_plan_train_launches, pipe_launches,
+            obs_serve["linear"]["launches"], obs_serve["paged"]["launches"],
+            obs_serve["poisson"]["launches"], obs_train_launches)
     runs120 = (danube_launches, danube_plan_launches, danube_train_launches)
     kernels = []
     for k, hd120 in [(k, False) for k in replaces] + [
@@ -5130,6 +5443,8 @@ def main() -> int:
             internvl_plan_serve=iv_plan_serve, internvl_train=iv_train,
             internvl_plan_train=iv_plan_train,
             reduced_stub_card_vs_cpu=stub_reduced, pipeline_s1=pipe_rec,
+            observed_serve=obs_serve, observed_train=obs_train,
+            phase_4u_s=phase_4u_s,
             phase_stub_s=phase_stub_s, kernels=kernels), indent=1,
             default=str))
     print(smi)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..obs.tracing import span as _span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +121,8 @@ class BatchFeed:
     def get(self) -> Dict[str, torch.Tensor]:
         """Next step's batch (blocks on the prefetch queue).  Re-raises any
         exception the producer thread hit."""
-        _, batch = self._q.get()
+        with _span("train.data_wait"):
+            _, batch = self._q.get()
         if isinstance(batch, Exception):
             raise batch
         return batch

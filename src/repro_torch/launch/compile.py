@@ -1,13 +1,18 @@
 """Plan solve with an on-disk record cache (the port's counterpart of
 ``repro.launch.compile``'s ``plan_cache_path`` / ``solve_cell_plan`` /
-``plan_from_record``, and of ``expert_parallel_axis`` /
-``normalize_moe_plan``, which pin an MoE plan's expert weights to the
-layout the MoE layer runs).
+``solve_observed_regime`` / ``plan_from_record``, and of
+``expert_parallel_axis`` / ``normalize_moe_plan``, which pin an MoE
+plan's expert weights to the layout the MoE layer runs).
 
-A record holds the solved role cuts and the solver's byte and second
-totals (and, with a compute term, the plan's compute seconds).  It has no
-``breakdown`` (repro's as-executed wire-byte attribution): that needs the
-calibration projection of a verify layer the port does not have yet."""
+A record holds the solved role cuts, the solver's byte and second totals
+(and, with a compute term, the plan's compute seconds), and
+``breakdown``: the predicted system-wide wire bytes of the as-executed
+projection of the solved tiling (``_executed_breakdown``), the drift
+gauge's predicted side (``obs/drift``).  A record cached before the
+breakdown existed has none; the launchers report it as stale and skip
+the drift check, as repro's do.  repro's ``compile_step`` /
+``input_specs`` (XLA lowering) have no counterpart: the port measures a
+step's collectives by running it (``analysis/comm.record``)."""
 from __future__ import annotations
 
 import json
@@ -18,7 +23,8 @@ from typing import Any, Dict, Optional, Sequence
 from ..configs.base import ArchConfig, ShapeConfig
 from ..core.builders import build_graph
 from ..core.plan import ShardingPlan
-from ..core.solver import (MeshAxis, solution_compute_seconds, solve_mesh,
+from ..core.solver import (MeshAxis, solution_breakdown,
+                           solution_compute_seconds, solve_mesh,
                            solve_mesh_capacity)
 from ..obs.tracing import span as _span
 
@@ -29,6 +35,24 @@ CACHE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 def plan_cache_path(arch: str, shape: str, mesh_name: str) -> str:
     os.makedirs(CACHE_DIR, exist_ok=True)
     return os.path.join(CACHE_DIR, f"{arch}_{shape}_{mesh_name}.json")
+
+
+def _executed_breakdown(g, axes, per_axis, kind: str) -> Dict[str, Any]:
+    """Predicted system-wide wire bytes of the *as-executed* projection of
+    a solved tiling (grads and optimizer state follow what the step can
+    actually shard: ``verify/calibration.faithful_assignments``, or
+    ``verify/train_cell.train_faithful_assignments`` for a train cell),
+    split by collective kind and phase.  Stored in the plan record so a
+    launch compares against it without solving again."""
+    if kind == "train":
+        from ..verify.train_cell import train_faithful_assignments
+        executed = train_faithful_assignments(g, per_axis)
+    else:
+        from ..verify.calibration import faithful_assignments
+        executed = faithful_assignments(g, per_axis)
+    br = solution_breakdown(g, axes, executed)
+    return {"total": br["total"], "by_kind": br["by_kind"],
+            "by_phase": br["by_phase"]}
 
 
 def solve_cell_plan(cfg: ArchConfig, shape: ShapeConfig,
@@ -68,6 +92,7 @@ def solve_cell_plan(cfg: ArchConfig, shape: ShapeConfig,
         "per_axis_bytes": sol.per_axis_bytes,
         "total_seconds": sol.total_seconds,
         "solve_time": time.time() - t0,
+        "breakdown": _executed_breakdown(g, axes, sol.per_axis, shape.kind),
     }
     if compute is not None:
         rec["compute_seconds"] = solution_compute_seconds(
@@ -77,6 +102,32 @@ def solve_cell_plan(cfg: ArchConfig, shape: ShapeConfig,
         json.dump(rec, f, indent=1)
     os.replace(tmp, path)
     return rec
+
+
+def solve_observed_regime(cfg: ArchConfig, axes: Sequence[MeshAxis],
+                          mesh_name: str, regime: str,
+                          batch: int, seq_len: int,
+                          use_cache: bool = True,
+                          graph_kwargs: Optional[Dict[str, Any]] = None,
+                          compute=None) -> Dict[str, Any]:
+    """Solve the cell plan again under an *observed* regime: the replan
+    advisor's solver bridge (repro's).  ``regime`` names the cell kind
+    whose cost now dominates: a serving run that turned decode-heavy is
+    priced as a decode cell over the live slot count and KV length,
+    prefill-heavy as a prefill cell over the live prompt shape, and
+    training stays a train cell.  The record caches under a
+    regime-suffixed name, so advisories do not thrash the plan cache."""
+    kind = {"decode-heavy": "decode", "prefill-heavy": "prefill",
+            "train": "train"}.get(regime)
+    if kind is None:
+        raise ValueError(
+            f"unknown regime {regime!r} (expected decode-heavy | "
+            f"prefill-heavy | train)")
+    shape = ShapeConfig(f"observed_{kind}_b{batch}_s{seq_len}",
+                        seq_len, batch, kind)
+    return solve_cell_plan(cfg, shape, axes, f"{mesh_name}_{regime}",
+                           use_cache=use_cache,
+                           graph_kwargs=graph_kwargs, compute=compute)
 
 
 def plan_from_record(rec: Dict[str, Any]) -> ShardingPlan:

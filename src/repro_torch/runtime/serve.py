@@ -53,13 +53,28 @@ on the linear tier, on one card or under a plan: its cache holds each
 layer's Mamba state beside the shared block's rings, its prompts go
 through the scan prefill, and, as in repro, it has no paged tier (the
 paged cache raises) and its speculative drafts are accepted without a
-re-score (a recurrent state has none).  The obs wiring is not ported
-yet: ``Server`` takes no registry or monitor."""
+re-score (a recurrent state has none).
+
+Observation (``Server(..., registry=, monitor=)``, repro's wiring): the
+scheduler emits repro's spans and instants (``serve.admit``,
+``serve.prefill``, ``serve.trie_match``, ``serve.decode``,
+``serve.draft``, ``serve.verify``; ``serve.admitted``, ``serve.resume``,
+``serve.preempt``, ``serve.retire``), ~free while tracing is off; the
+registry gets repro's four scheduler metrics (``serve.tokens``,
+``serve.preemptions``, ``serve.prompt_cache_hits``,
+``serve.block_pool_utilization``; without a registry they are shared
+no-ops); the monitor (``obs.monitor.Monitor``) gets each token's TTFT or
+ITL, the queue depth at each admission pass and a bump per preemption.
+Each monitor hook is one ``is None`` check, and no hook reads the device:
+the token times are taken where the sampled tokens already reach the
+host.  A monitor never changes a scheduling decision, so under a plan
+every rank takes the same decisions whether or not it has one."""
 from __future__ import annotations
 
 import collections
 import dataclasses
 import itertools
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,6 +85,8 @@ from ..kernels import ops
 from ..models.common import local, whole
 from ..models.model import LM, paged_ok
 from ..models.sharding import global_offset
+from ..obs import metrics as _metrics
+from ..obs.tracing import instant as _instant, span as _span
 from .paged import BlockPool, NoFreeBlocks, PrefixTrie
 
 # budget sentinel for "generate until EOS / cache full"
@@ -158,8 +175,28 @@ class Server:
       generate(n) -> per-slot outputs           seed-era demo API
     """
 
-    def __init__(self, model: LM, params: Dict[str, Any], scfg: ServeConfig):
+    def __init__(self, model: LM, params: Dict[str, Any], scfg: ServeConfig,
+                 registry: Optional[_metrics.Registry] = None, monitor=None):
         self.scfg = scfg
+        # scheduler-side metrics; None -> shared no-op instruments, so an
+        # unobserved server (warm-up, tests) records nothing
+        reg = registry if registry is not None else _metrics.NULL
+        self.registry = registry
+        # continuous SLO / anomaly monitor (obs.monitor.Monitor); when
+        # None the token path pays one attribute check
+        self.monitor = monitor
+        self._t_submit: Dict[int, float] = {}   # rid -> submit time
+        self._t_last: Dict[int, float] = {}     # rid -> last token time
+        self._m_tokens = reg.counter(
+            "serve.tokens", help="tokens emitted across all requests")
+        self._m_preempt = reg.counter(
+            "serve.preemptions", help="slot preemptions")
+        self._m_prefix_hits = reg.counter(
+            "serve.prompt_cache_hits",
+            help="prompt tokens served from the prefix trie")
+        self._m_pool_util = reg.gauge(
+            "serve.block_pool_utilization",
+            help="fraction of KV pool blocks in use (post-dispatch)")
         self.device = params["embed"].device
         n = scfg.slots
         self.mesh, self.plan = model.mesh, model.plan
@@ -295,6 +332,8 @@ class Server:
         rid = self._next_rid
         self._next_rid += 1
         self.waiting.append(Request(rid, list(prompt), max_new_tokens))
+        if self.monitor is not None:
+            self._t_submit[rid] = time.perf_counter()
         return rid
 
     def admit(self, prompt: Sequence[int], slot: int,
@@ -311,6 +350,12 @@ class Server:
 
     def _admit(self, req: Request, slot: int,
                method: str = "chunked") -> List[Tuple]:
+        with _span("serve.admit", rid=req.rid, slot=slot,
+                   prompt_len=len(req.prompt)):
+            return self._admit_impl(req, slot, method)
+
+    def _admit_impl(self, req: Request, slot: int,
+                    method: str) -> List[Tuple]:
         self._check_prompt(req.prompt)
         prompt = np.asarray(req.prompt, np.int64)
         if self.paged:
@@ -319,6 +364,10 @@ class Server:
                                          resume_tail=req.prior_out)
         else:
             logits = self._prefill_linear(prompt, slot, method)
+        if req.prior_out:
+            _instant("serve.resume", rid=req.rid, slot=slot)
+        else:
+            _instant("serve.admitted", rid=req.rid, slot=slot)
         logits = whole(logits)     # the same on every rank under a plan
         tok = int(self._sample(logits[None], [req.rid], [req.prior_out])[0])
         self.prefill_logits[slot] = logits.cpu().numpy()
@@ -345,23 +394,31 @@ class Server:
     def _prefill_linear(self, prompt: np.ndarray, slot: int,
                         method: str) -> torch.Tensor:
         c = self.scfg.prefill_chunk if method == "chunked" else 1
-        self.cache = self.model.reset_slot(self.cache, slot)
-        logits = None
-        for i in range(0, len(prompt), c):
-            chunk = prompt[i:i + c]
-            nv = len(chunk)
-            if nv < c:
-                chunk = np.pad(chunk, (0, c - nv))
-            logits, self.cache = self.model.prefill_chunk(
-                self.params, self.cache,
-                torch.as_tensor(chunk, device=self.device), slot, nv,
-                impl=self.scfg.prefill_impl)
-            self.prefill_dispatches += 1
+        with _span("serve.prefill", slot=slot, tokens=len(prompt)):
+            self.cache = self.model.reset_slot(self.cache, slot)
+            logits = None
+            for i in range(0, len(prompt), c):
+                chunk = prompt[i:i + c]
+                nv = len(chunk)
+                if nv < c:
+                    chunk = np.pad(chunk, (0, c - nv))
+                logits, self.cache = self.model.prefill_chunk(
+                    self.params, self.cache,
+                    torch.as_tensor(chunk, device=self.device), slot, nv,
+                    impl=self.scfg.prefill_impl)
+                self.prefill_dispatches += 1
         return logits
 
     # -- paged admission: trie match + CoW + suffix prefill ---------------
     def _prefill_paged(self, prompt: np.ndarray, slot: int, method: str,
                        resume_tail: int = 0) -> torch.Tensor:
+        with _span("serve.prefill", slot=slot, tokens=len(prompt)):
+            return self._prefill_paged_impl(prompt, slot, method,
+                                            resume_tail)
+
+    def _prefill_paged_impl(self, prompt: np.ndarray, slot: int,
+                            method: str,
+                            resume_tail: int = 0) -> torch.Tensor:
         """Build the slot's block-table row (re-linking trie-cached prefix
         blocks, copy-on-write for a partial block match, fresh blocks for
         the suffix), then prefill only the unmatched suffix.
@@ -387,7 +444,10 @@ class Server:
             # at least one suffix token must remain to produce logits
             limit = p_len - 1
             if self.trie is not None:
-                full, part = self.trie.match(toks)
+                with _span("serve.trie_match", slot=slot) as sp:
+                    full, part = self.trie.match(toks)
+                    sp.set(full_blocks=len(full),
+                           partial=part is not None)
                 acquired += full
                 if part is not None:
                     acquired.append(part[0])
@@ -434,6 +494,7 @@ class Server:
         self._table_dirty = True
         self._pos_dirty = True
         self.prompt_cache_hits += cached
+        self._m_prefix_hits.inc(cached)
         c = scfg.prefill_chunk if method == "chunked" else 1
         # the decode-written tail of a resumed prompt must scan; the
         # original prompt keeps the configured impl, with chunks capped at
@@ -535,6 +596,10 @@ class Server:
             rid, self._slot_prompt.get(slot, []) + outs,
             None if b >= _UNBOUNDED else b, prior_out=len(outs)))
         self.preemptions += 1
+        self._m_preempt.inc()
+        if self.monitor is not None:
+            self.monitor.bump("preempt")
+        _instant("serve.preempt", rid=rid, slot=slot)
         self._events.append(("preempt", rid, slot))
 
     def _release_blocks(self, slot: int, rid: int) -> None:
@@ -580,9 +645,26 @@ class Server:
                 self._ensure_blocks(s, last_pos(s))
 
     # -- slot bookkeeping -------------------------------------------------
+    def _observe_token(self, rid: int) -> None:
+        """Feed the monitor one emitted token: the first since submit is a
+        TTFT, every later one an ITL.  A preemption gap lands in the ITL
+        stream: that is what the client sees."""
+        now = time.perf_counter()
+        last = self._t_last.get(rid)
+        if last is None:
+            t0 = self._t_submit.pop(rid, None)
+            if t0 is not None:
+                self.monitor.observe("ttft", now - t0)
+        else:
+            self.monitor.observe("itl", now - last)
+        self._t_last[rid] = now
+
     def _append(self, slot: int, tok: int) -> List[Tuple]:
         rid = int(self.slot_rid[slot])
         self.outputs[rid].append(tok)
+        self._m_tokens.inc()
+        if self.monitor is not None:
+            self._observe_token(rid)
         self.n_out[slot] += 1
         self.next_tok[slot] = tok
         events: List[Tuple] = [("token", rid, tok)]
@@ -603,6 +685,9 @@ class Server:
         self.active[slot] = False
         self.slot_rid[slot] = -1
         self.finished[rid] = reason
+        self._t_last.pop(rid, None)
+        self._t_submit.pop(rid, None)
+        _instant("serve.retire", rid=rid, slot=slot, reason=reason)
         return ("retire", rid, reason)
 
     # -- the serving loop -------------------------------------------------
@@ -611,6 +696,8 @@ class Server:
         admission fails is requeued (NoFreeBlocks: the paged pool is full
         for now; admission order is kept) or retired as "rejected" (an
         invalid request), never silently dropped."""
+        if self.monitor is not None:
+            self.monitor.observe("queue_depth", float(len(self.waiting)))
         events: List[Tuple] = []
         for slot in range(self.scfg.slots):
             if not self.waiting:
@@ -650,16 +737,21 @@ class Server:
         self._flush_host_state()
         feed = (self.next_tok if forced_tokens is None
                 else np.asarray(forced_tokens, np.int64))
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cache, torch.as_tensor(feed, device=self.device),
-            active=torch.as_tensor(act, device=self.device))
-        logits = whole(logits).float()
-        toks = self._sample(logits, self.slot_rid, self.n_out)
+        slots = [int(s) for s in np.nonzero(act)[0]]
+        with _span("serve.decode", slots=slots):
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache,
+                torch.as_tensor(feed, device=self.device),
+                active=torch.as_tensor(act, device=self.device))
+            logits = whole(logits).float()
+            toks = self._sample(logits, self.slot_rid, self.n_out)
         self.last_logits = logits
         self.decode_dispatches += 1
+        if self.pool is not None:
+            self._m_pool_util.set(1.0 - self.pool.n_free / self.n_blocks)
         self.pos[act] += 1
-        for slot in np.nonzero(act)[0]:
-            events += self._append(int(slot), int(toks[slot]))
+        for slot in slots:
+            events += self._append(slot, int(toks[slot]))
         return events
 
     def spec_once(self) -> List[Tuple]:
@@ -684,30 +776,33 @@ class Server:
         base_pos = self.pos.copy()
         base_out = self.n_out.copy()
         n = self.scfg.slots
+        slots = [int(s) for s in np.nonzero(act)[0]]
         toks = np.zeros((kk, n), np.int64)
         feed, counts, dpos = self.next_tok.copy(), base_out.copy(), \
             base_pos.copy()
         logits = None
-        for j in range(kk):
-            # a row reaching max_len freezes mid-draft
-            a = act & (dpos < max_len)
-            logits, self.cache = self.model.decode_step(
-                self.params, self.cache,
-                torch.as_tensor(feed, device=self.device),
-                active=torch.as_tensor(a, device=self.device))
-            logits = whole(logits).float()
-            nt = np.where(a, self._sample(logits, self.slot_rid, counts),
-                          feed)
-            counts = counts + a
-            dpos = dpos + a
-            toks[j] = nt
-            feed = nt
+        with _span("serve.draft", slots=slots, k=kk):
+            for j in range(kk):
+                # a row reaching max_len freezes mid-draft
+                a = act & (dpos < max_len)
+                logits, self.cache = self.model.decode_step(
+                    self.params, self.cache,
+                    torch.as_tensor(feed, device=self.device),
+                    active=torch.as_tensor(a, device=self.device))
+                logits = whole(logits).float()
+                nt = np.where(a, self._sample(logits, self.slot_rid, counts),
+                              feed)
+                counts = counts + a
+                dpos = dpos + a
+                toks[j] = nt
+                feed = nt
         self.decode_dispatches += 1
         accept = np.full((n,), kk, np.int64)
         if kk > 1 and self.scfg.spec_verify and self._can_verify:
             # feed_v[j] is the token that produced draft token j
             feed_v = np.concatenate([self.next_tok[None], toks[:-1]], 0)
-            vt = self._verify(feed_v.T.reshape(-1), base_pos, base_out)
+            with _span("serve.verify", slots=slots, k=kk):
+                vt = self._verify(feed_v.T.reshape(-1), base_pos, base_out)
             self.verify_dispatches += 1
             agree = vt.T == toks                      # [K, B]
             for s in range(n):

@@ -19,13 +19,27 @@ are the full values.  With a process group up (a mesh, with or without a
 plan) only rank 0 writes checkpoints and prunes old ones; every rank takes
 part in gathering them.
 
-Not ported: the straggler hook and the monitor (they need a per-step
-sync)."""
+Observation (repro's ``train(monitor=, straggler_cb=, step_hook=)``):
+``monitor`` (``obs.monitor.Monitor``) observes each step's wall time
+("step"), data wait ("data_wait") and device-sync time ("sync"), the
+signals its burn-rate and MAD-z rules run on; ``straggler_cb(step,
+seconds)`` fires for a step slower than ``TrainConfig.
+straggler_timeout_s``.  Both need a step's own wall time, so with a
+monitor or a straggler timeout set every step is a flush boundary (one
+device synchronise a step, as repro's loop takes with ``float(loss)``).
+Without them nothing changes: the flush boundaries, the timing and the
+logged losses are those above, and the losses are the same values
+either way (the device tensors are only read later or sooner).
+``step_hook(step)`` runs right after each step's dispatch, inside its
+timed interval (the launchers' fault-injection point).  Spans:
+``train.data_wait`` (``BatchFeed.get``), ``train.step`` and
+``train.ckpt_write`` (the engine), ``train.sync`` (each flush's device
+synchronise)."""
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -33,6 +47,7 @@ from ..checkpoint import ckpt
 from ..data.pipeline import BatchFeed, DataConfig
 from ..models.common import device_sync, resolve_device
 from ..models.model import LM
+from ..obs.tracing import span as _span
 from ..optim.adamw import AdamWConfig
 from ..train.engine import EngineConfig, TrainEngine
 
@@ -47,6 +62,7 @@ class TrainConfig:
     log_every: int = 10
     warmup: int = 0               # steps left out of the timing
     grad_compression: bool = False
+    straggler_timeout_s: Optional[float] = None
     optim: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
     microbatches: int = 1
     buckets: int = 4
@@ -72,11 +88,19 @@ def make_engine(model: LM, tcfg: TrainConfig, device="cuda", mesh=None,
 
 def train(model: LM, dcfg: DataConfig, tcfg: TrainConfig,
           params: Optional[Tree] = None, device="cuda", mesh=None,
-          plan=None) -> Dict[str, Any]:
+          plan=None,
+          straggler_cb: Optional[Callable[[int, float], None]] = None,
+          monitor=None,
+          step_hook: Optional[Callable[[int], None]] = None,
+          collectives: bool = False) -> Dict[str, Any]:
     """Run (or resume) training, under ``plan`` on ``mesh`` if given.
     Returns the final state, the engine, the per-step ``history`` ({step,
     loss, gnorm, sec}) and the measured ``breakdown_s`` (data wait, step
-    and checkpoint seconds after the warmup) with ``measured_steps``."""
+    and checkpoint seconds after the warmup) with ``measured_steps``.
+    ``monitor`` / ``straggler_cb`` / ``step_hook``: see the module
+    docstring.  ``collectives``: record the first step's collectives
+    (``analysis/comm.record``; its ``CollectiveStats`` in
+    ``out["collectives"]``), the drift check's measured side."""
     dev = resolve_device(device)
     sync = device_sync(dev)
     engine = make_engine(model, tcfg, device=dev, mesh=mesh, plan=plan)
@@ -96,6 +120,9 @@ def train(model: LM, dcfg: DataConfig, tcfg: TrainConfig,
 
     warmup = min(tcfg.warmup, max(0, (tcfg.steps - start) - 1))
     log_every = max(1, tcfg.log_every)
+    # a monitor or a straggler timeout needs each step's own wall time
+    per_step = monitor is not None or tcfg.straggler_timeout_s is not None
+    comm_stats = None
     history: List[Dict[str, float]] = []
     data_s = step_s = ckpt_s = 0.0
     n_measured = 0
@@ -108,17 +135,35 @@ def train(model: LM, dcfg: DataConfig, tcfg: TrainConfig,
             if int_t0 is None:
                 int_t0 = ta
             batch = feed.get()
-            int_data += time.monotonic() - ta
-            state, metrics = engine.step(state, batch)
+            t_data = time.monotonic() - ta
+            int_data += t_data
+            if collectives and step == start:
+                from ..analysis import comm
+                (state, metrics), comm_stats = comm.record(engine.step, state,
+                                                           batch)
+            else:
+                state, metrics = engine.step(state, batch)
+            if step_hook is not None:
+                step_hook(step)
             pending.append((step, metrics["loss"], metrics["gnorm"]))
             at_ckpt = bool(tcfg.ckpt_dir) and (step + 1) % tcfg.ckpt_every == 0
-            if not ((step + 1 - start) % log_every == 0
+            if not (per_step or (step + 1 - start) % log_every == 0
                     or step - start == warmup - 1
                     or step == tcfg.steps - 1 or at_ckpt):
                 continue
-            sync()
+            ts = time.monotonic()
+            with _span("train.sync", steps=len(pending)):
+                sync()
             tc = time.monotonic()
             wall = tc - int_t0
+            if monitor is not None:
+                monitor.observe("step", wall)
+                monitor.observe("data_wait", t_data)
+                monitor.observe("sync", tc - ts)
+            if (tcfg.straggler_timeout_s is not None
+                    and wall > tcfg.straggler_timeout_s
+                    and straggler_cb is not None):
+                straggler_cb(step, wall)
             if pending[0][0] - start >= warmup:
                 data_s += int_data
                 step_s += wall - int_data
@@ -137,4 +182,4 @@ def train(model: LM, dcfg: DataConfig, tcfg: TrainConfig,
     return {"params": state["params"], "opt": state["opt"], "state": state,
             "engine": engine, "history": history,
             "breakdown_s": {"data": data_s, "step": step_s, "ckpt": ckpt_s},
-            "measured_steps": n_measured}
+            "measured_steps": n_measured, "collectives": comm_stats}

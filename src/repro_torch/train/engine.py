@@ -53,6 +53,7 @@ from ..checkpoint import ckpt
 from ..models.common import resolve_device
 from ..models.mamba import SSD_IMPLS
 from ..models.model import LM
+from ..obs.tracing import span as _span
 from ..models.sharding import (batch_placements, like_placed, place,
                                tree_placements, zeros_placed)
 from ..optim import adamw
@@ -251,9 +252,16 @@ class TrainEngine:
         [B, S] (tensors or numpy; DTensors under a plan, as ``BatchFeed``
         places them); whatever its keys, its leaves share the leading
         dim that the microbatches split.  Returns (state, {"loss",
-        "gnorm"} as 0-d tensors: the full values under a plan)."""
-        if self.sharded:
-            return self._step_planned(state, batch)
+        "gnorm"} as 0-d tensors: the full values under a plan).  Traced
+        as the span ``train.step`` (host time: the launches, not the
+        device's work)."""
+        with _span("train.step"):
+            if self.sharded:
+                return self._step_planned(state, batch)
+            return self._step_local(state, batch)
+
+    def _step_local(self, state: Tree, batch: Dict[str, Any]
+                    ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         batch = self._batch(batch)
         params = state["params"]
@@ -421,7 +429,8 @@ class TrainEngine:
              extra: Optional[Dict[str, Any]] = None) -> str:
         """Write the state (gathered whole under a plan; rank 0 writes,
         every rank returns once it is committed)."""
-        return ckpt.save(directory, step, state, extra=extra)
+        with _span("train.ckpt_write", step=step):
+            return ckpt.save(directory, step, state, extra=extra)
 
     def restore(self, directory: str, step: Optional[int] = None
                 ) -> Optional[Tuple[Tree, Dict[str, Any], int]]:
