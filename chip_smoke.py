@@ -284,6 +284,14 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      --slo-step-ms and a stall at step 1: the straggler event fires for
      step 1, the losses are 4b's first 3 bit for bit, the launches
      exact;
+  4v. the dry run (launch/dryrun.py; after 4u) in a subprocess, where
+     torch's fake process group is the default group: llama3.2-3b
+     train_4k on the fake (16, 16) mesh under its solved plan, and 4b's
+     cell (qwen2-1.5b, 4 x 1024 in 2 microbatches) on one device with no
+     plan, both traced on meta tensors; each record must be complete,
+     finite and positive; the one-device cell's predicted FLOPs, peak
+     bytes and modeled step are printed beside train_flops and 4b's
+     measured peak and mean step, as ratios (not gated);
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch, the stream held by a spin kernel so the interval is device
      time; the forward and both decode kernels also without the hold,
@@ -313,6 +321,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -5016,6 +5025,95 @@ def train_observed(dev, tag, ref_rec):
                 ref_mean_step_s=ref_rec["mean_step_s"]), launches
 
 
+# 4v: the dry run (launch/dryrun.py) in a process of its own, where torch's
+# fake process group can be the default group (this one holds NCCL's
+# world-1 groups in turn): llama3.2-3b train_4k on the fake (16, 16) mesh,
+# and phase 4b's cell on one device with no plan, whose predicted FLOPs,
+# peak bytes and modeled step are printed beside 4b's measured ones.
+# Ratios are printed, not gated: nothing is claimed of a speed.
+DRYRUN_TIMEOUT_S = 240
+DRYRUN_KEYS = {
+    "arch", "shape", "mesh", "n_devices", "flops_per_dev",
+    "hbm_bytes_per_dev", "wire_bytes_per_dev", "naive_collective_bytes",
+    "collective_counts", "model_flops_total", "bytes_per_dev_peak",
+    "t_compute", "t_memory", "t_collective", "t_step", "dominant",
+    "useful_ratio", "roofline_fraction", "ideal_bytes_per_dev",
+    "mem_efficiency", "status", "trace_s", "memory_analysis",
+    "solver_bytes", "solver_per_axis", "probe_depths", "probe_flops"}
+
+
+def dryrun_cells(tag, ref_rec):
+    """Phase 4v (see DRYRUN_TIMEOUT_S): both records complete, finite and
+    positive (the one-device cell has no collective), else fail."""
+    import math
+    import tempfile
+    out = Path(tempfile.mkdtemp(prefix="dry4v-"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    cells = {
+        "llama3.2-3b_train_4k_pod1": [
+            "--arch", "llama3.2-3b", "--shape", "train_4k", "--mesh",
+            "single"],
+        f"qwen2-1.5b_train_{TRAIN_BATCH}x{TRAIN_SEQ}_one": [
+            "--arch", "qwen2-1.5b", "--shape", "train_4k", "--mesh", "one",
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--microbatches", str(TRAIN_MICRO)]}
+    recs = {}
+    for key, argv in cells.items():
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                 "--no-cache", "--out", str(out)], env=env, cwd=str(ROOT),
+                capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"dry run {key}: over {DRYRUN_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            fail(f"dry run {key}: exit {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        rec = json.loads((out / f"{key}.json").read_text())
+        rec["wall_s"] = time.perf_counter() - t0
+        if set(rec) - {"wall_s"} != DRYRUN_KEYS or rec["status"] != "ok":
+            fail(f"dry run {key}: record keys {sorted(rec)}")
+        positive = ["flops_per_dev", "hbm_bytes_per_dev", "bytes_per_dev_peak",
+                    "t_compute", "t_memory", "t_step", "model_flops_total",
+                    "useful_ratio", "trace_s"]
+        if rec["n_devices"] > 1:
+            positive += ["wire_bytes_per_dev", "t_collective"]
+        bad = [k for k in positive if not (isinstance(rec[k], (int, float))
+                                           and math.isfinite(rec[k])
+                                           and rec[k] > 0)]
+        if bad:
+            fail(f"dry run {key}: not finite and positive: "
+                 + str({k: rec[k] for k in bad}))
+        print(f"dry run {key}: {rec['n_devices']} devices, "
+              f"{rec['flops_per_dev']:.4e} FLOP, {rec['hbm_bytes_per_dev']:.4e} "
+              f"HBM bytes, {rec['wire_bytes_per_dev']:.4e} wire bytes, peak "
+              f"{rec['bytes_per_dev_peak'] / 2**30:.2f} GiB a device; "
+              f"t_compute {rec['t_compute'] * 1e3:.2f} ms, t_memory "
+              f"{rec['t_memory'] * 1e3:.2f} ms, t_collective "
+              f"{rec['t_collective'] * 1e3:.2f} ms, t_step "
+              f"{rec['t_step'] * 1e3:.2f} ms ({rec['dominant']}); trace "
+              f"{rec['trace_s']:.2f} s, wall {rec['wall_s']:.1f} s")
+        recs[key] = rec
+    from repro_torch.configs import get_arch
+    one = recs[f"qwen2-1.5b_train_{TRAIN_BATCH}x{TRAIN_SEQ}_one"]
+    flops = train_flops(get_arch("qwen2-1.5b"), TRAIN_BATCH, TRAIN_SEQ)
+    pairs = {
+        "FLOPs a step": (one["flops_per_dev"], flops),
+        "peak bytes": (one["bytes_per_dev_peak"],
+                       float(ref_rec["peak_memory_bytes"])),
+        "step s": (one["t_step"], ref_rec["mean_step_s"])}
+    for what, (pred, meas) in pairs.items():
+        print(f"dry run vs 4b, {what}: predicted {pred:.6g}, "
+              f"{'model (train_flops)' if what == 'FLOPs a step' else 'measured'} "
+              f"{meas:.6g}, ratio {pred / meas:.4f} {tag}")
+    recs["vs_4b"] = {k: {"predicted": p, "measured": m, "ratio": p / m}
+                     for k, (p, m) in pairs.items()}
+    return recs
+
+
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
@@ -5149,6 +5247,12 @@ def main() -> int:
     phase_4u_s += time.perf_counter() - t_4u
     print(f"phase 4u: {phase_4u_s:.1f} s {tag}")
     print(f"phase 4u done at {time.perf_counter() - t_start:.1f}s")
+    # 4v. the dry run in a process of its own: a production cell on the
+    # fake (16, 16) mesh, and 4b's cell on one device beside 4b's numbers
+    t_4v = time.perf_counter()
+    dry = dryrun_cells(tag, train_rec)
+    print(f"phase 4v: {time.perf_counter() - t_4v:.1f} s; done at "
+          f"{time.perf_counter() - t_start:.1f}s")
     if args.profile:
         train_rec["profile"] = profile_train(dev, tag)
         gc.collect()
@@ -5444,7 +5548,7 @@ def main() -> int:
             internvl_plan_train=iv_plan_train,
             reduced_stub_card_vs_cpu=stub_reduced, pipeline_s1=pipe_rec,
             observed_serve=obs_serve, observed_train=obs_train,
-            phase_4u_s=phase_4u_s,
+            phase_4u_s=phase_4u_s, dryrun=dry,
             phase_stub_s=phase_stub_s, kernels=kernels), indent=1,
             default=str))
     print(smi)

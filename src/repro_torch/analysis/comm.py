@@ -93,11 +93,15 @@ def _nbytes(t) -> float:
     return float(t.numel() * t.element_size())
 
 
-def _recorder_class():
+def collective_note():
+    """``note(ops, func, args)``: appends the (kind, s, g) of a dispatched
+    op to ``ops`` when it is a collective, priced by its rule (the table
+    below, for the ops this torch has), or kept as ("unpriced:<op>", 0
+    bytes, 1); point-to-point ops are left out.  Shared by
+    :func:`record`'s mode and ``analysis/cost_trace``'s."""
     import torch
     from torch.distributed import ProcessGroup
     from torch.distributed.distributed_c10d import _resolve_process_group
-    from torch.distributed.tensor.debug import CommDebugMode
 
     fn = torch.ops._c10d_functional
     fa = torch.ops._c10d_functional_autograd
@@ -141,6 +145,30 @@ def _recorder_class():
             rules[getattr(ns, op)] = (kind, size)
     point_to_point = {"c10d.send", "c10d.recv_", "c10d.recv_any_source_",
                       "c10d.barrier"}
+    # the functional collectives CommDebugMode counts, native and Python
+    from torch.distributed.tensor.debug import CommDebugMode
+    registry = set(getattr(CommDebugMode(), "comm_registry", ()))
+
+    def note(ops: List, func, args) -> None:
+        packet = func._overloadpacket
+        rule = rules.get(packet)
+        name = str(packet)
+        if rule is not None:
+            kind, size = rule
+            s, g = size(args)
+            ops.append((kind, float(s), int(g)))
+        elif ((packet in registry or name.startswith("c10d."))
+              and name not in point_to_point):
+            ops.append((f"unpriced:{packet}", 0.0, 1))
+
+    return note
+
+
+def _recorder_class():
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    note = collective_note()
 
     class Recorder(CommDebugMode):
         """CommDebugMode that also keeps (kind, s, g) per collective.
@@ -152,16 +180,8 @@ def _recorder_class():
             self.ops: List[Tuple[str, float, int]] = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            packet = func._overloadpacket
-            rule = rules.get(packet)
-            if rule is not None:
-                kind, size = rule
-                s, g = size(args)
-                self.ops.append((kind, float(s), int(g)))
-            elif ((packet in getattr(self, "comm_registry", ())
-                   or str(packet).startswith("c10d."))
-                  and str(packet) not in point_to_point):
-                self.ops.append((f"unpriced:{packet}", 0.0, 1))
+            if not isinstance(func, torch._ops.HigherOrderOperator):
+                note(self.ops, func, args)
             return super().__torch_dispatch__(func, types, args, kwargs)
 
     return Recorder

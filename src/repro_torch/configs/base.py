@@ -68,6 +68,11 @@ class ArchConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
     @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k (O(1)-state decode)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def d_inner(self) -> int:
         return (self.ssm.expand * self.d_model) if self.ssm else 0
 
@@ -156,6 +161,14 @@ SHAPES: Dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+# the architectures of the dry-run table, in repro's order
+ASSIGNED = [
+    "zamba2-2.7b", "qwen2.5-32b", "qwen2-1.5b", "h2o-danube-3-4b",
+    "llama3.2-3b", "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b",
+    "internvl2-76b", "xlstm-125m", "musicgen-large",
+]
 
 
 _REGISTRY: Dict[str, ArchConfig] = {}

@@ -67,7 +67,7 @@ def _route(*tensors: torch.Tensor) -> str:
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
     kind = tensors[0].device.type
-    if kind not in ("cuda", "cpu"):
+    if kind not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no kernel path for device type {kind!r}")
     return kind
 

@@ -10,9 +10,11 @@ A record holds the solved role cuts, the solver's byte and second totals
 projection of the solved tiling (``_executed_breakdown``), the drift
 gauge's predicted side (``obs/drift``).  A record cached before the
 breakdown existed has none; the launchers report it as stale and skip
-the drift check, as repro's do.  repro's ``compile_step`` /
-``input_specs`` (XLA lowering) have no counterpart: the port measures a
-step's collectives by running it (``analysis/comm.record``)."""
+the drift check, as repro's do.  ``solve_plan`` is the dry run's cell
+solve on the production meshes (``launch/mesh.production_axes``), and
+``input_specs`` its inputs as ``meta`` stand-ins.  repro's
+``compile_step`` (XLA lowering) has no counterpart: the port traces a
+step on meta tensors instead (``analysis/cost_trace``)."""
 from __future__ import annotations
 
 import json
@@ -27,6 +29,7 @@ from ..core.solver import (MeshAxis, solution_breakdown,
                            solution_compute_seconds, solve_mesh,
                            solve_mesh_capacity)
 from ..obs.tracing import span as _span
+from .mesh import production_axes
 
 CACHE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                          ".cache", "plans_torch")
@@ -128,6 +131,42 @@ def solve_observed_regime(cfg: ArchConfig, axes: Sequence[MeshAxis],
     return solve_cell_plan(cfg, shape, axes, f"{mesh_name}_{regime}",
                            use_cache=use_cache,
                            graph_kwargs=graph_kwargs, compute=compute)
+
+
+def solve_plan(cfg: ArchConfig, shape: ShapeConfig, multi_pod: bool,
+               use_cache: bool = True,
+               capacity: bool = False) -> Dict[str, Any]:
+    """The production-mesh cell solve (repro's, the dry run's entry
+    point): mesh names ``pod1`` / ``pod2``, ``_cap`` with ``capacity``."""
+    mesh_name = ("pod2" if multi_pod else "pod1") + \
+        ("_cap" if capacity else "")
+    return solve_cell_plan(cfg, shape, production_axes(multi_pod),
+                           mesh_name, use_cache, capacity)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """The cell's inputs as ``meta`` tensors (repro's ShapeDtypeStruct
+    stand-ins, no memory): int32 token ids [B, S] (the data pipeline's
+    dtype, repro's too), or bf16 embeds [B, S, D] for an embedding-stub
+    config, plus int32 labels [B, S] for a train cell; a decode cell's
+    tokens are [B] (embeds [B, D])."""
+    import torch
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+    if shape.kind == "decode":
+        if cfg.embed_stub:
+            return {"tokens": meta(b, cfg.d_model, dtype=torch.bfloat16)}
+        return {"tokens": meta(b)}
+    specs: Dict[str, Any] = {}
+    if cfg.embed_stub:
+        specs["embeds"] = meta(b, s, cfg.d_model, dtype=torch.bfloat16)
+    else:
+        specs["tokens"] = meta(b, s)
+    if shape.kind == "train":
+        specs["labels"] = meta(b, s)
+    return specs
 
 
 def plan_from_record(rec: Dict[str, Any]) -> ShardingPlan:

@@ -10,6 +10,7 @@ the paper's §5.1 placement rule: the k-cut solver assigns its first
 (highest-weight) cut to the slowest tier."""
 from __future__ import annotations
 
+import math
 import os
 import socket
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -23,6 +24,11 @@ from ..core.solver import MeshAxis
 # datasheet, https://www.nvidia.com/en-us/data-center/h100/.  Published
 # figures, not measured: they wait for a machine with more than one card.
 NVLINK_BW = 900e9            # NVLink 4, bytes/s per card (all 18 links)
+# NDR InfiniBand, 400 Gb/s = 50 GB/s per card (one ConnectX-7 port a card
+# in a DGX H100: https://docs.nvidia.com/dgx/dgxh100-user-guide/
+# introduction-to-dgxh100.html).  Published, not measured.
+IB_BW = 50e9
+CARDS_PER_HOST = 8           # an HGX / DGX H100 host
 
 
 def free_port() -> int:
@@ -91,6 +97,57 @@ def solver_axes(shape: Sequence[int] = (16, 16),
     return sorted(axes, key=lambda a: a.bandwidth)
 
 
+def production_shape(multi_pod: bool = False
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """repro's production meshes: (16, 16) ("data", "model"), 256 cards,
+    or (2, 16, 16) ("pod", "data", "model"), 512."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def axis_bandwidth(shape: Sequence[int], dim: int) -> float:
+    """The ring rate of mesh dim ``dim`` of a row-major rank layout on
+    hosts of ``CARDS_PER_HOST`` cards: NVLink when the group of rank 0
+    along that dim lies in one host, InfiniBand when it spans hosts (its
+    ring then crosses a host link at the NIC's rate)."""
+    stride = math.prod(shape[dim + 1:])
+    group = [i * stride for i in range(shape[dim])]
+    hosts = {r // CARDS_PER_HOST for r in group}
+    return NVLINK_BW if len(hosts) == 1 else IB_BW
+
+
+def production_axes(multi_pod: bool = False) -> List[MeshAxis]:
+    """The solver's axes of a production mesh (repro's ``solver_axes``
+    for its production meshes), slowest first, each at
+    ``axis_bandwidth``'s rate.  On 8-card hosts every axis crosses hosts:
+    "model" (16 consecutive ranks) spans 2 hosts, "data" (stride 16) 16
+    hosts and "pod" (stride 256) the two pods, so every axis rides
+    InfiniBand at 50 GB/s a card."""
+    shape, names = production_shape(multi_pod)
+    axes = [MeshAxis(n, s, axis_bandwidth(shape, i))
+            for i, (n, s) in enumerate(zip(names, shape))]
+    return sorted(axes, key=lambda a: a.bandwidth)
+
+
+def make_production_mesh(multi_pod: bool = False):
+    """A ``DeviceMesh`` of a production shape over torch's *fake* process
+    group, as this process's default group: rank 0 of a world of 256
+    (512) that exists nowhere, so DTensors of meta shards can be traced
+    under a plan and no rank runs (``analysis/cost_trace``).  The caller
+    tears the group down (``dist.destroy_process_group``); a process
+    that holds another default group cannot make one."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, names = production_shape(multi_pod)
+    if dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs a process without a "
+                           "default process group (it makes a fake one)")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
 def mesh_to_solver_axes(mesh) -> List[MeshAxis]:
     """MeshAxis list mirroring an existing ``DeviceMesh``, slowest first
     (§5.1) whatever the mesh's own axis order — safe, since plans are
@@ -107,6 +164,9 @@ def _spawned(rank: int, fn: Callable, world: int, device_type: str,
     init_distributed(device_type, rank, world, port)
     try:
         fn(rank, world, *args)
+        # every rank done before any tears its group down (a gloo rank
+        # whose peer had gone aborted at exit now and then)
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

@@ -132,6 +132,30 @@ def kernel_placements(cache_placements: Sequence, mesh, b: int, h: int,
     return tuple(out)
 
 
+def gathered_placements(cache_placements: Sequence, mesh, b: int, h: int,
+                        kv: int, batch_dim: int, head_dim: int) -> Tuple:
+    """The query's placements where ``kernel_placements`` has no local
+    rule (the counted fallbacks): a mesh dim that cuts the cache's batch,
+    or its ``kv_heads``, keeps that cut on ``batch_dim`` / ``head_dim``
+    while the degree so far divides B (KV and H), in mesh order; every
+    other mesh dim is gathered (replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    deg_b = deg_h = 1
+    for j, p in enumerate(cache_placements):
+        n = mesh.size(j)
+        if isinstance(p, Shard) and p.dim == 1 and b % (deg_b * n) == 0:
+            deg_b *= n
+            out.append(Shard(batch_dim))
+        elif (isinstance(p, Shard) and p.dim == 3
+              and kv % (deg_h * n) == 0 and h % (deg_h * n) == 0):
+            deg_h *= n
+            out.append(Shard(head_dim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
 def paged_placements(pool_placements: Sequence, table_placements: Sequence
                      ) -> Optional[List]:
     """The pool's and the table's cuts as the linear cache placements that
@@ -212,10 +236,14 @@ def attention_sharded(q, k, v, *, causal: bool = True,
     its layer axis, so its dim d is the cache's d + 1).  A contiguous
     heads cut keeps each rank's query heads with the KV heads of their
     group only because both H and KV divide.  Any other cut (seq, hd, a
-    degree that does not divide) gathers q, k and v whole on every rank
-    and runs the same op on them, counted in
-    ``ops.plan_fallbacks["attention"]``.  Returns o [B,S,H,hd]
-    (DTensor)."""
+    degree that does not divide) is counted in
+    ``ops.plan_fallbacks["attention"]``: ``gathered_placements`` keeps
+    the batch and heads cuts whose degrees divide and gathers every other
+    mesh dim, and the same op runs on what each rank then holds.
+    Without autograd (a prefill forward), a mesh dim that cuts q's seq
+    keeps it: only k and v are gathered there, and each rank's queries
+    run the forward kernel at their offset (the backward kernels take
+    none).  Returns o [B,S,H,hd] (DTensor)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
@@ -226,7 +254,23 @@ def attention_sharded(q, k, v, *, causal: bool = True,
                             batch_dim=0, head_dim=2)
     if qpl is None:
         kops.plan_fallbacks["attention"] += 1
-        qpl = (Replicate(),) * mesh.ndim
+        qpl = gathered_placements(as_cache, mesh, b, h, k.shape[2],
+                                  batch_dim=0, head_dim=2)
+        if not torch.is_grad_enabled():
+            seq = [Shard(1) if isinstance(p, Shard) and p.dim == 1 else r
+                   for p, r in zip(q.placements, qpl)]
+            if seq != list(qpl):
+                q = q.redistribute(mesh, seq)
+                off = global_offset(q)[1]
+
+                def offset_region(q_l, k_l, v_l):
+                    return kops.flash_attention_fwd(
+                        q_l, k_l, v_l, causal=causal, window=window,
+                        scale=scale, q_offset=off)[0]
+                return local_map(offset_region, out_placements=seq,
+                                 in_placements=(seq, qpl, qpl),
+                                 device_mesh=mesh,
+                                 redistribute_inputs=True)(q, k, v)
 
     def region(q_l, k_l, v_l):
         return kops.flash_attention(q_l, k_l, v_l, causal, window, scale)
@@ -245,7 +289,7 @@ def attend_cache_sharded(q, k, v, k_all, v_all, layer: int,
     position), ``keep`` [B] bool (write or drop) and ``length`` [B] are
     plain tensors, the same on every rank.  Each rank writes the rows of
     its local shard; then the kernel attends its shard, or, where the cut
-    has no local rule, the gathered query and caches.  Returns o
+    has no local rule, what ``_gathered_decode`` gathers.  Returns o
     [B,H,hd] (DTensor)."""
     mesh = k_all.device_mesh
     b, h, _ = q.shape
@@ -276,9 +320,35 @@ def attend_cache_sharded(q, k, v, k_all, v_all, layer: int,
     if qpl is not None:
         return o
     kops.plan_fallbacks["attend_cache"] += 1
-    out = attend_cache(q.full_tensor(), k_all[layer].full_tensor(),
-                       v_all[layer].full_tensor(), length)
-    return _replicated(out, mesh)
+    return _gathered_decode(q, k_all[layer], v_all[layer], length)
+
+
+def _gathered_decode(q, kc, vc, length: torch.Tensor):
+    """A decode step's attention on cache layers ``kc`` / ``vc``
+    [B,S,KV,hd] (DTensors) whose cut has no local rule: the batch and
+    kv_heads cuts that ``gathered_placements`` keeps stay, every other
+    mesh dim is gathered, and the kernel attends what each rank then
+    holds.  Returns o [B,H,hd] (DTensor)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = kc.device_mesh
+    b, h, _ = q.shape
+    qpl = gathered_placements(
+        [Shard(p.dim + 1) if isinstance(p, Shard) else p
+         for p in kc.placements], mesh, b, h, kc.shape[2], batch_dim=0,
+        head_dim=1)
+    kept = [Shard(2) if isinstance(p, Shard) and p.dim == 1 else p
+            for p in qpl]
+    kc, vc = redistribute(kc, kept), redistribute(vc, kept)
+    b0 = global_offset(kc)[0]
+
+    def region(q_l, k_l, v_l):
+        return kops.flash_attention_decode(q_l, k_l, v_l,
+                                           length[b0:b0 + k_l.shape[0]])
+
+    return local_map(region, out_placements=list(qpl),
+                     in_placements=(qpl, kept, kept), device_mesh=mesh,
+                     redistribute_inputs=True)(q, kc, vc)
 
 
 def attend_slot_sharded(q, k, v, k_all, v_all, layer: int, slot: int,

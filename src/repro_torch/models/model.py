@@ -180,6 +180,46 @@ def _whole_along(t, dim: int):
     return t.redistribute(t.device_mesh, pl)
 
 
+def _unstacked(t):
+    """DTensor ``t`` with every tensor dim that more than one mesh dim
+    cuts replicated (a plain tensor as it is): torch 2.11's DTensor index
+    refuses such an index ("hybrid sharding strategies"), and 2.13 gathers
+    it the same way to look the rows up."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return t
+    dims = [p.dim for p in t.placements if isinstance(p, Shard)]
+    stacked = {d for d in dims if dims.count(d) > 1}
+    if not stacked:
+        return t
+    pl = [Replicate() if isinstance(p, Shard) and p.dim in stacked else p
+          for p in t.placements]
+    return t.redistribute(t.device_mesh, pl)
+
+
+def _sharded_cross_entropy(logits, labels) -> torch.Tensor:
+    """Token-mean CE (f32) of vocab-whole DTensor ``logits`` [B, S, V]:
+    the labels placed as the logits' batch and sequence, each rank's
+    tokens' CE on its local shard (``softmax_cross_entropy``'s formula),
+    then the mean over the DTensor.  DTensor's own gather of the labels
+    ran on replicated operands, and its backward wrote a zero tensor of
+    the global logits' shape on every rank (538 GB a card for llama3.2-3b
+    at 256 x 4096 on a (16, 16) mesh, ``launch/dryrun``)."""
+    from torch.distributed.tensor import DTensor
+
+    from .sharding import from_local, place
+    mesh = logits.device_mesh
+    pl = list(logits.placements)
+    if not isinstance(labels, DTensor):
+        labels = place(labels, mesh, pl)
+    elif list(labels.placements) != pl:
+        labels = labels.redistribute(mesh, pl)
+    lg = logits.to_local().float()
+    gold = torch.gather(lg, -1, labels.to_local().long()[..., None])[..., 0]
+    tok = torch.logsumexp(lg, dim=-1) - gold
+    return from_local(tok, mesh, pl, labels.shape).mean()
+
+
 @contextlib.contextmanager
 def _replicating():
     from torch.distributed.tensor import DTensor
@@ -361,7 +401,7 @@ class LM:
         embeds that come as a plain tensor (the same on every rank) are
         placed under the batch placements first, d_model whole."""
         if embeds is None:
-            x = params["embed"][tokens]
+            x = params["embed"][_unstacked(tokens)]
         else:
             if self.plan is not None:
                 from torch.distributed.tensor import DTensor
@@ -532,9 +572,11 @@ class LM:
                                    batch.get("embeds"))
         with self.dist_scope():
             if self.plan is not None:
-                logits = _whole_along(logits, logits.ndim - 1)
-            ce = softmax_cross_entropy(logits, batch["labels"],
-                                       self.cfg.vocab)
+                ce = _sharded_cross_entropy(
+                    _whole_along(logits, logits.ndim - 1), batch["labels"])
+            else:
+                ce = softmax_cross_entropy(logits, batch["labels"],
+                                           self.cfg.vocab)
             return ce + 0.01 * aux
 
     # -- the linear slot cache --------------------------------------------------

@@ -94,9 +94,13 @@ def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig,
     gate, eid = torch.topk(probs, k, dim=-1)                # [T, K]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
     me = probs.mean(0)
-    ce = torch.bincount(eid.reshape(-1), minlength=e).float() / (t * k)
-    aux = e * torch.sum(me * ce)
     flat_e = eid.reshape(-1)                                # [T * K]
+    # choices per expert, bincount's counts with a shape that does not
+    # depend on the data (a meta trace has no bincount)
+    counts = torch.zeros(e, dtype=torch.int64, device=xf.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    ce = counts.float() / (t * k)
+    aux = e * torch.sum(me * ce)
     order = torch.argsort(flat_e, stable=True)              # by expert
     sorted_e = flat_e[order]
     starts = torch.searchsorted(

@@ -20,9 +20,14 @@ Bands, each with its reason:
       copied).  Within a
       step the shared block attends the K/V it has just written, so a row
       whose new K or V rounded the other way moves by up to ~7e-4 in the
-      same step (one row in 18 row-steps of the decode test): such a row
-      is held at 1e-3, the others at the f32 band, and the held rows must
-      stay the rule (at most 2 rows a test); run free, the logits drift
+      same step: such a row is held at 1e-3 (FREE_TOL), the others at
+      the f32 band, and every element of its new K/V must be within one
+      bf16 rounding (2^-7 of the larger) and the f32 band of repro's (a
+      rounding the other way, never a wrong value).  How many rows flip
+      depends on the
+      host's f32 summation order (1 row in 18 row-steps of the decode
+      test on one host, 5 on an AVX-512 AMD EPYC), so it is not counted;
+      run free, the logits drift
       apart by up to 5.0e-4 in 8 steps (measured on this CPU, seed 0);
   stepwise decode against the port's own forward: repro's bf16 band
       (tests/test_models.py, rtol = atol = 0.15); in f32 the gap is
@@ -123,25 +128,26 @@ def _held_step(lt, lj, tc, jc, rows):
     same cache: the logits ``lt`` / ``lj`` [R, V] of cache rows ``rows``.
     A row whose new shared K/V is bit-equal to repro's is held at the f32
     band in its logits and SSM state; a row where one rounded the other
-    way at 1e-3 (FREE_TOL).  Returns the number of such rows."""
+    way at 1e-3 (FREE_TOL), each of its new K/V elements within one bf16
+    rounding (2^-7 of the larger) and the f32 band of repro's."""
     got, want = _flat(tc), _flat(jc)
     assert set(got) == set(want)
     np.testing.assert_array_equal(got["pos"], want["pos"])
-    flipped = 0
     for r, lg_t, lg_j in zip(rows, lt, lj):
         flip = any(not np.array_equal(got[k][:, r], want[k][:, r])
                    for k in ("shared/k", "shared/v"))
+        for k in ("shared/k", "shared/v"):
+            a, b = got[k][:, r], want[k][:, r]
+            assert np.all(np.abs(a - b) <= BF16_REL * np.maximum(
+                np.abs(a), np.abs(b)) + F32_TOL), (k, r)
         tol = FREE_TOL if flip else F32_TOL
         np.testing.assert_allclose(lg_t, lg_j, atol=tol, rtol=tol)
         np.testing.assert_allclose(got["mamba/ssm"][:, r],
                                    want["mamba/ssm"][:, r], atol=tol,
                                    rtol=tol)
-        for k in ("mamba/conv", "shared/k", "shared/v"):
-            diff = np.abs(got[k][:, r] - want[k][:, r])
-            assert np.all(diff <= BF16_REL * np.abs(want[k][:, r]) + tol), \
-                (k, r)
-        flipped += flip
-    return flipped
+        diff = np.abs(got["mamba/conv"][:, r] - want["mamba/conv"][:, r])
+        assert np.all(diff <= BF16_REL * np.abs(want["mamba/conv"][:, r])
+                      + tol), r
 
 
 def _close_leaf(key, got, want):
@@ -229,7 +235,6 @@ def test_decode_step_matches_repro_step_by_step():
     like = tm.init_cache(3, 32, device="cpu")
     jc = jm.init_cache(3, 32)
     rng = np.random.default_rng(1)
-    flipped = 0
     for i in range(6):
         toks = rng.integers(0, tm.cfg.vocab, 3)
         act = np.array([True, i >= 2, i % 3 != 0])
@@ -238,7 +243,7 @@ def test_decode_step_matches_repro_step_by_step():
         lj, jc = step(jp, jc, jnp.asarray(toks), active=jnp.asarray(act))
         lt, tc = tm.decode_step(tp, tc, torch.from_numpy(toks),
                                 active=torch.from_numpy(act))
-        flipped += _held_step(lt.numpy(), np.asarray(lj), tc, jc, range(3))
+        _held_step(lt.numpy(), np.asarray(lj), tc, jc, range(3))
         got = _flat(tc)
         for r in np.nonzero(~act)[0]:
             assert got["pos"][r] == before["pos"][r]
@@ -246,7 +251,6 @@ def test_decode_step_matches_repro_step_by_step():
                 np.testing.assert_array_equal(got[k][:, r], before[k][:, r])
             assert not np.array_equal(got["mamba/ssm"][:, r],
                                       before["mamba/ssm"][:, r])
-    assert flipped <= 2
     assert _flat(jc)["pos"].tolist() == [6, 4, 4]
 
 
@@ -282,21 +286,18 @@ def test_scan_prefill_chunk_matches_repro():
     toks = rng.integers(0, tm.cfg.vocab, 10)
     chunks = [(toks[:8], 8), (np.pad(toks[8:], (0, 6)), 2)]
     prefill = jax.jit(jm.prefill_chunk, static_argnums=(3, 4))
-    flipped = 0
     for chunk, nv in chunks:
         tc = _port_cache(jc, like)
         before = _flat(tc)
         lj, jc = prefill(jp, jc, jnp.asarray(chunk), 1, nv)
         lt, tc = tm.prefill_chunk(tp, tc, torch.from_numpy(chunk), 1, nv)
-        flipped += _held_step(lt[None].numpy(), np.asarray(lj)[None], tc,
-                              jc, [1])
+        _held_step(lt[None].numpy(), np.asarray(lj)[None], tc, jc, [1])
         got = _flat(tc)
         for k in got:
             if k != "pos":
                 for r in (0, 2):
                     np.testing.assert_array_equal(got[k][:, r],
                                                   before[k][:, r])
-    assert flipped <= 1
     assert got["pos"].tolist() == [0, 10, 0]
     with pytest.raises(ValueError, match="recurrent state"):
         tm.prefill_chunk(tp, tc, torch.from_numpy(toks[:8]), 0, 8,

@@ -29,11 +29,15 @@ CPU, at reduced sizes (qwen2-1.5b and llama3.2-3b cut by ``reduced()``).
   (4, 2) decode plan); the train run is also given ``--stages 2``: its
   pipeline record equals repro's ``solve_pipeline`` on the same graph
   and axes, and it trains on the flat plan, as repro's does (its loss
-  is the planned engine step's, bit for bit).
+  is the planned engine step's, bit for bit); the dry run's meta trace
+  of that train step on a fake process group of 8 records rank 0's
+  collectives op for op.
 
 Measured drift (ratio = measured / predicted wire bytes, band [0.25,
-4]): the train step 1.77 (predicted 5,424,128 bytes, measured 9,608,840:
-26 all-gathers, 17 all-reduces, 8 reduce-scatters), in the band; the
+4]): the train step 1.63 (predicted 5,424,128 bytes, measured 8,858,680:
+26 all-gathers, 15 all-reduces, 8 reduce-scatters; 9,608,840 with 17
+all-reduces before the planned loss took its labels to the logits'
+placements and the embedding its token ids whole), in the band; the
 decode step 1.0 by the floor rule (predicted 0, measured 43,008 bytes of
 18 all-gathers, both under 256 kB).  On gloo DTensor runs a
 shard-to-shard all-to-all as an all-gather and a chunk, and the
@@ -492,10 +496,47 @@ def _rank_main(rank, world, path, train_plan, stages_rec, serve_json):
         _, m = eng.step(state, batch)
     out["train_ops"] = list(rec.ops)
     out["engine_loss"] = float(m["loss"])
+    out["seq_cut"] = _seq_cut_forwards(tmesh_)
     # one planned decode step through the serving launcher
     launch_serve.main(SERVE_ARGS + ["--json-out", serve_json])
     if rank == 0:
         torch.save(out, path)
+
+
+SEQ_CUT = {"data": "batch", "model": "seq"}
+
+
+def _seq_cut_forwards(mesh):
+    """The reduced llama3.2-3b (f32, 2 KV heads) forward on 8 x 16 tokens
+    under a plan that cuts ``x`` and ``logits`` on batch over data and
+    seq over model (llama3.2-3b prefill_32k's pod1 activations cut),
+    with and without autograd, and with no plan: the logits, whole, and
+    the attention fallbacks each planned forward counted."""
+    from repro_torch.core.plan import ShardingPlan
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    from repro_torch.models.sharding import (batch_placements, place,
+                                             place_tree)
+    cfg = dataclasses.replace(_train_cfg(), dtype="float32")
+    tokens = torch.from_numpy(host_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=16, global_batch=8), 3)["tokens"])
+    params = LM(cfg).init(0, device="cpu")
+    out = {}
+    with torch.no_grad():
+        out["plain"] = LM(cfg).forward(params, tokens)[0]
+    plan = ShardingPlan(("data", "model"), {"x": SEQ_CUT, "logits": SEQ_CUT})
+    model = LM(cfg, plan=plan, mesh=mesh)
+    placed = place_tree(params, mesh, plan)
+    tok = place(tokens, mesh, batch_placements(plan, mesh.mesh_dim_names,
+                                               "prefill"))
+    for grad in (False, True):
+        before = ops.plan_fallbacks["attention"]
+        with torch.set_grad_enabled(grad):
+            logits = model.forward(placed, tok)[0]
+        out[grad] = (logits.full_tensor().detach(),
+                     ops.plan_fallbacks["attention"] - before)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -559,6 +600,56 @@ def test_drift_of_a_train_and_a_decode_step(ranks):
     assert s["predicted_wire_bytes"] < ABS_FLOOR, s
     assert s["ratio"] == 1.0 and s["in_band"]
     assert ranks["serve"]["requests"] == 8
+
+
+def test_fake_group_trace_records_the_gloo_collectives(ranks):
+    """The dry run's trace of the same train step (``analysis/
+    cost_trace``: rank 0 of torch's fake process group of 8 in this
+    process, state and batch on meta shards) records the collectives that
+    rank 0 of the gloo run recorded: the same kinds, counts, per-device
+    result bytes and group sizes, op for op."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.analysis.cost_trace import trace_step
+    from repro_torch.launch.compile import plan_from_record
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        mesh = init_device_mesh("cpu", (4, 2),
+                                mesh_dim_names=("data", "model"))
+        cost = trace_step(_train_cfg(), ShapeConfig(*TRAIN_SHAPE),
+                          plan_from_record(ranks["train_plan"]), mesh)
+    finally:
+        dist.destroy_process_group()
+    gloo = comm.collect(ranks["train_ops"])
+    assert cost.ops == ranks["train_ops"]
+    assert cost.collectives.counts == gloo.counts
+    assert cost.collectives.result_bytes == gloo.result_bytes
+    assert cost.collectives.wire_bytes_per_device == \
+        gloo.wire_bytes_per_device
+    assert cost.flops > 0 and cost.hbm_bytes > 0
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_seq_cut_forward_is_the_unplanned_one(ranks, grad):
+    """The forward under a batch-over-data, seq-over-model cut of the
+    activations on the 8 gloo ranks: each of the 4 layers' attention
+    calls is a counted fallback (no local rule for a seq cut), which
+    keeps the batch cut and, without autograd, the queries' seq cut at
+    their offset (k and v gathered over model), with autograd gathers q
+    too; the logits are within u R max|logits| of the unplanned
+    forward's, u = 2^-24 and R = 4 x 496 + 128 = 2112 the reduction
+    lengths from the embedding to a logit (tests/test_torch_serve_plan.py's
+    derivation: d 64, hd 16, 16 positions, 4 heads, d_ff 128)."""
+    d = ranks["seq_cut"]
+    logits, fallbacks = d[grad]
+    plain = d["plain"]
+    assert fallbacks == 4
+    tol = 2.0 ** -24 * 2112 * float(plain.abs().max())
+    err = float((logits - plain).abs().max())
+    assert err <= tol, (err, tol)
 
 
 def test_stages_launcher_reports_repros_pipeline_plan(ranks):
