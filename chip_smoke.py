@@ -292,6 +292,18 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      finite and positive; the one-device cell's predicted FLOPs, peak
      bytes and modeled step are printed beside train_flops and 4b's
      measured peak and mean step, as ratios (not gated);
+  4w. conformance (repro_torch.verify; beside 4v): in a process of its own
+     on a world-1 NCCL group and the (1, 1) mesh, plans solved on the
+     verification mesh's axes: (a) the dense-train and gqa-prefill cells
+     at qwen2-1.5b's full width and depth, serial against planned at
+     LOSS_ATOL / LOGITS_ATOL; (b) repro's nine reduced cells the same
+     way, in one leg, each cell's gap printed and gated; (c)
+     serve-paged's one-device bit-equality leg for both families and
+     train-engine's 5-step trajectory; each leg's launches printed,
+     each leg launching what it must, all seven kernels together (the
+     forward at an offset counted apart), no plain call; beside it
+     ``python -m repro_torch.verify --device cpu`` (2 cells, 10 graphs)
+     on this machine's CPU, whose "pass" must be true;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch, the stream held by a spin kernel so the interval is device
      time; the forward and both decode kernels also without the hold,
@@ -5114,6 +5126,256 @@ def dryrun_cells(tag, ref_rec):
     return recs
 
 
+# 4w: conformance (repro_torch.verify).  The card legs run in a process of
+# their own (``verify_legs``, on a world-1 NCCL group with a (1, 1) mesh);
+# beside it, on the CPU, the CLI runs its 8 gloo ranks.  Plans are solved
+# on the verification mesh's axes (verify/calibration.verify_axes) at
+# beam VERIFY_BEAM: on the (1, 1) card mesh every cut is whole, so the
+# plan's search depth moves no number, and the full-width train graph's
+# solve at "auto" takes ~110 s on a CPU.
+VERIFY_TIMEOUT_S = 300
+VERIFY_BEAM = 32
+VERIFY_FULL = "qwen2-1.5b"
+VERIFY_CLI = ["--device", "cpu", "--cells", "dense-decode,xlstm-train",
+              "--fuzz", "10", "--json", "--out", ""]
+# the kernels each card leg must launch (a forward at an offset counted
+# apart, "fwd@offset"); (b)'s nine cells are one leg: on the (1, 1) mesh
+# every cut is whole, so serial and planned run the same kernels and each
+# cell's gap is printed and gated, its launches summed with the others'
+VERIFY_FULL_WANT = ("flash_fwd",)
+VERIFY_CELLS_WANT = ("flash_fwd", "flash_decode", "ssd_chunk_scan")
+VERIFY_PAGED_WANT = ("flash_fwd", "fwd@offset", "flash_decode",
+                     "flash_paged_decode")
+VERIFY_TRAIN_WANT = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def verify_legs(out_path):
+    """Phase 4w's card legs, in a process of their own (see
+    ``verify_cells``); writes {leg: record} to ``out_path``.  Each leg's
+    record carries the launches of each kernel by the port's counters
+    (reset before the leg), the forward's launches at an offset
+    ("fwd@offset") and the plain versions' calls."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.builders import build_graph
+    from repro_torch.core.plan import ShardingPlan
+    from repro_torch.core.solver import solve_mesh
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.launch.mesh import free_port, init_distributed, make_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.engine import EngineConfig, TrainEngine
+    from repro_torch.verify import cells, numerics, serve_paged_cell
+    from repro_torch.verify import train_cell
+    from repro_torch.verify.calibration import verify_axes
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: phase 4w needs a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    build.load_library()
+    dev = torch.device("cuda", 0)
+    init_distributed("cuda", 0, 1, free_port())
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+
+    def plan_for(cfg, shape, **kw):
+        g = build_graph(cfg, shape, **kw)
+        sol = solve_mesh(g, verify_axes(), beam=VERIFY_BEAM)
+        return ShardingPlan.from_graph_solution(sol, g)
+
+    legs = {}
+
+    def leg(name, fn):
+        fa.reset_launches()
+        ssd.reset_launches()
+        ops.reset_plain_calls()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = fn()
+        torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - t0
+        launches = {**fa.launches, **ssd.launches,
+                    "fwd@offset": fa.offset_launches["flash_fwd"]}
+        rec["launches"] = {k: v for k, v in launches.items() if v}
+        rec["plain_calls"] = {k: v for k, v in ops.plain_calls.items() if v}
+        legs[name] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) qwen2-1.5b at full width and depth, at the two cells' shapes
+    full = get_arch(VERIFY_FULL)
+    for cname in ("dense-train", "gqa-prefill"):
+        shape = cells.get_cells([cname])[0].shape()
+        leg(f"a {cname}", lambda shape=shape: numerics.run_numerics(
+            full, shape, plan_for(full, shape), mesh))
+    # (b) the nine reduced cells, one leg
+    def reduced_cells():
+        recs = {spec.name: numerics.run_numerics(
+            spec.cfg(), spec.shape(), plan_for(spec.cfg(), spec.shape()),
+            mesh) for spec in cells.CELLS}
+        return dict(cells=recs, ok=all(r["ok"] for r in recs.values()))
+    leg("b cells", reduced_cells)
+    # (c) serve-paged's one-device bit-equality leg, both families, and
+    # train-engine's trajectory leg at (1, 1)
+    for arch in serve_paged_cell.FAMILIES:
+        leg(f"c serve-paged {arch}",
+            lambda arch=arch: serve_paged_cell.bit_equal_leg(arch, dev))
+
+    def trajectory():
+        cfg = get_arch(train_cell.TRAIN_ARCH).reduced()
+        shape = ShapeConfig("conf_train_engine", train_cell.SEQ,
+                            train_cell.BATCH, "train")
+        plan = plan_for(cfg, shape, master_fp32=True)
+        ecfg = EngineConfig(optim=AdamWConfig(lr=2e-3, warmup_steps=2,
+                                              total_steps=1000))
+        ref, sh, _, _ = train_cell.trajectory(
+            TrainEngine(LM(cfg), ecfg, device=dev),
+            TrainEngine(LM(cfg, plan=plan, mesh=mesh), ecfg, device=dev,
+                        mesh=mesh),
+            DataConfig(seed=0, vocab=cfg.vocab, seq_len=train_cell.SEQ,
+                       global_batch=train_cell.BATCH), train_cell.STEPS)
+        d = max(abs(a - b) for a, b in zip(ref, sh))
+        return dict(ref_losses=ref, sharded_losses=sh, max_abs_dloss=d,
+                    tol=train_cell.TRAIN_LOSS_ATOL,
+                    ok=bool(d < train_cell.TRAIN_LOSS_ATOL))
+    leg("c train-engine", trajectory)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(legs, indent=1, default=str))
+
+
+def _verify_gap(rec):
+    """A numerics record's gap and band, as printed."""
+    err = rec.get("abs_err", rec.get("max_abs_err"))
+    return f"{err:.4e} (tol {rec['tol']}{'' if rec['ok'] else ', FAILED'})"
+
+
+def start_verify():
+    """Start phase 4w's two processes (``verify_cells``), to run beside
+    phase 4v's dry run, which needs neither the card nor more than one
+    core: the card legs (``verify_legs``) and ``python -m
+    repro_torch.verify`` with VERIFY_CLI on 8 gloo ranks on this
+    machine's CPU (the CLI imports no JAX).  Each writes its output to a
+    file; both are killed at exit if still running."""
+    import atexit
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="verify4w-"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)] + [p for p in [
+            os.environ.get("PYTHONPATH")] if p]))
+    jobs = dict(tmp=tmp, t0=time.perf_counter())
+    for name, cmd in (
+            ("cli", ["-m", "repro_torch.verify", *VERIFY_CLI]),
+            ("legs", ["-c", "import chip_smoke; chip_smoke.verify_legs("
+                      f"{str(tmp / 'legs.json')!r})"])):
+        jobs[name] = subprocess.Popen(
+            [sys.executable, *cmd], env=env, cwd=str(ROOT),
+            stdout=open(tmp / f"{name}.out", "w"),
+            stderr=open(tmp / f"{name}.err", "w"), text=True)
+        atexit.register(jobs[name].kill)
+    return jobs
+
+
+def verify_cells(tag, jobs):
+    """Phase 4w: the conformance cells (repro_torch.verify) on the card, in
+    a process of its own (``verify_legs``), while ``python -m
+    repro_torch.verify`` with VERIFY_CLI runs its 8 gloo ranks on this
+    machine's CPU; both started by ``start_verify`` and done within
+    VERIFY_TIMEOUT_S of it.  The
+    legs: (a) the dense-train and gqa-prefill cells at VERIFY_FULL's full
+    width and depth, serial against planned on the (1, 1) mesh, at
+    LOSS_ATOL / LOGITS_ATOL; (b) the nine reduced cells' numerics the same
+    way, one leg; (c) serve-paged's one-device bit-equality leg for both
+    families and train-engine's trajectory leg.  Every leg's gate (and
+    each of (b)'s cells') must hold, no plain call may run, each leg must
+    launch what VERIFY_FULL_WANT / VERIFY_CELLS_WANT / VERIFY_PAGED_WANT /
+    VERIFY_TRAIN_WANT says, and the legs together all
+    seven kernels (the forward at an offset and not); the CLI's "pass"
+    must be true.  Returns (the record, the launches summed over the
+    legs)."""
+    tmp, t0 = jobs["tmp"], jobs["t0"]
+    done = {}
+    for name in ("legs", "cli"):
+        left = VERIFY_TIMEOUT_S - (time.perf_counter() - t0)
+        try:
+            jobs[name].wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            fail(f"phase 4w: over {VERIFY_TIMEOUT_S} s")
+        done[name] = time.perf_counter() - t0
+    legs_s, cli_s = done["legs"], done["cli"]
+    cli_out = (tmp / "cli.out").read_text()
+    cli_err = (tmp / "cli.err").read_text()
+    cli = jobs["cli"]
+    if jobs["legs"].returncode != 0:
+        fail(f"phase 4w card legs: exit {jobs['legs'].returncode}: "
+             f"{(tmp / 'legs.err').read_text()[-3000:]}")
+    out = tmp / "legs.json"
+    legs = json.loads(out.read_text())
+    bad = []
+    for name, rec in legs.items():
+        kind = name.split(" ")[0]
+        if kind == "c" and "serve-paged" in name:
+            want, ok = VERIFY_PAGED_WANT, rec["bit_equal"]
+            gap = (f"bit_equal {rec['bit_equal']}, dispatches "
+                   f"{rec['decode_dispatches']}, re-scores "
+                   f"{rec['verify_dispatches']}")
+        elif kind == "c":
+            want, ok = VERIFY_TRAIN_WANT, rec["ok"]
+            gap = (f"max |dloss| {rec['max_abs_dloss']:.3e} over "
+                   f"{len(rec['ref_losses'])} steps (tol {rec['tol']})")
+        elif kind == "b":
+            want, ok = VERIFY_CELLS_WANT, rec["ok"]
+            gap = "gaps " + ", ".join(
+                f"{c} {_verify_gap(r)}" for c, r in rec["cells"].items())
+        else:
+            want, ok = VERIFY_FULL_WANT, rec["ok"]
+            gap = f"gap {_verify_gap(rec)}"
+        missing = [k for k in want if not rec["launches"].get(k)]
+        print(f"4w {name}: {gap}; launches {rec['launches']}; "
+              f"{rec['seconds']:.1f} s {tag}")
+        if not ok or missing or rec["plain_calls"]:
+            bad.append(f"{name}: ok {ok}, missing launches {missing}, "
+                       f"plain calls {rec['plain_calls']}")
+    launches = {}
+    for rec in legs.values():
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    seven = ("flash_fwd", "fwd@offset", "flash_decode", "flash_paged_decode",
+             "flash_bwd_dq", "flash_bwd_dkv", "ssd_chunk_scan")
+    print(f"4w launches over the legs: {launches} (the card legs done "
+          f"{legs_s:.1f} s after their start) {tag}")
+    if any(not launches.get(k) for k in seven):
+        bad.append(f"the legs together launch {launches}, want all of "
+                   f"{seven}")
+    try:
+        report = json.loads(cli_out)
+    except json.JSONDecodeError:
+        report = {"pass": False}
+    if "cells" in report:
+        print(f"4w verify CLI (--device cpu, 8 gloo ranks): exit "
+              f"{cli.returncode}, pass {report['pass']}, cells "
+              f"{[(c['cell'], c['status']) for c in report['cells']]}, "
+              f"fuzz {report['fuzz']['n']} graphs ok {report['fuzz']['ok']}"
+              f" {report['fuzz']['failures'][:2]}, done {cli_s:.1f} s "
+              f"after its start")
+    if cli.returncode != 0 or report["pass"] is not True:
+        # the ranks' lines without torch's warnings
+        err = [ln for ln in cli_err.splitlines()
+               if "]:W" not in ln and "Warning" not in ln
+               and not ln.startswith("[W")]
+        bad.append(f"verify CLI: exit {cli.returncode}, pass "
+                   f"{report['pass']}: " + "\n".join(err[-30:]))
+    if bad:
+        fail("phase 4w: " + "; ".join(bad))
+    launches.pop("fwd@offset")
+    return dict(legs=legs, cli=report, legs_s=legs_s, cli_s=cli_s), launches
+
+
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
@@ -5249,9 +5511,18 @@ def main() -> int:
     print(f"phase 4u done at {time.perf_counter() - t_start:.1f}s")
     # 4v. the dry run in a process of its own: a production cell on the
     # fake (16, 16) mesh, and 4b's cell on one device beside 4b's numbers
+    # 4w. conformance: the cells' numerics on the card in a process of
+    # their own, the verify CLI on this machine's CPU beside it; both
+    # start with 4v
     t_4v = time.perf_counter()
+    verify_jobs = start_verify()
     dry = dryrun_cells(tag, train_rec)
-    print(f"phase 4v: {time.perf_counter() - t_4v:.1f} s; done at "
+    print(f"phase 4v: {time.perf_counter() - t_4v:.1f} s (4w beside it); "
+          f"done at {time.perf_counter() - t_start:.1f}s")
+    t_4w = time.perf_counter()
+    verify_rec, verify_launches = verify_cells(tag, verify_jobs)
+    phase_4w_s = time.perf_counter() - t_4w
+    print(f"phase 4w: {phase_4w_s:.1f} s after 4v; done at "
           f"{time.perf_counter() - t_start:.1f}s")
     if args.profile:
         train_rec["profile"] = profile_train(dev, tag)
@@ -5500,7 +5771,8 @@ def main() -> int:
             iv_plan_serve_launches, iv_train_launches,
             iv_plan_train_launches, pipe_launches,
             obs_serve["linear"]["launches"], obs_serve["paged"]["launches"],
-            obs_serve["poisson"]["launches"], obs_train_launches)
+            obs_serve["poisson"]["launches"], obs_train_launches,
+            verify_launches)
     runs120 = (danube_launches, danube_plan_launches, danube_train_launches)
     kernels = []
     for k, hd120 in [(k, False) for k in replaces] + [
@@ -5548,7 +5820,8 @@ def main() -> int:
             internvl_plan_train=iv_plan_train,
             reduced_stub_card_vs_cpu=stub_reduced, pipeline_s1=pipe_rec,
             observed_serve=obs_serve, observed_train=obs_train,
-            phase_4u_s=phase_4u_s, dryrun=dry,
+            phase_4u_s=phase_4u_s, dryrun=dry, verify=verify_rec,
+            phase_4w_s=phase_4w_s,
             phase_stub_s=phase_stub_s, kernels=kernels), indent=1,
             default=str))
     print(smi)

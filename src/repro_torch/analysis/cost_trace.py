@@ -212,27 +212,39 @@ def _placed(like: Tree, placements: Tree, mesh) -> Tree:
             for k, v in like.items()}
 
 
-def build_step(cfg, shape, plan, mesh, microbatches: int = 1):
+def build_step(cfg, shape, plan, mesh, microbatches: int = 1,
+               device="meta"):
     """(step, state, inputs): the cell's step as a function of (state,
     inputs), with its state and inputs as meta DTensors under ``plan`` on
-    ``mesh`` (``plan`` None: plain meta tensors, one device)."""
+    ``mesh`` (``plan`` None: plain meta tensors, one device).  With a
+    real ``device`` (``verify/calibration`` runs the step): the params
+    and optimizer state from ``init(0)``, the cache and the inputs zeros,
+    on that device, placed the same way."""
     from ..launch.compile import input_specs, normalize_moe_plan
     from ..models.model import LM
     from ..models.sharding import (CACHE_RULES, batch_placements,
-                                   tree_placements, zeros_placed)
+                                   place_tree, tree_placements, zeros_placed,
+                                   zeros_tree)
+    real = torch.device(device).type != "meta"
     ins = input_specs(cfg, shape)
+    if real:
+        ins = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+               for k, v in ins.items()}
     if shape.kind == "train":
         from ..runtime.train_loop import TrainConfig, make_engine
         eng = make_engine(LM(cfg), TrainConfig(microbatches=microbatches),
-                          device="meta", mesh=mesh, plan=plan)
-        like = eng.state_like()
+                          device=device, mesh=mesh, plan=plan)
+        if real:
+            state = eng.init_state(0)
+        elif plan is None:
+            state = eng.state_like()
+        else:
+            state = _placed(eng.state_like(), eng.state_placements(), mesh)
         if plan is None:
-            state = like
             batch = ins
         else:
-            state = _placed(like, eng.state_placements(), mesh)
             bp = eng.batch_placements()
-            batch = {k: zeros_placed(v.shape, v.dtype, mesh, bp[k], "meta")
+            batch = {k: zeros_placed(v.shape, v.dtype, mesh, bp[k], device)
                      for k, v in ins.items()}
 
         def train_step(state, batch):
@@ -247,15 +259,26 @@ def build_step(cfg, shape, plan, mesh, microbatches: int = 1):
         return {k: meta_tree(v) if isinstance(v, dict)
                 else torch.empty(v[0], dtype=v[1], device="meta")
                 for k, v in shapes.items()}
-    like = meta_tree(model.param_shapes())
     names = None if plan is None else mesh.mesh_dim_names
-    params = like if plan is None else _placed(
-        like, tree_placements(plan, like, names), mesh)
+    if real:
+        params = model.init(0, device=device)
+        if plan is not None:
+            params = place_tree(params, mesh, plan)
+    else:
+        like = meta_tree(model.param_shapes())
+        params = like if plan is None else _placed(
+            like, tree_placements(plan, like, names), mesh)
     if shape.kind == "decode":
         cshapes = model.cache_shapes(shape.global_batch, shape.seq_len)
-        clike = meta_tree(cshapes)
-        cache = clike if plan is None else _placed(
-            clike, tree_placements(plan, clike, names, CACHE_RULES), mesh)
+        if real:
+            cache = (model.init_cache(shape.global_batch, shape.seq_len,
+                                      device=device) if plan is None else
+                     zeros_tree(cshapes, mesh, plan, CACHE_RULES, device))
+        else:
+            clike = meta_tree(cshapes)
+            cache = clike if plan is None else _placed(
+                clike, tree_placements(plan, clike, names, CACHE_RULES),
+                mesh)
 
         def decode_step(state, inputs):
             logits, _ = model.decode_step(state["params"], state["cache"],
@@ -264,7 +287,7 @@ def build_step(cfg, shape, plan, mesh, microbatches: int = 1):
         return decode_step, {"params": params, "cache": cache}, ins
     if plan is not None:
         bp = batch_placements(plan, names, "prefill")
-        ins = {k: zeros_placed(v.shape, v.dtype, mesh, bp, "meta")
+        ins = {k: zeros_placed(v.shape, v.dtype, mesh, bp, device)
                for k, v in ins.items()}
 
     def prefill_step(state, inputs):

@@ -28,11 +28,15 @@ launches: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_f32": 0,
                              "flash_decode": 0, "flash_paged_decode": 0,
                              "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                              "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
+# of the forward's launches, those given a q_offset (serving's prefill
+# chunks at a cache offset), per forward kernel
+offset_launches: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_f32": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, offset_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
@@ -135,6 +139,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     code = getattr(lib, "repro_" + name)(*args, stream)
     _raise_on(code, lib, name)
     launches[name] += 1
+    if q_offset is not None:
+        offset_launches[name] += 1
     return o, lse
 
 

@@ -46,6 +46,7 @@ from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from ..kernels.ssd import pad_seq, ssd_scan
 from .common import rms_norm
+from .sharding import matmul
 
 SSD_IMPLS = ("auto", "kernel", "chunked")
 
@@ -124,15 +125,16 @@ def mamba_forward(params, x: torch.Tensor, cfg: ArchConfig, plan=None, *,
     per-row work between the projections runs on the local batch rows
     (``_mixer_sharded``)."""
     from .common import shard
-    zx = shard(x @ params["w_in"], plan, "ssm_h", ("batch", "seq", "inner"))
-    bcdt = x @ params["w_bcdt"]
+    zx = shard(matmul(x, params["w_in"]), plan, "ssm_h",
+               ("batch", "seq", "inner"))
+    bcdt = matmul(x, params["w_bcdt"])
     small = tuple(params[k] for k in _MIXER_PARAMS)
     if plan is None or mesh is None:
         y = _mixer(cfg, impl, x.dtype, zx, bcdt, *small)
     else:
         y = _mixer_sharded(cfg, impl, x.dtype, _inner_whole(zx, 2), bcdt,
                            small, plan, mesh)
-    return y @ params["w_out"]
+    return matmul(y, params["w_out"])
 
 
 _MIXER_PARAMS = ("conv_w", "dt_bias", "A_log", "D", "norm")

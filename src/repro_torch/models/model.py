@@ -80,7 +80,7 @@ from .attention import (attend_cache, attend_cache_sharded, attend_paged,
                         prefill_attention_sharded, rescore_sharded)
 from .common import (dense_init, embed_init, local, resolve_device, rms_norm,
                      rope, shard, softmax_cross_entropy, whole)
-from .sharding import global_offset
+from .sharding import global_offset, lookup, matmul
 from .mamba import (SSD_IMPLS, mamba_forward, mamba_shapes,
                     mamba_state_shapes, mamba_step)
 from .xlstm import (mlstm_forward, mlstm_shapes, mlstm_state_shapes,
@@ -240,8 +240,8 @@ def _zeros(shapes: Cache, dev: torch.device) -> Cache:
 
 
 def _mlp_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
-    g = F.silu((x @ p["wg"]).float()).to(x.dtype)
-    return (g * (x @ p["wu"])) @ p["wd"]
+    g = F.silu(matmul(x, p["wg"]).float()).to(x.dtype)
+    return matmul(g * matmul(x, p["wu"]), p["wd"])
 
 
 @dataclasses.dataclass
@@ -401,7 +401,7 @@ class LM:
         embeds that come as a plain tensor (the same on every rank) are
         placed under the batch placements first, d_model whole."""
         if embeds is None:
-            x = params["embed"][_unstacked(tokens)]
+            x = lookup(params["embed"], _unstacked(tokens))
         else:
             if self.plan is not None:
                 from torch.distributed.tensor import DTensor
@@ -419,10 +419,10 @@ class LM:
              else params["lm_head"])
         dims = {1: ("vocab",), 2: ("batch", "vocab"),
                 3: ("batch", "seq", "vocab")}[x.ndim]
-        return self._shard(x @ w, "logits", dims)
+        return self._shard(matmul(x, w), "logits", dims)
 
     def _qkv(self, p: Params, x: torch.Tensor):
-        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+        q, k, v = (matmul(x, p[w]) for w in ("wq", "wk", "wv"))
         if self.cfg.qkv_bias:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
         return q, k, v
@@ -472,8 +472,8 @@ class LM:
         v = v.reshape(b, s, kvh, hd)
         attend = attention if self.plan is None else attention_sharded
         o = attend(q, k, v, causal=True, window=cfg.swa_window)
-        x = self._shard(x + o.reshape(b, s, h * hd) @ p["attn"]["wo"], "x",
-                        bsd)
+        x = self._shard(x + matmul(o.reshape(b, s, h * hd), p["attn"]["wo"]),
+                        "x", bsd)
         xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bsd)
         y, aux = self._ffn(p, xn, train=True)
         return self._shard(x + y, "x", bsd), aux
@@ -1003,7 +1003,8 @@ class LM:
             k = rope(k.reshape(1, c, kvh, hd), positions, cfg.rope_theta)
             v = v.reshape(1, c, kvh, hd)
             o = attend(li, q, k, v)
-            x = self._shard(x + o.reshape(1, c, h * hd) @ pa["wo"], "x", bsd)
+            x = self._shard(x + matmul(o.reshape(1, c, h * hd), pa["wo"]),
+                            "x", bsd)
             xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bsd)
             x = self._shard(x + self._ffn(p, xn)[0], "x", bsd)
         # only the last valid row's logits are returned, so only that row

@@ -42,6 +42,7 @@ from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from ..kernels.ssd import ssd_scan
 from .common import rms_norm
+from .sharding import matmul
 
 
 def _mlstm_dims(cfg: ArchConfig):
@@ -135,14 +136,14 @@ def _mlstm_mix(cfg: ArchConfig, dtype: torch.dtype, proj: torch.Tensor,
 def mlstm_forward(params, x: torch.Tensor, cfg: ArchConfig, plan=None,
                   mesh=None) -> torch.Tensor:
     """x [B, S, D] -> [B, S, D] (the chunkwise-parallel training path)."""
-    proj = x @ params["w_in"]
+    proj = matmul(x, params["w_in"])
     if plan is None or mesh is None:
         y = _mlstm_mix(cfg, x.dtype, proj, params["norm"])
     else:
         from .sharding import rows_region
         y = rows_region(lambda p, n: _mlstm_mix(cfg, x.dtype, p, n),
                         (_gathered(proj, 2),), (params["norm"],), plan, mesh)
-    return y @ params["w_out"]
+    return matmul(y, params["w_out"])
 
 
 def _mlstm_update(cfg: ArchConfig, proj: torch.Tensor,
@@ -228,14 +229,14 @@ def _slstm_scan(cfg: ArchConfig, xg: torch.Tensor,
 def _up_down(params, y: torch.Tensor) -> torch.Tensor:
     """The sLSTM block's position-wise projection (proj factor 4/3, tanh
     GeLU in f32, as jax.nn.gelu's default)."""
-    u = F.gelu((y @ params["w_up"]).float(), approximate="tanh")
-    return u.to(y.dtype) @ params["w_down"]
+    u = F.gelu(matmul(y, params["w_up"]).float(), approximate="tanh")
+    return matmul(u.to(y.dtype), params["w_down"])
 
 
 def slstm_forward(params, x: torch.Tensor, cfg: ArchConfig, plan=None,
                   mesh=None) -> torch.Tensor:
     """x [B, S, D] -> [B, S, D] (the sequential scan over time)."""
-    xg = x @ params["w_gates"]
+    xg = matmul(x, params["w_gates"])
     if plan is None or mesh is None:
         hs = _slstm_scan(cfg, xg, params["r_gates"])
     else:

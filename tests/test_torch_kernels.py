@@ -302,6 +302,7 @@ def test_cpu_tensors_take_the_plain_path():
                            "flash_decode": 0, "flash_paged_decode": 0,
                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                            "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
+    assert fa.offset_launches == {"flash_fwd": 0, "flash_fwd_f32": 0}
     assert ops.plain_calls == {"flash_attention_fwd_ref": 1,
                                "flash_attention_bwd_ref": 0,
                                "flash_attention_decode_ref": 1,
@@ -337,6 +338,11 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "ssd_ablation.py"]
     assert len(files) > 10
+    verify = {f.name for f in files if f.parent.name == "verify"}
+    assert {"__init__.py", "__main__.py", "calibration.py", "cells.py",
+            "compute_cell.py", "executor.py", "fuzz.py", "numerics.py",
+            "pipeline_cell.py", "serve_cell.py", "serve_paged_cell.py",
+            "train_cell.py"} <= verify
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad

@@ -34,10 +34,12 @@ CPU, at reduced sizes (qwen2-1.5b and llama3.2-3b cut by ``reduced()``).
   collectives op for op.
 
 Measured drift (ratio = measured / predicted wire bytes, band [0.25,
-4]): the train step 1.63 (predicted 5,424,128 bytes, measured 8,858,680:
-26 all-gathers, 15 all-reduces, 8 reduce-scatters; 9,608,840 with 17
-all-reduces before the planned loss took its labels to the logits'
-placements and the embedding its token ids whole), in the band; the
+4]): the train step 1.63 (predicted 5,424,128 bytes, measured 8,844,856:
+26 all-gathers, 12 all-reduces, 8 reduce-scatters; 8,858,680 with 15
+all-reduces before the grad sync reduced a grad pending over both mesh
+dims in one all-reduce, 9,608,840 with 17 before the planned loss took
+its labels to the logits' placements and the embedding its token ids
+whole), in the band; the
 decode step 1.0 by the floor rule (predicted 0, measured 43,008 bytes of
 18 all-gathers, both under 256 kB).  On gloo DTensor runs a
 shard-to-shard all-to-all as an all-gather and a chunk, and the
