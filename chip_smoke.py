@@ -299,11 +299,19 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      LOSS_ATOL / LOGITS_ATOL; (b) repro's nine reduced cells the same
      way, in one leg, each cell's gap printed and gated; (c)
      serve-paged's one-device bit-equality leg for both families and
-     train-engine's 5-step trajectory; each leg's launches printed,
-     each leg launching what it must, all seven kernels together (the
-     forward at an offset counted apart), no plain call; beside it
-     ``python -m repro_torch.verify --device cpu`` (2 cells, 10 graphs)
-     on this machine's CPU, whose "pass" must be true;
+     train-engine's 5-step trajectory; (d) the trace frontend: (a)'s
+     qwen2-1.5b weights, its ``LM.forward`` at 4 x 1024 captured on meta
+     tensors (the kernel counters left as they were), solved on the
+     verification axes at beam 1024 and run by ``autoshard`` on the
+     (1, 1) card mesh (flash_fwd exactly 28 launches, the logits within
+     LOGITS_ATOL of the unplanned forward, bit-equality printed), and the
+     MLP fixture's ``autoshard`` within the fuzz band; each leg's
+     launches printed, each leg launching what it must, all seven kernels
+     together (the forward at an offset counted apart), no plain call;
+     beside it ``python -m repro_torch.verify --device cpu`` (2 cells, 10
+     graphs, with the fuzz's trace and autoshard legs) on this machine's
+     CPU, whose "pass" must be true and whose fuzz must count trace round
+     trips;
   5. times: each kernel's time (CUDA events, L2 flushed before every
      launch, the stream held by a spin kernel so the interval is device
      time; the forward and both decode kernels also without the hold,
@@ -5147,6 +5155,11 @@ VERIFY_CELLS_WANT = ("flash_fwd", "flash_decode", "ssd_chunk_scan")
 VERIFY_PAGED_WANT = ("flash_fwd", "fwd@offset", "flash_decode",
                      "flash_paged_decode")
 VERIFY_TRAIN_WANT = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# leg (d): the trace frontend on qwen2-1.5b's forward at this shape
+# (one flash_fwd launch a layer, 28 layers), captured and solved at
+# trace_cell.TRACE_BEAM
+VERIFY_TRACE_SHAPE = (4, 1024)
+VERIFY_TRACE_WANT = ("flash_fwd",)
 
 
 def verify_legs(out_path):
@@ -5208,10 +5221,11 @@ def verify_legs(out_path):
 
     # (a) qwen2-1.5b at full width and depth, at the two cells' shapes
     full = get_arch(VERIFY_FULL)
+    full_params = LM(full).init(0, device=dev)
     for cname in ("dense-train", "gqa-prefill"):
         shape = cells.get_cells([cname])[0].shape()
         leg(f"a {cname}", lambda shape=shape: numerics.run_numerics(
-            full, shape, plan_for(full, shape), mesh))
+            full, shape, plan_for(full, shape), mesh, params=full_params))
     # (b) the nine reduced cells, one leg
     def reduced_cells():
         recs = {spec.name: numerics.run_numerics(
@@ -5243,9 +5257,75 @@ def verify_legs(out_path):
                     tol=train_cell.TRAIN_LOSS_ATOL,
                     ok=bool(d < train_cell.TRAIN_LOSS_ATOL))
     leg("c train-engine", trajectory)
+    leg("d trace", lambda: trace_leg(full, full_params, mesh, dev))
+    del full_params
     import torch.distributed as dist
     dist.destroy_process_group()
     Path(out_path).write_text(json.dumps(legs, indent=1, default=str))
+
+
+def trace_leg(cfg, params, mesh, dev):
+    """4w's leg (d): ``cfg``'s ``LM.forward`` at VERIFY_TRACE_SHAPE
+    captured on meta tensors (``trace_cell.capture_forward``: no storage,
+    the kernel counters as they were), solved on the verification axes at
+    the trace cell's beam, and run by ``autoshard`` on ``mesh`` with
+    ``params``, against the unplanned forward; then the MLP fixture's
+    ``autoshard`` against its serial function."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    from repro_torch.trace import autoshard
+    from repro_torch.trace.demo import mlp_fixture
+    from repro_torch.verify import numerics, trace_cell
+    from repro_torch.verify.calibration import verify_axes
+    from repro_torch.verify.fuzz import EXEC_ATOL
+
+    b, s = VERIFY_TRACE_SHAPE
+    model = LM(cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, s))).to(dev)
+
+    def fwd(p, t):
+        return model.forward(p, t)[0]
+    counters = [dict(c) for c in (ops.plain_calls, ops.bwd_recomputes,
+                                  ops.plan_fallbacks, ops.all_to_all)]
+    t0 = time.perf_counter()
+    traced = trace_cell.capture_forward(cfg, b, s, params=params)
+    capture_s = time.perf_counter() - t0
+    kept = counters == [dict(c) for c in (
+        ops.plain_calls, ops.bwd_recomputes, ops.plan_fallbacks,
+        ops.all_to_all)]
+    t0 = time.perf_counter()
+    ash = autoshard(fwd, mesh, params, toks, weight_argnums=(0,),
+                    axes=verify_axes(), beam=trace_cell.TRACE_BEAM,
+                    traced=traced)
+    solve_s = time.perf_counter() - t0
+    g = traced.graph
+    repeats = sorted({op.repeat for op in g.ops})
+    before = fa.launches["flash_fwd"]
+    with torch.no_grad():
+        got = ash(params, toks).full_tensor()
+        torch.cuda.synchronize()
+        auto_launches = fa.launches["flash_fwd"] - before
+        ref = fwd(params, toks)
+    gap = float((got.float() - ref.float()).abs().max())
+    bit = bool(torch.equal(got, ref))
+    del got, ref
+    mlp, args, wn = mlp_fixture(device=dev)
+    ash_mlp = autoshard(mlp, mesh, *args, weight_argnums=wn, name="mlp")
+    with torch.no_grad():
+        want = mlp(*args)
+        mlp_err = float((ash_mlp(*args).full_tensor() - want).abs().max())
+    mlp_tol = EXEC_ATOL * max(1.0, float(want.abs().max()))
+    ok = (kept and auto_launches == cfg.n_layers
+          and gap <= numerics.LOGITS_ATOL and mlp_err <= mlp_tol)
+    return dict(ops=len(g.ops), tensors=len(g.tensors), repeats=repeats,
+                folds=traced.folds, unknown=traced.unknown_primitives,
+                capture_s=capture_s, solve_s=solve_s,
+                predicted_bytes=ash.predicted_bytes,
+                counters_kept=kept, autoshard_flash_fwd=auto_launches,
+                max_abs_err=gap, bit_equal=bit, tol=numerics.LOGITS_ATOL,
+                mlp_max_abs_err=mlp_err, mlp_tol=mlp_tol, ok=bool(ok))
 
 
 def _verify_gap(rec):
@@ -5328,6 +5408,17 @@ def verify_cells(tag, jobs):
             want, ok = VERIFY_TRAIN_WANT, rec["ok"]
             gap = (f"max |dloss| {rec['max_abs_dloss']:.3e} over "
                    f"{len(rec['ref_losses'])} steps (tol {rec['tol']})")
+        elif kind == "d":
+            want, ok = VERIFY_TRACE_WANT, rec["ok"]
+            gap = (f"{rec['ops']} ops (repeats {rec['repeats']}, folds "
+                   f"{rec['folds']}), capture {rec['capture_s']:.1f} s, "
+                   f"solve {rec['solve_s']:.1f} s, predicted "
+                   f"{rec['predicted_bytes']:.4g} B; counters kept "
+                   f"{rec['counters_kept']}; autoshard flash_fwd "
+                   f"{rec['autoshard_flash_fwd']} (one a layer); logits gap "
+                   f"{_verify_gap(rec)}, bit-equal {rec['bit_equal']}; MLP "
+                   f"{rec['mlp_max_abs_err']:.3e} (tol "
+                   f"{rec['mlp_tol']:.3e})")
         elif kind == "b":
             want, ok = VERIFY_CELLS_WANT, rec["ok"]
             gap = "gaps " + ", ".join(
@@ -5363,6 +5454,12 @@ def verify_cells(tag, jobs):
               f"fuzz {report['fuzz']['n']} graphs ok {report['fuzz']['ok']}"
               f" {report['fuzz']['failures'][:2]}, done {cli_s:.1f} s "
               f"after its start")
+    if "fuzz" in report:
+        print(f"4w verify CLI fuzz: trace round trips "
+              f"{report['fuzz']['trace_checked']}, autoshard runs "
+              f"{report['fuzz']['trace_exec_checked']}")
+        if not report["fuzz"]["trace_checked"] > 0:
+            bad.append("verify CLI: the fuzz ran no trace round trip")
     if cli.returncode != 0 or report["pass"] is not True:
         # the ranks' lines without torch's warnings
         err = [ln for ln in cli_err.splitlines()

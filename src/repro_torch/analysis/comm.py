@@ -28,6 +28,12 @@ result bytes):
     all-to-all          s·(g-1)/g
     collective-permute  s
 
+Each recorded collective also keeps where it came from
+(:func:`call_site`): the innermost line of the port outside this module,
+and, for a DTensor redistribute, its source and target placements.
+``CollectiveStats.by_site`` sums the collectives by that site, so a
+cell's report says which line issues which bytes.
+
 Summing per-device wire bytes over the n devices of an SPMD step gives
 the system-wide total that the solver's ``solution_breakdown`` predicts
 (``obs/drift.record_drift`` multiplies this rank's by n).  torch is
@@ -36,7 +42,7 @@ imported only inside :func:`record`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
@@ -49,6 +55,9 @@ class CollectiveStats:
     wire_by_kind: Dict[str, float]      # per-device ring wire bytes by kind
     wire_bytes_per_device: float        # total ring-model wire bytes
     naive_operand_bytes: float          # "sum result sizes" (spec formula)
+    # per call site (``call_site``), largest first: {"site", "kind",
+    # "count", "wire_bytes"} (per device); empty unless sites were kept
+    by_site: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
     def total(self) -> float:
         return self.wire_bytes_per_device
@@ -72,9 +81,11 @@ def ring_wire_bytes(kind: str, s: float, g: int) -> float:
     raise ValueError(kind)
 
 
-def collect(ops: List[Tuple[str, float, int]]) -> CollectiveStats:
+def collect(ops: List[Tuple[str, float, int]],
+            sites: Sequence[str] = ()) -> CollectiveStats:
     """Stats of recorded (kind, per-device result bytes, group size)
-    triples, the fields of repro's ``hlo.collect``."""
+    triples, the fields of repro's ``hlo.collect``; ``sites`` (one a
+    triple, from :func:`call_site`) adds ``by_site``."""
     counts: Dict[str, int] = {}
     res_bytes: Dict[str, float] = {}
     wire_by_kind: Dict[str, float] = {}
@@ -85,8 +96,46 @@ def collect(ops: List[Tuple[str, float, int]]) -> CollectiveStats:
         naive += s
         wire_by_kind[kind] = wire_by_kind.get(kind, 0.0) + \
             ring_wire_bytes(kind, s, g)
+    table: Dict[Tuple[str, str], Dict[str, Any]] = {}
+    for (kind, s, g), site in zip(ops, sites):
+        row = table.setdefault((site, kind), {"site": site, "kind": kind,
+                                              "count": 0, "wire_bytes": 0.0})
+        row["count"] += 1
+        row["wire_bytes"] += ring_wire_bytes(kind, s, g) \
+            if not kind.startswith("unpriced") else 0.0
+    by_site = sorted(table.values(), key=lambda r: -r["wire_bytes"])
     return CollectiveStats(counts, res_bytes, wire_by_kind,
-                           sum(wire_by_kind.values()), naive)
+                           sum(wire_by_kind.values()), naive, by_site)
+
+
+def call_site() -> str:
+    """Where the collective being dispatched comes from: ``file:line
+    function`` of the innermost frame of the port outside this module and
+    of its caller in the port (paths from the package root), and, when a DTensor redistribute
+    issues it, ``src -> dst`` placements (read from torch's
+    ``redistribute_local_tensor`` frame)."""
+    import sys
+    f = sys._getframe(1)
+    where, move = None, None
+    while f is not None:
+        code = f.f_code
+        fn = code.co_filename.replace("\\", "/")
+        if move is None and code.co_name == "redistribute_local_tensor":
+            cur, dst = f.f_locals.get("current_spec"), \
+                f.f_locals.get("target_spec")
+            if cur is not None and dst is not None:
+                move = "".join(map(str, cur.placements)) + " -> " + \
+                    "".join(map(str, dst.placements))
+        if "/repro_torch/" in fn and not fn.endswith("analysis/comm.py"):
+            here = (f"{fn.split('/repro_torch/')[-1]}:{f.f_lineno} "
+                    f"{code.co_name}")
+            if where is not None:
+                where = f"{where} < {here}"
+                break
+            where = here
+        f = f.f_back
+    where = where or "(outside the port)"
+    return where if move is None else f"{where} [{move}]"
 
 
 def _nbytes(t) -> float:
@@ -94,10 +143,11 @@ def _nbytes(t) -> float:
 
 
 def collective_note():
-    """``note(ops, func, args)``: appends the (kind, s, g) of a dispatched
-    op to ``ops`` when it is a collective, priced by its rule (the table
-    below, for the ops this torch has), or kept as ("unpriced:<op>", 0
-    bytes, 1); point-to-point ops are left out.  Shared by
+    """``note(ops, func, args, sites=None)``: appends the (kind, s, g) of
+    a dispatched op to ``ops`` when it is a collective, priced by its rule
+    (the table below, for the ops this torch has), or kept as
+    ("unpriced:<op>", 0 bytes, 1), and its :func:`call_site` to
+    ``sites`` when given; point-to-point ops are left out.  Shared by
     :func:`record`'s mode and ``analysis/cost_trace``'s."""
     import torch
     from torch.distributed import ProcessGroup
@@ -149,7 +199,7 @@ def collective_note():
     from torch.distributed.tensor.debug import CommDebugMode
     registry = set(getattr(CommDebugMode(), "comm_registry", ()))
 
-    def note(ops: List, func, args) -> None:
+    def note(ops: List, func, args, sites: Optional[List] = None) -> None:
         packet = func._overloadpacket
         rule = rules.get(packet)
         name = str(packet)
@@ -160,6 +210,10 @@ def collective_note():
         elif ((packet in registry or name.startswith("c10d."))
               and name not in point_to_point):
             ops.append((f"unpriced:{packet}", 0.0, 1))
+        else:
+            return
+        if sites is not None:
+            sites.append(call_site())
 
     return note
 
@@ -175,23 +229,26 @@ def _recorder_class():
         A collective it has no formula for is kept as ("unpriced:<op>",
         0 bytes): it shows in ``counts``, never silently."""
 
-        def __init__(self):
+        def __init__(self, sites: bool = False):
             super().__init__()
             self.ops: List[Tuple[str, float, int]] = []
+            self.sites: Optional[List[str]] = [] if sites else None
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if not isinstance(func, torch._ops.HigherOrderOperator):
-                note(self.ops, func, args)
+                note(self.ops, func, args, self.sites)
             return super().__torch_dispatch__(func, types, args, kwargs)
 
     return Recorder
 
 
-def record(fn: Callable, *args, **kwargs) -> Tuple[Any, CollectiveStats]:
+def record(fn: Callable, *args, sites: bool = False,
+           **kwargs) -> Tuple[Any, CollectiveStats]:
     """Run ``fn(*args, **kwargs)`` and return (its result, the stats of
     the collectives this rank dispatched while it ran, backward passes
-    included)."""
-    rec = _recorder_class()()
+    included); ``sites``: also their ``by_site`` table (a stack walk a
+    collective)."""
+    rec = _recorder_class()(sites)
     with rec:
         out = fn(*args, **kwargs)
-    return out, collect(rec.ops)
+    return out, collect(rec.ops, rec.sites or ())

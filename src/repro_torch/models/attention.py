@@ -56,7 +56,8 @@ def attention(q, k, v, *, impl: str = "auto", **kw):
     repro's kernel route: ``k_chunk`` (a tiling knob of repro's XLA path
     with no kernel equivalent) is dropped, ``q_offset`` (int or 1-element
     int32 tensor) is forwarded, anything but causal/window/scale is a
-    TypeError."""
+    TypeError.  Without an offset, DTensor arguments go to
+    :func:`attention_sharded` (each rank's kernel on its local shards)."""
     _check_impl(impl)
     kw.pop("k_chunk", None)
     q_offset = kw.pop("q_offset", 0)
@@ -68,6 +69,12 @@ def attention(q, k, v, *, impl: str = "auto", **kw):
     causal, window, scale = (kw.get("causal", True), kw.get("window"),
                              kw.get("scale"))
     if isinstance(q_offset, int) and q_offset == 0:
+        from torch.distributed.tensor import DTensor
+        if isinstance(q, DTensor):
+            # DTensors without a model plan (``trace.autoshard``): the
+            # kernel runs on each rank's local shards, as under a plan
+            return attention_sharded(q, k, v, causal=causal, window=window,
+                                     scale=scale)
         return kops.flash_attention(q, k, v, causal, window, scale)
     o, _ = kops.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                     scale=scale, q_offset=q_offset)

@@ -75,7 +75,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from .attention import (attend_cache, attend_cache_sharded, attend_paged,
                         attend_paged_sharded, attend_slot_sharded,
-                        attention, attention_sharded,
+                        attention,
                         prefill_attention_paged_sharded,
                         prefill_attention_sharded, rescore_sharded)
 from .common import (dense_init, embed_init, local, resolve_device, rms_norm,
@@ -470,8 +470,8 @@ class LM:
         q = rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
         k = rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
         v = v.reshape(b, s, kvh, hd)
-        attend = attention if self.plan is None else attention_sharded
-        o = attend(q, k, v, causal=True, window=cfg.swa_window)
+        # DTensor queries (a plan) go to attention_sharded there
+        o = attention(q, k, v, causal=True, window=cfg.swa_window)
         x = self._shard(x + matmul(o.reshape(b, s, h * hd), p["attn"]["wo"]),
                         "x", bsd)
         xn = self._shard(rms_norm(x, p["ln2"], cfg.norm_eps), "x", bsd)
@@ -560,7 +560,9 @@ class LM:
                 x, aux = run(self._layer, p, x, positions)
                 auxs.append(aux)
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
-        aux_total = (sum(auxs[1:], auxs[0]) if self.cfg.moe is not None
+        # summed after the loop from the layers' stacked values, as repro
+        # sums its scan's ys
+        aux_total = (torch.stack(auxs).sum() if self.cfg.moe is not None
                      else torch.zeros((), device=x.device))
         return self._head(params, x), aux_total
 

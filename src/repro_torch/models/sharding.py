@@ -344,14 +344,17 @@ def matmul(x, w):
     last dim (x's gradient a pending sum); without autograd, w cut on
     the contracted dim gives a pending sum (x cut there too, or whole:
     each rank then takes its slice of x, a local copy).  Anything else
-    is ``x @ w``."""
+    gathers x's cuts of its leading dims but the first, then is ``x @
+    w`` (``_gathered_product``).  Where x has no such cut the route is
+    DTensor's ``x @ w``, whose output gradient is taken with only its
+    first leading dim cut (``_product``)."""
     from torch.distributed.tensor import DTensor, Partial
     if not (isinstance(x, DTensor) and isinstance(w, DTensor)
             and x.ndim >= 3 and w.ndim == 2):
         return x @ w
     lead = x.ndim - 1
     if not any(type(p) is Shard and 0 < p.dim < lead for p in x.placements):
-        return x @ w
+        return _product(x, w)
     grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
     xin, out, gx, gw = [], [], [], []
     for px, pw in zip(x.placements, w.placements):
@@ -369,7 +372,7 @@ def matmul(x, w):
             px = Shard(lead)
             out.append(Partial()), gx.append(px), gw.append(pw)
         else:
-            return x @ w
+            return _gathered_product(x, w)
         xin.append(px)
     from torch.distributed.tensor.experimental import local_map
     return local_map(torch.matmul, out_placements=out,
@@ -379,31 +382,138 @@ def matmul(x, w):
                      redistribute_inputs=True)(x, w)
 
 
+def _gathered_product(x, w):
+    """``x @ w`` with the cuts of x's leading dims other than the first
+    gathered first (the flatten torch 2.11 refuses): ``matmul``'s route
+    for placements it has no local rule for, such as x cut on seq and w
+    on its output dim over one mesh dim under autograd (a Megatron plan
+    with the activations cut on seq)."""
+    return _product(_lead_whole(x), w)
+
+
+def _product(x, w):
+    """DTensor's ``x @ w``, x with no cut of its leading dims but the
+    first.  Its backward flattens the output gradient's leading dims,
+    and that gradient can arrive cut on another (the output a pending
+    sum that the next op scatters onto seq: a Megatron plan with the
+    activations cut on seq, in the MLP's down projection); torch 2.11
+    refuses that flatten, so under autograd the gradient's cut is
+    gathered first (``_lead_whole``), what DTensor's backward does on
+    2.13 for these placements."""
+    from torch.distributed.tensor import DTensor
+    y = x @ w
+    if isinstance(y, DTensor) and y.requires_grad:
+        y.register_hook(_lead_whole)
+    return y
+
+
+def _lead_whole(t):
+    """``t`` [..., d] (a DTensor) with its cuts of the leading dims other
+    than the first gathered."""
+    lead = t.ndim - 1
+    pl = [Replicate() if type(p) is Shard and 0 < p.dim < lead else p
+          for p in t.placements]
+    return t if pl == list(t.placements) else t.redistribute(
+        t.device_mesh, pl)
+
+
 def lookup(table, ids):
     """``table[ids]``: the rows of an embedding table [V, D] for token ids
-    [...].  Where the ids are a DTensor cut on some mesh dim and the table
-    is whole on every rank, each rank looks its own ids' rows up in
-    ``local_map`` (the output cut as the ids, the table's gradient a
-    pending sum over the ids' cuts): the values of DTensor's index (on 8
-    gloo ranks the data-parallel dense-train step of ``verify`` moved
-    471,040 bytes fewer with it).  torch
-    2.11's DTensor builds the backward's ``index_put`` placement from
-    the ids' cut as ``Shard(-1)`` and refuses it ("must be normalized").
-    Anything else is ``table[ids]``."""
+    [...].  Where the ids or the table are DTensors cut on a mesh dim of
+    more than one rank (``_Lookup``), each rank looks its own ids' rows up
+    in its own shard of the table, with no DTensor op in the forward or
+    the backward: torch 2.11's DTensor builds the backward's
+    ``index_put`` placement from the ids' cut as ``Shard(-1)`` and refuses
+    it ("must be normalized"), for a whole table and, under autograd, for
+    one cut on vocab (a Megatron plan) alike.  A vocab cut is gathered
+    first where the table is the smaller transfer (what DTensor's index
+    does), else looked up where the rows are.  Without autograd a cut
+    table goes to DTensor's index (the serving steps' collectives).  The values are DTensor's index's (on 8 gloo
+    ranks the data-parallel dense-train step of ``verify`` moved 471,040
+    bytes fewer than DTensor's own route).  Anything else is
+    ``table[ids]``."""
     from torch.distributed.tensor import DTensor, Partial
-    if not (isinstance(ids, DTensor) and isinstance(table, DTensor)
-            and any(isinstance(p, Shard) for p in ids.placements)
-            and all(isinstance(p, Replicate) for p in table.placements)):
+    if not (isinstance(ids, DTensor) and isinstance(table, DTensor)):
         return table[ids]
-    out = [Shard(p.dim) if isinstance(p, Shard) else Replicate()
-           for p in ids.placements]
-    grad = [Partial() if isinstance(p, Shard) else Replicate()
-            for p in ids.placements]
-    from torch.distributed.tensor.experimental import local_map
-    return local_map(lambda t, i: t[i], out_placements=out,
-                     in_placements=(table.placements, ids.placements),
-                     in_grad_placements=(grad, ids.placements),
-                     device_mesh=ids.device_mesh)(table, ids)
+    mesh = ids.device_mesh
+    pls = list(table.placements) + list(ids.placements)
+    table_cut = any(isinstance(p, Shard) and mesh.size(j) > 1
+                    for j, p in enumerate(table.placements))
+    if any(isinstance(p, Partial) for p in pls) or any(
+            isinstance(p, Shard) and p.dim > 1 for p in table.placements) \
+            or not any(isinstance(p, Shard) and mesh.size(j % mesh.ndim) > 1
+                       for j, p in enumerate(pls)) \
+            or (table_cut and not (torch.is_grad_enabled()
+                                   and table.requires_grad)):
+        return table[ids]
+    # a vocab cut: gather the table's rows where they are fewer than twice
+    # the output's (the sum of a pending output moves 2x its bytes);
+    # else each rank looks up the ids its rows hold (zeros elsewhere,
+    # summed over that dim)
+    if table.numel() <= 2 * ids.numel() * table.shape[-1] and any(
+            isinstance(p, Shard) and p.dim == 0 for p in table.placements):
+        table = table.redistribute(mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+            for p in table.placements])
+    # a mesh dim that cuts the table sees every id: over a d_model cut
+    # each rank looks up its columns of every id's row
+    want = [Replicate() if isinstance(t, Shard) else p
+            for t, p in zip(table.placements, ids.placements)]
+    if want != list(ids.placements):
+        ids = ids.redistribute(mesh, want)
+    return _Lookup.apply(table, ids)
+
+
+class _Lookup(torch.autograd.Function):
+    """``lookup``'s local route: forward and backward on each rank's own
+    shards (the ids as placed, the table's rows and columns as cut), the
+    output placed as the ids (a Partial sum over a mesh dim that cuts the
+    vocab, ``Shard`` of the last dim over one that cuts d_model) and the
+    table's gradient as the table (a Partial sum over the ids' cuts)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        from torch.distributed.tensor import Partial
+        mesh, n = ids.device_mesh, ids.ndim
+        out_pl, grad_pl = [], []
+        for t, p in zip(table.placements, ids.placements):
+            if isinstance(t, Shard) and t.dim == 0:
+                out_pl.append(Partial())
+                grad_pl.append(t)
+            elif isinstance(t, Shard):
+                out_pl.append(Shard(n))
+                grad_pl.append(t)
+            else:
+                out_pl.append(p)
+                grad_pl.append(Partial() if isinstance(p, Shard) else t)
+        tl, il = table.to_local(), ids.to_local().long()
+        rows = il
+        mask = None
+        if any(isinstance(p, Partial) for p in out_pl):
+            rows = il - global_offset(table)[0]
+            mask = (rows >= 0) & (rows < tl.shape[0])
+            rows = rows.clamp(0, tl.shape[0] - 1)
+        out = tl[rows]
+        if mask is not None:
+            out = out * mask[..., None].to(out.dtype)
+        ctx.save_for_backward(rows, *(() if mask is None else (mask,)))
+        ctx.meta = (mesh, tuple(table.shape), tuple(tl.shape), table.dtype,
+                    out_pl, grad_pl)
+        return from_local(out, mesh, out_pl,
+                          tuple(ids.shape) + (table.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial
+        mesh, shape, lshape, dtype, out_pl, grad_pl = ctx.meta
+        rows, *mask = ctx.saved_tensors
+        gl = g.redistribute(mesh, [Replicate() if isinstance(p, Partial)
+                                   else p for p in out_pl]).to_local()
+        if mask:
+            gl = gl * mask[0][..., None].to(gl.dtype)
+        gt = torch.zeros(lshape, dtype=gl.dtype, device=gl.device)
+        gt.index_put_((rows,), gl, accumulate=True)
+        return from_local(gt.to(dtype), mesh, grad_pl, shape), None
 
 
 def moves(src: Sequence, dst: Sequence, mesh) -> bool:
@@ -449,37 +559,62 @@ def rows_region(fn, acts: Sequence, small: Sequence, plan, mesh):
 
 
 def step_rows(fn, acts: Sequence, small: Sequence, states: Sequence,
-              width: int, key: str, slot: Optional[int] = None):
+              width: int, key: str, slot: Optional[int] = None,
+              heads: bool = False):
     """A decode step's per-row state update under a plan: ``fn(*acts,
-    *small, *states) -> y [b, width]`` f32, writing the states in place,
-    run in one ``local_map`` region on the rows of the states' batch cut
-    (DTensors [B, ...], one role, so one cut), the activations on the
-    same rows and the small params whole.  A state cut on another axis
+    *small, *states) -> y`` f32, writing the states in place, run in one
+    ``local_map`` region on the rows of the states' batch cut (DTensors
+    [B, ...], one role, so one cut), the activations on the same rows and
+    the small params whole; y is [b, width].  A state cut on another axis
     (an ``inner`` cut splits a head's update over ranks) is gathered
     whole on its other axes for the update and its local part copied back
-    after, counted in ``ops.plan_fallbacks[key]``.  ``slot``: the
-    activations are one row, replicated; the ranks whose shard holds row
-    ``slot`` step it and the others give zeros, which the batch mesh dims
-    sum."""
+    after, counted in ``ops.plan_fallbacks[key]``.
+
+    ``heads``: the update is per head (a head's update reads only that
+    head): the states and activations are [B, H, ...], the small params
+    [H, ...], and y is [b, h, ...].  Where every state is cut on batch
+    and heads only, alike, the region runs on each rank's own rows and
+    heads (the activations at the states' placements, the small params
+    cut on their heads as the states are) and nothing is gathered but y,
+    whose heads are gathered after.  y is returned as [B, width] either
+    way.
+
+    ``slot``: the activations are one row, replicated; the ranks whose
+    shard holds row ``slot`` step it and the others give zeros, which the
+    batch mesh dims sum."""
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
     from ..kernels import ops as kops
     mesh = states[0].device_mesh
+    pl = list(states[0].placements)
     rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
-            for p in states[0].placements]
+            for p in pl]
+    keep = heads and slot is None and all(
+        list(t.placements) == pl for t in states[1:]) and not any(
+        isinstance(p, Partial) or (isinstance(p, Shard) and p.dim > 1)
+        for p in pl)
+    cut = pl if keep else rows
+    if heads:
+        per_head = fn
+
+        def fn(*a):
+            y = per_head(*a)
+            return y if keep else y.flatten(1)
     work = []
     for t in states:
-        if list(t.placements) == rows:
+        if list(t.placements) == cut:
             work.append(t)
             continue
-        if moves(t.placements, rows, mesh):
+        if moves(t.placements, cut, mesh):
             kops.plan_fallbacks[key] += 1
-        work.append(t.redistribute(mesh, rows))
+        work.append(t.redistribute(mesh, cut))
     rep = [Replicate()] * mesh.ndim
+    spl = [Shard(0) if isinstance(p, Shard) and p.dim == 1
+           else Replicate() for p in cut]
     na, ns = len(acts), len(small)
     if slot is None:
-        xin, out, region = rows, rows, fn
+        xin, out, region = cut, cut, fn
     else:
         xin = rep
         out = [Partial() if isinstance(p, Shard) else p for p in rows]
@@ -493,8 +628,8 @@ def step_rows(fn, acts: Sequence, small: Sequence, states: Sequence,
                                    device=a[0].device)
             return fn(*a[:na + ns], *(s[r:r + 1] for s in st))
     y = local_map(region, out_placements=list(out),
-                  in_placements=((xin,) * na + (tuple(rep),) * ns
-                                 + (rows,) * len(states)),
+                  in_placements=((xin,) * na + (tuple(spl),) * ns
+                                 + (cut,) * len(states)),
                   device_mesh=mesh, redistribute_inputs=True)(
                       *acts, *small, *work)
     for t, w in zip(states, work):
@@ -502,6 +637,8 @@ def step_rows(fn, acts: Sequence, small: Sequence, states: Sequence,
             t.to_local().copy_(w.redistribute(mesh, t.placements).to_local())
     if slot is not None:
         y = y.redistribute(mesh, rep)
+    if keep:
+        y = redistribute(y, rows).flatten(1)
     return y
 
 

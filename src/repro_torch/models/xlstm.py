@@ -146,23 +146,41 @@ def mlstm_forward(params, x: torch.Tensor, cfg: ArchConfig, plan=None,
     return matmul(y, params["w_out"])
 
 
+def _mlstm_heads(z: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, gi: torch.Tensor, gf: torch.Tensor,
+                 c_state: torch.Tensor) -> torch.Tensor:
+    """The mLSTM decode update of the heads ``c_state`` [B, Hl, hd, hd]
+    holds (all of them, or a rank's own under a plan): z, q, k, v [B, Hl,
+    hd] and the gates gi, gf [B, Hl] of those heads.  Writes ``c_state``
+    in place and returns y * silu(z) [B, Hl, hd] in f32."""
+    hd = c_state.shape[-1]
+    f = torch.sigmoid(gf.float())                             # [B, Hl]
+    i_g = torch.exp(gi.float().clamp(-10.0, 10.0))
+    vh = v.float() * i_g[..., None]
+    kh = k.float() * (hd ** -0.5)
+    qh = q.float()
+    c_new = c_state * f[..., None, None] + vh[..., :, None] * kh[..., None, :]
+    y = (c_new @ qh[..., None])[..., 0]
+    c_state.copy_(c_new)
+    return y * F.silu(z.float())
+
+
+def _mlstm_head_parts(cfg: ArchConfig, proj: torch.Tensor):
+    """``_mlstm_parts`` of proj [B, 4 dm + 2H] with z, q, k, v as [B, H,
+    hd]."""
+    b = proj.shape[0]
+    _, h, hd = _mlstm_dims(cfg)
+    z, q, k, v, gi, gf = _mlstm_parts(cfg, proj)
+    return tuple(t.reshape(b, h, hd) for t in (z, q, k, v)) + (gi, gf)
+
+
 def _mlstm_update(cfg: ArchConfig, proj: torch.Tensor,
                   c_state: torch.Tensor) -> torch.Tensor:
     """The per-row part of an mLSTM decode step (repro's ``mlstm_step``
     from the projection to the gate): writes ``c_state`` [B, H, hd, hd] in
     place and returns y * silu(z) [B, dm] in f32, before the norm."""
-    b = proj.shape[0]
-    dm, h, hd = _mlstm_dims(cfg)
-    z, q, k, v, gi, gf = _mlstm_parts(cfg, proj)
-    f = torch.sigmoid(gf.float())                             # [B, H]
-    i_g = torch.exp(gi.float().clamp(-10.0, 10.0))
-    vh = v.reshape(b, h, hd).float() * i_g[..., None]
-    kh = k.reshape(b, h, hd).float() * (hd ** -0.5)
-    qh = q.reshape(b, h, hd).float()
-    c_new = c_state * f[..., None, None] + vh[..., :, None] * kh[..., None, :]
-    y = (c_new @ qh[..., None])[..., 0].reshape(b, dm)
-    c_state.copy_(c_new)
-    return y * F.silu(z.float())
+    y = _mlstm_heads(*_mlstm_head_parts(cfg, proj), c_state)
+    return y.reshape(proj.shape[0], _mlstm_dims(cfg)[0])
 
 
 def mlstm_step(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
@@ -172,21 +190,24 @@ def mlstm_step(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
     """One decode step of one mLSTM layer: x [B, D] -> y [B, D].
     ``state`` is {"C"} (``mlstm_state_shapes``), or with ``layer`` the
     cache's stacked [L/2, B, ...] state of which that layer is stepped,
-    updated in place for every row.  Under a plan the update runs on the
-    state's batch rows (``sharding.step_rows``); with ``slot`` (x [1, D],
-    the scan prefill's step of that row) on the ranks that hold it."""
+    updated in place for every row.  Under a plan the update runs on each
+    rank's own rows, and own heads where the state's cut is on batch and
+    heads only (``sharding.step_rows(heads=True)``); with ``slot`` (x [1,
+    D], the scan prefill's step of that row) on the ranks that hold
+    it."""
     c_state = state["C"]
     if layer is not None:
         from .sharding import layer_of
         c_state = layer_of(c_state, layer)
     proj = x @ params["w_in"]
+    dm = _mlstm_dims(cfg)[0]
     if plan is None or mesh is None:
         y = _mlstm_update(cfg, proj, c_state)
     else:
         from .sharding import step_rows
-        y = step_rows(lambda p, c: _mlstm_update(cfg, p, c),
-                      (_gathered(proj, 1),), (), (c_state,),
-                      _mlstm_dims(cfg)[0], "xlstm", slot)
+        y = step_rows(_mlstm_heads,
+                      _mlstm_head_parts(cfg, _gathered(proj, 1)), (),
+                      (c_state,), dm, "xlstm", slot, heads=True)
     y = rms_norm(y.to(x.dtype), params["norm"], cfg.norm_eps)
     return y @ params["w_out"]
 
@@ -247,17 +268,26 @@ def slstm_forward(params, x: torch.Tensor, cfg: ArchConfig, plan=None,
     return _up_down(params, hs.to(x.dtype))
 
 
+def _slstm_heads(xg: torch.Tensor, r_gates: torch.Tensor, h: torch.Tensor,
+                 c: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The sLSTM decode update of the heads h, c, n [B, Hl, hd] hold (all
+    of them, or a rank's own under a plan): xg [B, Hl, 4 hd] and r_gates
+    [Hl, hd, 4 hd] of those heads.  Writes h, c, n in place and returns
+    the new h [B, Hl, hd] f32."""
+    new = _slstm_cell(r_gates.float(), xg.float(), h, c, n)
+    for t, v in zip((h, c, n), new):
+        t.copy_(v)
+    return new[0]
+
+
 def _slstm_update(cfg: ArchConfig, xg: torch.Tensor, r_gates: torch.Tensor,
                   h: torch.Tensor, c: torch.Tensor,
                   n: torch.Tensor) -> torch.Tensor:
     """The per-row part of an sLSTM decode step: writes h, c, n [B, H,
     hd] in place and returns the new h as [B, D] f32."""
     b, nh, hd = h.shape
-    new = _slstm_cell(r_gates.float(), xg.reshape(b, nh, 4 * hd).float(),
-                      h, c, n)
-    for t, v in zip((h, c, n), new):
-        t.copy_(v)
-    return new[0].reshape(b, nh * hd)
+    return _slstm_heads(xg.reshape(b, nh, 4 * hd), r_gates, h, c,
+                        n).reshape(b, nh * hd)
 
 
 def slstm_step(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
@@ -275,7 +305,9 @@ def slstm_step(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
         h = _slstm_update(cfg, xg, params["r_gates"], *hcn)
     else:
         from .sharding import step_rows
-        h = step_rows(lambda g, r, *st: _slstm_update(cfg, g, r, *st),
-                      (_gathered(xg, 1),), (params["r_gates"],), hcn,
-                      cfg.d_model, "xlstm", slot)
+        xg = _gathered(xg, 1)
+        h = step_rows(_slstm_heads, (xg.reshape(xg.shape[0], cfg.n_heads,
+                                                -1),),
+                      (params["r_gates"],), hcn, cfg.d_model, "xlstm", slot,
+                      heads=True)
     return _up_down(params, h.to(x.dtype))

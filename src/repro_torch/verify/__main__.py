@@ -17,9 +17,9 @@ compute cell traces on torch's fake process group in this process before
 the ranks start; the fuzz's execution mesh is ``(4,)`` "fz" on the first
 4 ranks.  Rank 0 writes the report to --out (default
 experiments/conformance/CONFORMANCE_torch.json) and the command exits
-non-zero when any gate fails.  The trace cell waits for the port's trace
-frontend (ROADMAP A.8): selecting it exits non-zero, and the default
-all-cells run leaves it out and says so in its report.
+non-zero when any gate fails.  The trace cell (verify/trace_cell.py)
+runs on every rank: its families leg captures and solves in each, its
+MLP leg runs ``autoshard`` on the verification mesh.
 """
 import argparse
 import json
@@ -31,8 +31,6 @@ import time
 # the pseudo-cells, in the order a run takes them (repro's)
 PSEUDO = ("serve", "serve-paged", "train-engine", "pipeline", "compute",
           "trace")
-TRACE_WAITS = ("the trace cell waits for the port's trace frontend "
-               "(repro_torch.trace, ROADMAP A.8)")
 FUZZ_RANKS = 4
 
 
@@ -192,11 +190,19 @@ def _rank_main(rank: int, world: int, args: argparse.Namespace,
         if compute_rec is not None:
             report["compute"] = compute_rec
             ok &= compute_rec["status"] == "ok"
-        if args.cells is None:
-            report["trace"] = {"cell": "trace", "status": "skipped",
-                               "reason": TRACE_WAITS}
-            if verbose:
-                print(f"[skipped] {'trace':16s} {TRACE_WAITS}", flush=True)
+        if _selected(args, "trace"):
+            from .trace_cell import run_trace_cell
+            report["trace"] = _pseudo(
+                "trace",
+                lambda m: run_trace_cell(m, numerics=not args.no_numerics),
+                lambda r: " ".join(
+                    [f"{f['family']}={_fmt(f.get('ratio'))}"
+                     f"(repro {_fmt(f.get('repro_ratio'))})"
+                     for f in r.get("families", [])]
+                    + [f"mlp_oracle={r.get('mlp', {}).get('oracle_ok')} "
+                       f"mlp_err={r.get('mlp', {}).get('max_abs_err')}"]),
+                "trace", mesh, verbose)
+            ok &= report["trace"]["status"] == "ok"
 
     if args.fuzz:
         from .fuzz import run_fuzz
@@ -251,9 +257,6 @@ def main(argv=None) -> int:
         _list()
         return 0
     names = args.cells.split(",") if args.cells else None
-    if names is not None and "trace" in names and not args.no_cells:
-        print(f"verify: {TRACE_WAITS}", file=sys.stderr)
-        return 2
     if names is not None:
         from .cells import get_cells
         get_cells([n for n in names if n not in PSEUDO])   # unknown: raise

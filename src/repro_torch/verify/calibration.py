@@ -146,9 +146,12 @@ def _measure(cfg: ArchConfig, shape, plan: ShardingPlan, mesh,
     step, state, inputs = build_step(cfg, shape, plan, mesh,
                                      device=mesh_device(mesh))
     with torch.no_grad():       # the train step enables grad for its loss
-        _, st = comm.record(step, state, inputs)
+        _, st = comm.record(step, state, inputs, sites=True)
     return {
         "counts": st.counts,
+        # the collectives by call site, system-wide wire bytes
+        "by_site": [dict(r, wire_bytes=r["wire_bytes"] * n_dev)
+                    for r in st.by_site],
         "wire_bytes_per_device": st.wire_bytes_per_device,
         "wire_bytes_total": st.wire_bytes_per_device * n_dev,
         "wire_by_kind_total": {k: v * n_dev

@@ -169,6 +169,21 @@ def local_einsum(sub: str, *xs):
                       [size[c] for c in out])
 
 
+def sharded_einsum(sub: str, *xs, stats: Optional[Dict[str, int]] = None):
+    """``torch.einsum(sub, *xs)``; where DTensor refuses to flatten a cut
+    dim (torch 2.11), each rank's local einsum (:func:`local_einsum`),
+    counted in ``stats["local_einsums"]``.  Any other error is raised."""
+    import torch
+    try:
+        return torch.einsum(sub, *xs)
+    except RuntimeError as e:
+        if "Attempted to flatten" not in str(e):
+            raise
+    if stats is not None:
+        stats["local_einsums"] = stats.get("local_einsums", 0) + 1
+    return local_einsum(sub, *xs)
+
+
 def execute_sharded(g: Graph, values: Dict[str, object],
                     plan: ShardingPlan, mesh,
                     outputs: Optional[List[str]] = None,
@@ -197,13 +212,7 @@ def execute_sharded(g: Graph, values: Dict[str, object],
             return x
 
     def einsum(sub, *xs):
-        try:
-            return torch.einsum(sub, *xs)
-        except RuntimeError as e:
-            if "Attempted to flatten" not in str(e):
-                raise
-        stats["local_einsums"] += 1
-        return local_einsum(sub, *xs)
+        return sharded_einsum(sub, *xs, stats=stats)
 
     placed = {t: _place_leaf(torch.as_tensor(values[t]), mesh,
                              placements(t))

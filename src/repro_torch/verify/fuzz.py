@@ -14,16 +14,19 @@ invariants that must hold on *every* graph:
   execution    a solved plan, forced onto the ranks of a real device
                mesh as DTensor placements, computes the same numbers as
                the serial program (executor.py)
+  trace        the graph's torch program (the executor's semantics) is
+               captured back through the trace frontend (repro_torch.trace)
+               and re-solved: its one-cut optimum is at most the
+               original's (capture only relaxes the problem)
+  autoshard    ``autoshard`` of that program on the execution mesh
+               computes the serial interpreter's numbers
   pipeline     the joint stage-cut x per-stage-tiling solve (every op
                tagged as its own layer block) reprices to its own cost
                and equals the brute-force (cut set x tiling) oracle
 
-repro also round-trips each graph through its jaxpr frontend (the trace
-and autoshard legs); those wait for the port's trace frontend (ROADMAP
-A.8), so ``trace_checked`` and ``trace_exec_checked`` stay 0.  The Python
-``random`` stream is consumed exactly as repro's, so a seed draws
-repro's graphs.  Plain ``random.Random`` generation: no hypothesis
-needed.  torch comes in only with the execution leg.
+The Python ``random`` stream is consumed exactly as repro's, so a seed
+draws repro's graphs.  Plain ``random.Random`` generation: no hypothesis
+needed.  torch comes in only with the execution and trace legs.
 """
 from __future__ import annotations
 
@@ -168,8 +171,6 @@ class FuzzResult:
     # einsums of the execution leg that DTensor refused to flatten (torch
     # 2.11), run sharded by executor.local_einsum
     exec_local_einsums: int = 0
-    # the trace round-trip and autoshard legs wait for the trace frontend
-    # (ROADMAP A.8): 0 until then
     trace_checked: int = 0
     trace_exec_checked: int = 0
     compute_checked: int = 0
@@ -217,10 +218,83 @@ def _check_exec(g: Graph, seed: int, result: FuzzResult, exec_mesh,
                 f"(scale {scale})")
 
 
+def program(g: Graph):
+    """The graph's torch program (repro's ``gen_fn``): leaf values {name:
+    tensor} -> the sink tensors' values, by the executor's semantics; an
+    einsum of DTensors that DTensor refuses to flatten runs as each
+    rank's local einsum (``executor.sharded_einsum``)."""
+    from . import executor
+    sinks = executor.sink_tensors(g)
+
+    def gen_fn(vals):
+        full = executor.execute(g, dict(vals),
+                                einsum=executor.sharded_einsum)
+        return {t: full[t] for t in sinks}
+    return gen_fn
+
+
+def _check_trace(g: Graph, arity: int, result: FuzzResult):
+    """Trace round-trip: capture the graph's program back and re-solve.
+    Capture can only *relax* the problem (no align whitelists, REDUCED
+    forms available), so the captured optimum must never exceed the
+    original one — equality in the typical case.  Penalties are off on
+    both sides: they depend on tensor kinds (weight/opt) that a traced
+    program does not carry.  Returns the capture."""
+    import torch
+
+    from . import executor
+    from ..trace import capture
+
+    meta = {t: torch.empty(tuple(g.tensors[t].shape), device="meta")
+            for t in executor.leaf_tensors(g)}
+    traced = capture(program(g), meta, name=g.name)
+    c0 = solve_one_cut(g, arity, beam="auto", mem_scale=0.0).cost
+    c1 = solve_one_cut(traced.graph, arity, beam="auto",
+                       mem_scale=0.0).cost
+    result.trace_checked += 1
+    if c1 > c0 * (1.0 + 1e-9) + 1.0:
+        result.failures.append(
+            f"{g.name}@{arity}: trace round-trip solved to {c1} > "
+            f"original {c0}")
+    return traced
+
+
+def _check_autoshard(g: Graph, seed: int, result: FuzzResult, exec_mesh,
+                     atol: float) -> None:
+    """``autoshard`` of the graph's program on ``exec_mesh`` (solved on
+    the mesh, leaves placed as DTensors, run) against the serial
+    interpreter on the execution leg's values."""
+    import numpy as np
+    import torch
+
+    from . import executor
+    from ..trace import autoshard
+    from .numerics import mesh_device
+
+    vals = executor.random_values(g, seed=seed)
+    serial = executor.execute(g, vals)
+    dev = mesh_device(exec_mesh)
+    placed = {t: torch.as_tensor(v).to(dev) for t, v in vals.items()}
+    ash = autoshard(program(g), exec_mesh, placed, name=g.name,
+                    mem_scale=0.0)
+    auto = ash(placed)
+    result.trace_exec_checked += 1
+    for t in executor.sink_tensors(g):
+        ref = serial[t].numpy()
+        got = auto[t].full_tensor().cpu().numpy().astype(np.float32)
+        err = float(np.max(np.abs(ref - got))) if ref.size else 0.0
+        scale = float(np.max(np.abs(ref))) if ref.size else 0.0
+        if err > atol * max(1.0, scale):
+            result.failures.append(
+                f"{g.name}@mesh: autoshard {t} differs by {err} "
+                f"(scale {scale})")
+
+
 # the invariants of one graph, in the order check_graph runs them (the
 # oracle leg holds the replication, pricing, oracle and permutation
-# checks); run_fuzz(share=True) shares them out over ranks
-LEGS = ("oracle", "compute", "exec", "pipeline")
+# checks; the exec leg the sharded execution and autoshard);
+# run_fuzz(share=True) shares them out over ranks
+LEGS = ("oracle", "compute", "trace", "exec", "pipeline")
 
 
 def check_graph(g: Graph, arity: int, rng: random.Random,
@@ -308,12 +382,17 @@ def check_graph(g: Graph, arity: int, rng: random.Random,
                 f"{g.name}@{arity}: permuted clone cost {sol2.cost} != "
                 f"{sol.cost}")
 
-    # sharded-vs-serial execution of the solved plan (its seed is drawn
-    # whatever the legs)
+    if "trace" in legs:
+        _check_trace(g, arity, result)
+
+    # sharded-vs-serial execution of the solved plan, then of autoshard
+    # (its seed is drawn whatever the legs)
     if exec_mesh is not None:
         seed = rng.randrange(1 << 30)
         if "exec" in legs and exec_mesh.get_coordinate() is not None:
             _check_exec(g, seed, exec_result or result, exec_mesh, atol)
+            _check_autoshard(g, seed, exec_result or result, exec_mesh,
+                             atol)
 
     if "pipeline" not in legs:
         return
@@ -354,15 +433,16 @@ def run_fuzz(n: int, seed: int = 0, arities=(2, 4),
     ``share``: every rank of the default process group runs this with the
     same arguments (the same ``exec_mesh``, which may leave ranks out)
     and the graphs' legs are shared out: leg k of graph i (oracle,
-    compute, pipeline) on rank (3 i + k) % world, an execution leg on
-    every rank of ``exec_mesh``, counted on its first.  Every rank draws
+    compute, pipeline, trace) on rank (4 i + k) % world, an execution leg
+    (with its autoshard) on every rank of ``exec_mesh``, counted on its
+    first.  Every rank draws
     every graph, so the random stream is repro's, and every rank returns
     the whole run's result (graphs in order)."""
     rank, world = 0, 1
     if share:
         import torch.distributed as dist
         rank, world = dist.get_rank(), dist.get_world_size()
-    shared = ("oracle", "compute", "pipeline")
+    shared = ("oracle", "compute", "pipeline", "trace")
     rng = random.Random(seed)
     parts = []
     for i in range(n):

@@ -56,10 +56,12 @@ def _f32(t):
     return whole(t).detach().float()
 
 
-def run_numerics(cfg, shape, plan, mesh) -> Dict[str, object]:
+def run_numerics(cfg, shape, plan, mesh, params=None) -> Dict[str, object]:
     """Returns a record with serial/sharded values, the observed error
     and the pass verdict for this cell's kind.  ``plan``'s MoE roles are
-    pinned as the MoE layer runs them (``normalize_moe_plan``)."""
+    pinned as the MoE layer runs them (``normalize_moe_plan``).
+    ``params``: the serial model's parameters on this rank's device
+    (``LM(cfg).init(0)`` when omitted)."""
     import torch
 
     from ..launch.compile import normalize_moe_plan
@@ -71,7 +73,8 @@ def run_numerics(cfg, shape, plan, mesh) -> Dict[str, object]:
     names = mesh.mesh_dim_names
     plan = normalize_moe_plan(plan, cfg)
     serial = LM(cfg)
-    params = serial.init(0, device=dev)
+    if params is None:
+        params = serial.init(0, device=dev)
     batch = _batch(cfg, shape, dev)
     rec: Dict[str, object] = {"kind": shape.kind}
 

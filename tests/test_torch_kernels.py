@@ -342,7 +342,10 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"__init__.py", "__main__.py", "calibration.py", "cells.py",
             "compute_cell.py", "executor.py", "fuzz.py", "numerics.py",
             "pipeline_cell.py", "serve_cell.py", "serve_paged_cell.py",
-            "train_cell.py"} <= verify
+            "train_cell.py", "trace_cell.py"} <= verify
+    trace = {f.name for f in files if f.parent.name == "trace"}
+    assert {"__init__.py", "__main__.py", "autoshard.py", "capture.py",
+            "demo.py"} <= trace
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad

@@ -22,8 +22,10 @@ projection route (``models/sharding.matmul``) on 8 gloo ranks.
 - One spawn of 8 gloo ranks (module fixture):
   - the projection route of a prefill's ``x`` cut on batch and seq
     (placements (S(0), S(1)), (S(1), R) against a weight cut on its
-    output dim, forward and backward, and, without autograd, (S(1),
-    S(2)) and (S(1), R) against a weight cut on its input dim), bit-equal
+    output dim, forward and backward, (S(0), S(1)) against a weight cut
+    on its output dim on the seq cut's mesh dim (the seq cut gathered
+    first), and, without autograd, (S(1), S(2)) and (S(1), R) against a
+    weight cut on its input dim), bit-equal
     to DTensor's
     ``x @ w``
     where this torch runs it (2.13), and to each rank's local product
@@ -34,16 +36,21 @@ projection route (``models/sharding.matmul``) on 8 gloo ranks.
     with a deliberately wrong leaf placement (every rank handed rank 0's
     slice of each cut leaf) every graph that has a cut leaf fails it;
     both with DTensor's einsum and with every einsum sent, as torch 2.11
-    sends a refused one, through the executor's local route.
+    sends a refused one, through the executor's local route;
+  - the dense-train cell's step under its solved plan, its measured wire
+    bytes under their cap (``WIRE_CAPS``).
 - One run of ``python -m repro_torch.verify --device cpu --cells
-  dense-decode,xlstm-train --fuzz 10 --json --out ''`` (its own 8 gloo
-  ranks), as tests/test_verify_smoke.py runs repro's: ``pass``, each
-  cell's calibration and numerics, and the DP gate on ``xlstm-train``.
+  dense-decode,xlstm-train,xlstm-decode,trace --fuzz 10 --json --out
+  ''`` (its own 8 gloo ranks), as tests/test_verify_smoke.py runs
+  repro's: ``pass``, each cell's calibration, numerics and wire-byte cap,
+  the DP gate on ``xlstm-train``, the trace cell, and the fuzz's trace
+  legs.
 
 repro is imported inside the tests that compare with it, so on a machine
 without JAX (the card's) the rank and CLI tests still run."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -313,22 +320,64 @@ MUT_SEEDS = range(12)
 
 ROUTE_CASES = {"x(S0,S1)-w(R,R)": ["S(0)", "S(1)"],
                "x(S1,R)-w(R,S1)": ["S(1)", "S(2)"],
+               "x(S0,S1)-w(R,S1)": ["S(0)", "S(2)"],
                "x(S1,S2)-w(R,S0)-no-grad": ["S(1)", "P(sum)"],
-               "x(S1,R)-w(R,S0)-no-grad": ["S(1)", "P(sum)"]}
+               "x(S1,R)-w(R,S0)-no-grad": ["S(1)", "P(sum)"],
+               "x(S0,S2)-w(R,S0)-to(S0,S1)": ["S(0)", "S(1)"]}
 
 
 def _route_cases():
-    """(name, x placements, w placements, with autograd) on the (4, 2)
-    mesh."""
+    """(name, x placements, w placements, with autograd, the placements
+    of a stream the output is added to after the product, or None) on
+    the (4, 2) mesh."""
     from torch.distributed.tensor import Replicate, Shard
     return [("x(S0,S1)-w(R,R)", [Shard(0), Shard(1)],
-             [Replicate(), Replicate()], True),
+             [Replicate(), Replicate()], True, None),
             ("x(S1,R)-w(R,S1)", [Shard(1), Replicate()],
-             [Replicate(), Shard(1)], True),
+             [Replicate(), Shard(1)], True, None),
+            # x cut on seq and w on its output dim over one mesh dim: no
+            # local rule, x's seq cut gathered (torch 2.11 refused the
+            # product here in the hybrid family's planned training)
+            ("x(S0,S1)-w(R,S1)", [Shard(0), Shard(1)],
+             [Replicate(), Shard(1)], True, None),
             ("x(S1,S2)-w(R,S0)-no-grad", [Shard(1), Shard(2)],
-             [Replicate(), Shard(0)], False),
+             [Replicate(), Shard(0)], False, None),
             ("x(S1,R)-w(R,S0)-no-grad", [Shard(1), Replicate()],
-             [Replicate(), Shard(0)], False)]
+             [Replicate(), Shard(0)], False, None),
+            # the MLP's down projection under a Megatron plan with the
+            # activations cut on seq: a pending sum scattered onto seq,
+            # so its gradient arrives cut on seq (torch 2.11 refused the
+            # product's backward here in the hybrid family's training)
+            ("x(S0,S2)-w(R,S0)-to(S0,S1)", [Shard(0), Shard(2)],
+             [Replicate(), Shard(0)], True, [Shard(0), Shard(1)])]
+
+
+@contextlib.contextmanager
+def _flatten_refused():
+    """Make DTensor refuse a view that flattens a cut dim other than the
+    group's first, as torch 2.11 does ("Attempted to flatten multiple
+    dimensions"); torch 2.13 runs that view with a ``_StridedShard``
+    output, which is what this refuses.  Where DTensor has no such
+    placement (2.11) the refusal is its own and nothing is patched."""
+    try:
+        from torch.distributed.tensor._ops import _view_ops as vo
+        from torch.distributed.tensor.placement_types import _StridedShard
+        real = vo.propagate_shape_and_sharding
+    except (ImportError, AttributeError):
+        yield
+        return
+
+    def refuse(*a, **kw):
+        res = real(*a, **kw)
+        if any(isinstance(p, _StridedShard) for p in res[1]):
+            raise RuntimeError("Attempted to flatten multiple dimensions "
+                               f"(emulated): {a[0]} -> {res[1]}")
+        return res
+    vo.propagate_shape_and_sharding = refuse
+    try:
+        yield
+    finally:
+        vo.propagate_shape_and_sharding = real
 
 
 def _route(mesh):
@@ -338,16 +387,15 @@ def _route(mesh):
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.models.sharding import matmul
-    gen = torch.Generator().manual_seed(0)
-    x_full = torch.randn(8, 16, 32, generator=gen)
-    w_full = torch.randn(32, 24, generator=gen)
-    dy_full = torch.randn(8, 16, 24, generator=gen)
-
-    def run(f, xpl, wpl, grad):
+    def run(f, xpl, wpl, grad, to):
         x = distribute_tensor(x_full, mesh, xpl).requires_grad_(grad)
         w = distribute_tensor(w_full, mesh, wpl).requires_grad_(grad)
         with torch.set_grad_enabled(grad):
             y = f(x, w)
+            if to is not None:
+                # a residual add of a stream placed ``to``: DTensor takes
+                # y there below autograd, so y's gradient arrives so
+                y = y + distribute_tensor(torch.zeros(y.shape), mesh, to)
         vals = (y.full_tensor(),)
         if grad:
             (y * distribute_tensor(dy_full, mesh, y.placements)).sum() \
@@ -356,13 +404,27 @@ def _route(mesh):
         return x, w, y, vals
 
     out = {}
-    for name, xpl, wpl, grad in _route_cases():
+    for name, xpl, wpl, grad, to in _route_cases():
+        # the last case at a seq of its own: DTensor caches its sharding
+        # decisions by shapes and placements, and an earlier case's
+        # views would answer the refused one without running its rule
+        s = 16 if to is None else 8
+        gen = torch.Generator().manual_seed(0)
+        x_full = torch.randn(8, s, 32, generator=gen)
+        w_full = torch.randn(32, 24, generator=gen)
+        dy_full = torch.randn(8, s, 24, generator=gen)
         rec = {}
-        x, w, y, got = run(matmul, xpl, wpl, grad)
+        with _flatten_refused():
+            x, w, y, got = run(matmul, xpl, wpl, grad, to)
         rec["placements"] = [str(p) for p in y.placements]
-        xl = x.redistribute(mesh, [Shard(2) if isinstance(p, Replicate)
-                                   and isinstance(q, Shard) and q.dim == 0
-                                   else p for p, q in zip(xpl, wpl)])
+        xl = x.redistribute(mesh, [
+            Shard(2) if isinstance(p, Replicate) and isinstance(q, Shard)
+            and q.dim == 0 else Replicate() if isinstance(p, Shard)
+            and p.dim == 1 and isinstance(q, Shard) else p
+            for p, q in zip(xpl, wpl)])
+        if to is not None:
+            with torch.no_grad():
+                y = matmul(x, w)
         rec["local"] = torch.equal(y.to_local(),
                                    xl.to_local() @ w.to_local())
         xp = x_full.clone().requires_grad_()
@@ -371,7 +433,7 @@ def _route(mesh):
         rec["plain_err"] = max(float((a - b).abs().max()) for a, b in
                                zip(got, (xp @ wp, xp.grad, wp.grad)))
         try:
-            want = run(lambda a, b: a @ b, xpl, wpl, grad)[3]
+            want = run(lambda a, b: a @ b, xpl, wpl, grad, to)[3]
             rec["dtensor"] = all(torch.equal(a, b)
                                  for a, b in zip(got, want))
         except Exception as e:      # torch 2.11: the flatten refusal
@@ -449,10 +511,30 @@ def _mutation(rank):
     return out
 
 
-def _rank_main(rank, world, path):
+def _dense_train_plan():
+    """The dense-train cell's as-executed plan (calibration's), solved at
+    beam 256: the plan the CLI solves at beam "auto" (the same role cuts,
+    in ~1 s where "auto" takes ~25 s on this CPU)."""
+    from repro_torch.core.builders import build_graph
+    from repro_torch.core.plan import ShardingPlan
+    from repro_torch.core.solver import TilingSolution, solve_mesh
+    spec = cells.get_cells(["dense-train"])[0]
+    cfg, shape = spec.cfg(), spec.shape()
+    g = build_graph(cfg, shape)
+    axes = calibration.verify_axes()
+    sol = solve_mesh(g, axes, beam=256)
+    ex = calibration.faithful_assignments(g, sol.per_axis)
+    return ShardingPlan.from_graph_solution(
+        TilingSolution(list(axes), ex, [0.0] * len(axes), 0.0, 0.0), g)
+
+
+def _rank_main(rank, world, path, dense_plan):
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh((4, 2), ("data", "model"), "cpu")
     out = {"route": _route(mesh), "mutation": _mutation(rank)}
+    spec = cells.get_cells(["dense-train"])[0]
+    out["dense_train"] = calibration._measure(spec.cfg(), spec.shape(),
+                                              dense_plan, mesh)
     if rank == 0:
         torch.save(out, path)
 
@@ -461,7 +543,7 @@ def _rank_main(rank, world, path):
 def ranks(tmp_path_factory):
     from repro_torch.launch.mesh import spawn
     path = tmp_path_factory.mktemp("verify_ranks") / "out.pt"
-    spawn(_rank_main, 8, "cpu", (str(path),))
+    spawn(_rank_main, 8, "cpu", (str(path), _dense_train_plan()))
     return torch.load(path, weights_only=False)
 
 
@@ -469,10 +551,14 @@ def ranks(tmp_path_factory):
 def test_projection_route_is_the_dtensor_product(ranks, case):
     """The route's output keeps the cut (batch and seq over the mesh, or
     seq and the weight's output cut; without autograd a contracted cut
-    gives a pending sum), each rank's shard is its local product bit for
-    bit, and the forward (and both grads) are DTensor's ``x @ w`` bit
-    for bit where this torch runs it (2.13); torch 2.11 refuses it with
-    the flatten error.  Against one process's product the values are
+    gives a pending sum; x's seq cut over the mesh dim that cuts the
+    weight's output is gathered first; a pending sum's gradient that
+    arrives cut on seq is gathered on seq), each rank's shard is its
+    local product bit for bit, the route runs with DTensor refusing
+    every flatten of a cut dim other than the first (as torch 2.11
+    does: ``_flatten_refused``), and the forward (and both grads) are
+    DTensor's ``x @ w`` bit for bit where this torch runs it (2.13);
+    torch 2.11 refuses it with the flatten error.  Against one process's product the values are
     within f32 summation order (the weight's grad sums the ranks' rows
     in another order)."""
     rec = ranks["route"][case]
@@ -514,27 +600,61 @@ def test_exec_leg_raises_other_einsum_errors(ranks):
     assert ranks["mutation"]["other_error"] == "not a flatten refusal"
 
 
+# the measured wire bytes of one executed step of each cell the 8-rank
+# tests run, capped at what this port measured on 8 gloo ranks, each
+# rounded up by at most 5% (the per-collective tables: PERF.md §6).
+# dense-train's equals repro's *executed* bytes to 0.3% (9,451,120: its
+# compiled step counted with the layer loop's trip count,
+# experiments/conformance/repro_executed_bytes.py; repro's record counts
+# each collective of the program text once, 3,580,528); xlstm-decode
+# moves 22,656 bytes since its decode steps update each rank's own heads
+# (sharding.step_rows(heads=True); 153,728 before)
+WIRE_CAPS = {"dense-train": 9_600_000,      # measured 9,479,816
+             "dense-decode": 57_000,        # 55,296
+             "xlstm-train": 10_300_000,     # 10,034,824
+             "xlstm-decode": 23_500}        # 22,656
+
+
+def test_dense_train_wire_bytes_under_cap(ranks):
+    """The dense-train step under its solved plan (beam 256, the CLI's
+    plan) moves at most WIRE_CAPS["dense-train"]; its all-reduces are the
+    f32 gradient sums that repro issues too (ten over the flattened 8
+    ranks, for the four layers' replicated weights)."""
+    rec = ranks["dense_train"]
+    assert rec["wire_bytes_total"] <= WIRE_CAPS["dense-train"], rec
+    assert rec["counts"]["all-reduce"] == 13
+    grads = [r for r in rec["by_site"] if "_reduce_flat" in r["site"]]
+    assert sum(r["count"] for r in grads) == 10
+
+
 # -- the CLI on 8 gloo ranks -------------------------------------------------------
 
 def test_cli_cell_and_fuzz_smoke():
     """``python -m repro_torch.verify --device cpu --cells
-    dense-decode,xlstm-train --fuzz 10 --json --out ''``: repro's smoke
-    (tests/test_verify_smoke.py) on the port's 8 gloo ranks."""
+    dense-decode,xlstm-train,xlstm-decode,trace --fuzz 10 --json --out
+    ''``: repro's smoke (tests/test_verify_smoke.py) on the port's 8 gloo
+    ranks, each cell's measured wire bytes under WIRE_CAPS, with the
+    trace cell: the dense, moe and xlstm ratios within repro's bands, the
+    MLP's solved cost equal to the oracle at both axes and its sharded
+    output within EXEC_ATOL; the fuzz's trace legs count, and no round
+    trip solves above its original graph."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.verify", "--device", "cpu",
-         "--cells", "dense-decode,xlstm-train", "--fuzz", "10", "--json",
-         "--out", ""], capture_output=True, text=True, timeout=600,
-        env=dict(os.environ, PYTHONPATH=SRC))
+         "--cells", "dense-decode,xlstm-train,xlstm-decode,trace",
+         "--fuzz", "10", "--json", "--out", ""], capture_output=True,
+        text=True, timeout=600, env=dict(os.environ, PYTHONPATH=SRC))
     assert out.returncode == 0, out.stderr[-4000:] + out.stdout[-2000:]
     rep = json.loads(out.stdout)
     assert rep["pass"] is True
     assert rep["meta"]["n_devices"] == 8 and rep["meta"]["device"] == "cpu"
     by = {c["cell"]: c for c in rep["cells"]}
-    assert set(by) == {"dense-decode", "xlstm-train"}
+    assert set(by) == {"dense-decode", "xlstm-train", "xlstm-decode"}
     for c in by.values():
         assert c["status"] == "ok"
         assert c["calibration"]["ok"]
         assert c["numerics"]["ok"]
+        assert c["measured"]["wire_bytes_total"] <= WIRE_CAPS[c["cell"]], \
+            (c["cell"], c["measured"])
     assert by["xlstm-train"]["dp_baseline"]["gated"]
     assert by["xlstm-train"]["dp_baseline"]["ok"]
     assert not by["dense-decode"]["dp_baseline"]["gated"]
@@ -542,16 +662,31 @@ def test_cli_cell_and_fuzz_smoke():
     assert fz["ok"] and fz["n"] == 10
     assert fz["oracle_checked"] >= 6
     assert fz["exec_checked"] >= 1
-    assert fz["trace_checked"] == fz["trace_exec_checked"] == 0
-    assert "trace" not in rep and "serve" not in rep
+    assert fz["trace_checked"] == 10
+    assert fz["trace_exec_checked"] == fz["exec_checked"]
+    assert "serve" not in rep
+    tr = rep["trace"]
+    assert tr["status"] == "ok", tr
+    from repro_torch.verify.trace_cell import FAMILY_BANDS
+    assert [f["family"] for f in tr["families"]] == list(FAMILY_BANDS)
+    for f in tr["families"]:
+        lo, hi = FAMILY_BANDS[f["family"]]
+        assert lo <= f["ratio"] <= hi, f
+    mlp = tr["mlp"]
+    assert mlp["oracle_ok"] and mlp["exec_ok"]
+    assert [a["axis"] for a in mlp["per_axis"]] == ["data", "model"]
+    assert mlp["max_abs_err"] <= fuzz.EXEC_ATOL * max(1.0, mlp["scale"])
 
 
 def test_cli_refuses_trace_and_missing_cards():
-    """Selecting the trace cell exits non-zero with the reason; --device
-    cuda on a machine with fewer than 8 cards stops with an error that
-    names the count and --device cpu (no fallback)."""
-    from repro_torch.verify.__main__ import main
-    assert main(["--cells", "trace", "--device", "cpu"]) == 2
+    """The trace cell is a cell the CLI takes (an unknown name beside it
+    still raises before any rank starts); --device cuda on a machine with
+    fewer than 8 cards stops with an error that names the count and
+    --device cpu (no fallback)."""
+    from repro_torch.verify.__main__ import PSEUDO, main
+    assert "trace" in PSEUDO
+    with pytest.raises(KeyError, match="nope"):
+        main(["--cells", "trace,nope", "--device", "cpu"])
     if torch.cuda.device_count() < cells.N_DEVICES:
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.verify", "--cells",

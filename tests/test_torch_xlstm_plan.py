@@ -450,9 +450,11 @@ def test_plain_servers_match_repros(runs):
 def test_serving_state_is_placed_and_fallbacks_counted(runs):
     """The solved decode plans cut the state on batch over both axes: one
     slot a rank, no fallback.  megatron cuts it on batch and inner (the
-    heads): every sLSTM step gathers h, c and n and every mLSTM step C,
-    and both fused projections arrive cut on inner: 6 a pair a step, for
-    every decode dispatch and every prompt token's scan step."""
+    heads): both fused projections arrive cut on inner and are gathered,
+    2 a pair a step; a decode dispatch updates each rank's own heads of
+    the state (``sharding.step_rows(heads=True)``), while a prompt
+    token's scan step (one row, on its owner ranks) gathers h, c and n in
+    the sLSTM and C in the mLSTM too: 6 a pair a step."""
     ref, out, _ = runs
     solved = out[("serve", "xlstm", "solved")]
     assert sum(solved["fallbacks"].values()) == 0
@@ -464,8 +466,9 @@ def test_serving_state_is_placed_and_fallbacks_counted(runs):
     assert ssm["cache"]["mamba/ssm"] == (("S(1)", "S(1)"), (4, 1, 16, 8, 8))
     meg = out[("serve", "xlstm", "megatron")]
     assert meg["cache"]["mlstm/C"] == (("S(1)", "S(2)"), (2, 2, 2, 48, 48))
-    steps = ref[("serve", "xlstm")]["decode"] + sum(map(len, PROMPTS))
-    assert meg["fallbacks"]["xlstm"] == 2 * 6 * steps
+    decode = ref[("serve", "xlstm")]["decode"]
+    prompt = sum(map(len, PROMPTS))
+    assert meg["fallbacks"]["xlstm"] == 2 * (2 * decode + 6 * prompt)
     assert sum(meg["fallbacks"].values()) == meg["fallbacks"]["xlstm"]
 
 
